@@ -1,0 +1,97 @@
+"""Analysis / synthesis / hyper transforms, port of models/components.py
+(the 5x5 conv/GDN set; the 3x3 residual variants come with their family).
+
+Modules take and return (B, C, H, W) tensors in channels_last memory.
+Submodule names follow the JAX package's parameter tree (``Conv2d_0``,
+``GDN_0``, ...), so carrying weights across is a walk over matching names.
+"""
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from neural_image_compression_tpu_torch.ops.blocks import leaky_relu
+from neural_image_compression_tpu_torch.ops.conv import Conv2d, Deconv2d
+from neural_image_compression_tpu_torch.ops.gdn import GDN
+from neural_image_compression_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+class Encoder5x5(nn.Module):
+    """4x stride-2 5x5 convs with GDN between (x16 downsample), 3 -> M."""
+
+    def __init__(self, latent_channels: int = 192, dtype: Optional[torch.dtype] = None,
+                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        m = latent_channels
+        for i in range(4):
+            setattr(self, f"Conv2d_{i}", Conv2d(3 if i == 0 else m, m, 5, 2, 2, dtype=dtype,
+                                                device=device, generator=generator))
+            if i < 3:
+                setattr(self, f"GDN_{i}", GDN(m, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(3):
+            x = getattr(self, f"GDN_{i}")(getattr(self, f"Conv2d_{i}")(x))
+        return self.Conv2d_3(x)  # bottleneck
+
+
+class Decoder5x5(nn.Module):
+    """Mirror of Encoder5x5: 4x stride-2 5x5 deconvs with IGDN, M -> 3."""
+
+    def __init__(self, latent_channels: int = 192, dtype: Optional[torch.dtype] = None,
+                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        m = latent_channels
+        for i in range(4):
+            setattr(self, f"Deconv2d_{i}", Deconv2d(m, 3 if i == 3 else m, 5, 2, 2, 1,
+                                                    dtype=dtype, device=device,
+                                                    generator=generator))
+            if i < 3:
+                setattr(self, f"GDN_{i}", GDN(m, inverse=True, device=device))
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        for i in range(3):
+            y = getattr(self, f"GDN_{i}")(getattr(self, f"Deconv2d_{i}")(y))
+        return self.Deconv2d_3(y)
+
+
+class HyperEncoder5x5(nn.Module):
+    """y -> z, x4 downsample. Operates on raw y (not |y|)."""
+
+    def __init__(self, latent_channels: int = 192, dtype: Optional[torch.dtype] = None,
+                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        m = latent_channels
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.Conv2d_0 = Conv2d(m, m, 3, 1, 1, **kw)
+        self.Conv2d_1 = Conv2d(m, m, 5, 2, 2, **kw)
+        self.Conv2d_2 = Conv2d(m, m, 5, 2, 2, **kw)
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        y = leaky_relu(self.Conv2d_0(y))
+        y = leaky_relu(self.Conv2d_1(y))
+        return self.Conv2d_2(y)
+
+
+class HyperDecoder5x5(nn.Module):
+    """z -> psi with 2M output channels; middle width int(1.5 * M)."""
+
+    def __init__(self, latent_channels: int = 192, dtype: Optional[torch.dtype] = None,
+                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        m = latent_channels
+        mid = int(1.5 * m)
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.Deconv2d_0 = Deconv2d(m, m, 5, 2, 2, 1, **kw)
+        self.Deconv2d_1 = Deconv2d(m, mid, 5, 2, 2, 1, **kw)
+        self.Conv2d_0 = Conv2d(mid, 2 * m, 3, 1, 1, **kw)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        z = leaky_relu(self.Deconv2d_0(z))
+        z = leaky_relu(self.Deconv2d_1(z))
+        return self.Conv2d_0(z)

@@ -1,0 +1,85 @@
+"""Convolution modules with torch geometry (port of ops/conv.py).
+
+``Conv2d`` and ``Deconv2d`` run ``F.conv2d`` / ``F.conv_transpose2d`` on
+(B, C, H, W) tensors in channels_last memory; their weights are OIHW and
+torch ConvTranspose2d's (in, out, kh, kw), also channels_last. The JAX
+package's TPU lowerings of the same math (subpel/phased deconv, custom
+VJPs) have no counterpart here.
+
+Init matches torch's defaults (kaiming-uniform a=sqrt(5): bound
+1/sqrt(fan_in)), drawn from the caller's ``torch.Generator`` on the CPU and
+then moved to the module's device, so one seed gives the same weights on
+every device.
+"""
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from neural_image_compression_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+def uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """U(-bound, bound) float32 on the CPU from ``generator``."""
+    return torch.empty(shape).uniform_(-bound, bound, generator=generator)
+
+
+def cast(dtype: Optional[torch.dtype], x: torch.Tensor, weight: torch.Tensor,
+         bias: torch.Tensor):
+    """x, weight and bias in the compute dtype (unchanged when it is None)."""
+    if dtype is None:
+        return x, weight, bias
+    return x.to(dtype), weight.to(dtype), bias.to(dtype)
+
+
+def _param(t: torch.Tensor, device: torch.device) -> nn.Parameter:
+    if t.dim() == 4:
+        t = t.contiguous(memory_format=torch.channels_last)
+    return nn.Parameter(t.to(device))
+
+
+class Conv2d(nn.Module):
+    """Conv with torch-default init. dtype: compute dtype (params stay f32)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0,
+                 dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        k = kernel_size
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+        bound = 1.0 / math.sqrt(k * k * in_channels)
+        self.weight = _param(uniform((features, in_channels, k, k), bound, generator), device)
+        self.bias = _param(uniform((features,), bound, generator), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, weight, bias = cast(self.dtype, x, self.weight, self.bias)
+        return F.conv2d(x, weight, bias, self.stride, self.padding)
+
+
+class Deconv2d(nn.Module):
+    """Transposed conv (torch ConvTranspose2d geometry and init)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int,
+                 stride: int = 2, padding: int = 0, output_padding: int = 0,
+                 dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        k = kernel_size
+        self.stride, self.padding = stride, padding
+        self.output_padding, self.dtype = output_padding, dtype
+        # torch ConvTranspose2d: fan_in = k*k*out_ch (weight.size(1) of its
+        # (in, out, kh, kw) layout) for both kernel and bias
+        bound = 1.0 / math.sqrt(k * k * features)
+        self.weight = _param(uniform((in_channels, features, k, k), bound, generator), device)
+        self.bias = _param(uniform((features,), bound, generator), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, weight, bias = cast(self.dtype, x, self.weight, self.bias)
+        return F.conv_transpose2d(x, weight, bias, self.stride, self.padding,
+                                  self.output_padding)
