@@ -46,6 +46,8 @@ def test_gdn_wrapper_checks_its_inputs():
         gdn_kernel.gdn(x.double(), g, b)
     with pytest.raises(ValueError, match="contiguous"):
         gdn_kernel.gdn(torch.ones(8, 4).t(), g, b)
+    with pytest.raises(ValueError, match="at most 256"):
+        gdn_kernel.gdn(torch.ones(2, 257), torch.eye(257), torch.ones(257))
 
 
 def test_gdn_reference_bf16_keeps_dtype_and_f32_math():
@@ -57,6 +59,85 @@ def test_gdn_reference_bf16_keeps_dtype_and_f32_math():
     assert got.dtype == torch.bfloat16
     want = gdn_kernel.gdn_reference(x.float(), g, b).to(torch.bfloat16)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# --- the GDN kernel's split-precision design, emulated in numpy --------------
+# The card kernel computes the channel mix on the tensor cores with each
+# product split in three (csrc/gdn_kernel.cu): 3xTF32 for float32 x and
+# 3xbf16 for bfloat16 x, float32 accumulation. These tests pin the numeric
+# argument on the CPU; the sums are taken in float64 (exact accumulation).
+
+def _bf16(a):
+    """Round float32 values to bfloat16 (nearest, ties to even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _tf32_rna(a):
+    """Round float32 values to TF32 (10 stored mantissa bits), nearest with
+    ties away from zero: cvt.rna.tf32.f32."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _gdn_operands(rows, c, seed):
+    """x, gamma and beta drawn as chip_smoke.py draws them."""
+    rng = np.random.default_rng(seed)
+    gamma = np.abs(rng.normal(0.0, 0.02, (c, c))).astype(np.float32)
+    gamma[np.arange(c), np.arange(c)] += 0.1
+    beta = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    x = rng.standard_normal((rows, c), dtype=np.float32)
+    return x, gamma, beta
+
+
+def _rel_err_of_norm(s_hi, s_lo, g_hi, g_lo, x, gamma, beta):
+    split = (s_lo.astype(np.float64) @ g_hi + s_hi.astype(np.float64) @ g_lo
+             + s_hi.astype(np.float64) @ g_hi + beta)
+    x64 = x.astype(np.float64)
+    exact = (x64 * x64) @ gamma.astype(np.float64) + beta
+    return np.abs(split / exact - 1.0).max()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_square_splits_exactly_into_two_bf16(seed):
+    rng = np.random.default_rng(seed)
+    mag = 10.0 ** rng.uniform(-4.0, 4.0, 100_000)
+    x = _bf16(np.where(rng.uniform(size=mag.size) < 0.5, -mag, mag).astype(np.float32))
+    s = x * x  # at most 16 significant bits: exact in float32
+    assert np.array_equal(s.astype(np.float64), x.astype(np.float64) ** 2)
+    s_hi = _bf16(s)
+    s_lo = _bf16(s - s_hi)
+    assert np.array_equal(s - s_hi, s_lo)  # the remainder is a bf16 value
+    assert np.array_equal(s_hi.astype(np.float64) + s_lo, s.astype(np.float64))
+
+
+@pytest.mark.parametrize("c", [16, 128, 192])
+def test_three_tf32_products_keep_float32_grade_norm(c):
+    x, gamma, beta = _gdn_operands(8192, c, seed=c)
+    s = x * x
+    s_hi = _tf32_rna(s)
+    s_lo = _tf32_rna(s - s_hi)
+    g_hi = _tf32_rna(gamma)
+    g_lo = _tf32_rna(gamma - g_hi)
+    err = _rel_err_of_norm(s_hi, s_lo, g_hi, g_lo, x, gamma, beta)
+    assert err <= 1e-6, err
+    # one TF32 product alone is three orders of magnitude worse
+    single = _rel_err_of_norm(s_hi, np.zeros_like(s), g_hi, np.zeros_like(gamma),
+                              x, gamma, beta)
+    assert single > 1e-4, single
+
+
+@pytest.mark.parametrize("c", [16, 128, 192])
+def test_three_bf16_products_keep_norm_within_3e_5(c):
+    x, gamma, beta = _gdn_operands(8192, c, seed=100 + c)
+    x = _bf16(x)
+    s = x * x
+    s_hi = _bf16(s)
+    s_lo = _bf16(s - s_hi)
+    g_hi = _bf16(gamma)
+    g_lo = _bf16(gamma - g_hi)
+    err = _rel_err_of_norm(s_hi, s_lo, g_hi, g_lo, x, gamma, beta)
+    assert err <= 3e-5, err
 
 
 def test_gmm_wrapper_checks_its_inputs():
@@ -84,9 +165,11 @@ def cuda_device(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("inverse", [False, True])
-# ragged last row tile; channel counts that fill, and that leave ragged,
-# the kernel's 16-channel slices and 64-channel output tiles
-@pytest.mark.parametrize("n,c", [(1000, 128), (77, 100), (300, 16), (513, 256)])
+# ragged last row tiles; channel counts that fill, and that leave ragged,
+# the kernel's 64-channel padded widths; 100 (bf16) and 10 take the wrapper's
+# padded route; 192 and 256 the widths where gamma is cut into slices
+@pytest.mark.parametrize("n,c", [(1000, 128), (77, 100), (300, 16), (513, 256),
+                                 (100003, 128), (4096, 192), (64, 10)])
 def test_gdn_kernel_matches_plain_on_card(cuda_device, dtype, inverse, n, c):
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to(cuda_device, dtype)
