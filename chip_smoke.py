@@ -8,21 +8,30 @@ Phases, in order; any failure exits non-zero:
   1. device: torch and CUDA versions, the card's name and power limit; build
      every kernel from csrc/ (one nvcc per source, in parallel).
   2. kernels: each hand-written kernel against its plain PyTorch version on
-     the card, at the flagship's shapes (batch 48 at 768x512, M = 128, K = 3),
-     timed with CUDA events beside its bound; GDN also at a ragged row count,
-     at 192 and 256 channels and at 10 (the wrapper's padded route).
-  3. cross-device parity: the M=128, K=3 eval forward on the card against
-     the same weights on the CPU (the card runs the kernels, the CPU their
-     plain versions).
+     the card, timed with CUDA events beside its bound: the forwards at the
+     serve's shapes (batch 48 at 768x512, M = 128, K = 3) and at the train
+     step's (batch 16 at 256x256), the backwards at the train step's; GDN
+     forward and backward also at a ragged row count, at 192 and 256
+     channels and at 10.
+  3. cross-device parity: the M=128, K=3 eval forward, and one float32
+     training step's loss and parameter gradients (batch 1 at 256x256, the
+     noise drawn once on the CPU), on the card against the same weights on
+     the CPU (the card runs the kernels, the CPU their plain versions).
   4. serve: the flagship eval forward through make_serving_fn at 768x512,
-     batch 48 and batch 1, in float32 and bfloat16 transforms, with the
-     kernels' launch counts read over exactly this phase.
+     batch 48 and batch 1, in float32 and bfloat16 transforms.
+  5. train: the flagship's training step through make_train_step (batch 16
+     of 256x256, rd_loss at lambda 0.005, Adam 1e-4) in bfloat16 and float32
+     transforms: steps/s, peak memory and MFU over 20 timed steps, and the
+     loss falling over 30 steps on one batch.
+Phases 4 and 5 are the main paths: the kernels' launch counts are set to 0
+just before each and read just after it.
 The last lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
 TF32 is off throughout (convolutions and products in full float32).
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -32,18 +41,21 @@ import time
 import numpy as np
 import torch
 
-from neural_image_compression_tpu_torch.models import JointAutoregressiveHierarchical
+from neural_image_compression_tpu_torch.models import JointAutoregressiveHierarchical, joint_ar
 from neural_image_compression_tpu_torch.ops.kernels import (
-    _build, gdn_kernel, gmm_kernel, reset_launch_counts,
+    _build, gdn_kernel, gmm_kernel, launch_counts, reset_launch_counts,
 )
+from neural_image_compression_tpu_torch.parallel import make_train_step
 from neural_image_compression_tpu_torch.serving import make_serving_fn
 from neural_image_compression_tpu_torch.train import rd_loss
+from neural_image_compression_tpu_torch.utils import flops
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device memory, TF32
 # on the tensor cores (GDN's channel mix, which the card can run there) and
 # float32 outside them (the mixture kernel's erf arithmetic).
 HBM_BYTES_PER_S = 3.35e12
-PEAKS = {"tf32_tensor_core": 495e12, "f32_cuda_core": 67e12}
+PEAKS = {"tf32_tensor_core": flops.H100_PEAK_TFLOPS["tf32"] * 1e12,
+         "f32_cuda_core": flops.H100_PEAK_TFLOPS["f32"] * 1e12}
 
 M, K = 128, 3
 BATCH, HEIGHT, WIDTH = 48, 512, 768
@@ -54,6 +66,14 @@ GDN_SITES = {"H/2": BATCH * (HEIGHT // 2) * (WIDTH // 2),
              "H/8": BATCH * (HEIGHT // 8) * (WIDTH // 8)}
 GMM_ROWS = BATCH * (HEIGHT // 16) * (WIDTH // 16)
 GDN_PER_FORWARD, GMM_PER_FORWARD = 6, 1
+# the train step: batch 16 of 256x256 (bench.py's train shape)
+TRAIN_BATCH, TRAIN_SIZE, LAMBDA = 16, 256, 0.005
+TRAIN_GDN_SITES = {"H/2": TRAIN_BATCH * (TRAIN_SIZE // 2) ** 2,
+                   "H/4": TRAIN_BATCH * (TRAIN_SIZE // 4) ** 2,
+                   "H/8": TRAIN_BATCH * (TRAIN_SIZE // 8) ** 2}
+TRAIN_GMM_ROWS = TRAIN_BATCH * (TRAIN_SIZE // 16) ** 2
+PER_STEP = {"gdn": 6, "gdn_backward": 6, "gmm_logp": 1, "gmm_logp_backward": 1}
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_CONVERGE = 3, 20, 30
 # GDN correctness beyond the main path: (rows, channels)
 GDN_EXTRA_CASES = ((100_003, 128), (65_536, 192), (65_536, 256), (65_536, 10))
 # bf16 GDN against its plain version: at most one bf16 step apart, and only
@@ -67,6 +87,13 @@ TIMING_REPS = 20
 PARITY_SEED, PARITY_GAIN_Y, PARITY_GAIN_Z = 10, 4.0, 12.0
 MIN_ROUNDING_MARGIN = 1e-5
 
+# card-vs-CPU gradients: each leaf's max abs difference over its max abs
+# value; the float32 sums of about 20 layers' forward and backward run in
+# other orders (cuDNN's backward algorithms among them, which need not be
+# deterministic). Measured on an H100 at most 6.3e-6 (median 8.0e-7) over
+# the 59 leaves; 1e-4 leaves a factor of 16 for other cuDNN algorithms.
+GRAD_SEED, GRAD_LEAF_TOL, GRAD_LOSS_RTOL = 11, 1e-4, 1e-5
+
 SERVE_ITERS, LATENCY_ITERS = 5, 10
 
 KERNEL_INFO = {
@@ -76,6 +103,14 @@ KERNEL_INFO = {
     "gmm_logp": {"route": "cuda",
                  "source": "neural_image_compression_tpu_torch/csrc/gmm_kernel.cu",
                  "replaces": "neural_image_compression_tpu/ops/pallas/gmm_kernel.py:59"},
+    # the backward of gdn_fused_op (_gdn_bwd, XLA autodiff of _gdn_reference)
+    "gdn_backward": {"route": "cuda",
+                     "source": "neural_image_compression_tpu_torch/csrc/gdn_bwd_kernel.cu",
+                     "replaces": "neural_image_compression_tpu/ops/pallas/gdn_kernel.py:48"},
+    # the TPU kernel has no backward; JAX autodiffs entropy/gaussian.py:48-51
+    "gmm_logp_backward": {"route": "cuda",
+                          "source": "neural_image_compression_tpu_torch/csrc/gmm_kernel.cu",
+                          "replaces": "neural_image_compression_tpu/ops/pallas/gmm_kernel.py:59"},
 }
 
 
@@ -177,29 +212,31 @@ def gdn_cases(dev):
     c = M
     gamma_t, beta_t = gdn_params(c, rng, dev)
     records = []
-    for site, rows in GDN_SITES.items():
-        x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            x = x32.to(dtype)
-            for inverse in (False, True):
-                name = "igdn" if inverse else "gdn"
-                err = check_gdn(x, gamma_t, beta_t, inverse,
-                                f"{name:4s} {site} {str(dtype).replace('torch.', '')}")
-                ms = median_ms(lambda: gdn_kernel.gdn(x, gamma_t, beta_t, inverse))
-                plain_ms = median_ms(lambda: gdn_kernel.gdn_reference(x, gamma_t, beta_t, inverse))
-                io_bytes = rows * c * x.element_size() * 2 + (c * c + c) * 4
-                # the work counted once (not the three split products)
-                peak = "tf32_tensor_core"
-                bound_ms, bound_by = bound(io_bytes, 2.0 * rows * c * c + 4.0 * rows * c, peak)
-                records.append(dict(
-                    name="gdn", **KERNEL_INFO["gdn"], site=site, inverse=inverse,
-                    shape=[rows, c], dtype=str(dtype).replace("torch.", ""),
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, peak=peak, library_ms=None))
-                print(f"  {name:4s} {site} rows={rows} {str(dtype):14s} "
-                      f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                      f"({bound_by}, {100 * bound_ms / ms:.1f}% of it)", flush=True)
-        del x32, x
+    for path, sites in (("serve", GDN_SITES), ("train", TRAIN_GDN_SITES)):
+        for site, rows in sites.items():
+            x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x32.to(dtype)
+                dname = str(dtype).replace("torch.", "")
+                for inverse in (False, True):
+                    name = "igdn" if inverse else "gdn"
+                    err = check_gdn(x, gamma_t, beta_t, inverse, f"{name:4s} {path} {site} {dname}")
+                    ms = median_ms(lambda: gdn_kernel.gdn(x, gamma_t, beta_t, inverse))
+                    plain_ms = median_ms(
+                        lambda: gdn_kernel.gdn_reference(x, gamma_t, beta_t, inverse))
+                    io_bytes = rows * c * x.element_size() * 2 + (c * c + c) * 4
+                    # the work counted once (not the three split products)
+                    peak = "tf32_tensor_core"
+                    bound_ms, bound_by = bound(io_bytes, 2.0 * rows * c * c + 4.0 * rows * c,
+                                               peak)
+                    records.append(dict(
+                        name="gdn", **KERNEL_INFO["gdn"], path=path, site=site, inverse=inverse,
+                        shape=[rows, c], dtype=dname, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by, peak=peak, library_ms=None))
+                    print(f"  {name:4s} {path} {site} rows={rows} {dname:8s} "
+                          f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                          f"({bound_by}, {100 * bound_ms / ms:.1f}% of it)", flush=True)
+            del x32, x
     for rows, c in GDN_EXTRA_CASES:
         gamma_c, beta_c = gdn_params(c, rng, dev)
         x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
@@ -227,38 +264,146 @@ def mixture_symbols(n, k, m, seed):
 
 
 def gmm_cases(dev):
-    n, k, m = GMM_ROWS, K, M
-    args = [torch.from_numpy(a).to(dev) for a in mixture_symbols(n, k, m, seed=1)]
+    return gmm_case(dev, "serve", GMM_ROWS, seed=1) + gmm_case(dev, "train", TRAIN_GMM_ROWS,
+                                                                seed=6)
+
+
+def gmm_case(dev, path, n, seed):
+    k, m = K, M
+    args = [torch.from_numpy(a).to(dev) for a in mixture_symbols(n, k, m, seed=seed)]
     got = gmm_kernel.gmm_logp(*args)
     want = gmm_kernel.mixture_log_likelihood_reference(*args)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     bulk = want > float(np.log(1e-6))
-    check(bulk.float().mean().item() > 0.99, "mixture symbols: bulk share")
+    check(bulk.float().mean().item() > 0.99, f"mixture symbols ({path}): bulk share")
     # tolerances: logp to 1e-5 where p > 1e-6 (both use CUDA's erff, so
     # only the order of the K-sum may differ), total nats to 1e-6
     bulk_err = (got[bulk] - want[bulk]).abs().max().item()
-    check(bulk_err <= 1e-5, f"gmm_logp bulk max abs err {bulk_err:.3e}")
+    check(bulk_err <= 1e-5, f"gmm_logp {path}: bulk max abs err {bulk_err:.3e}")
     tot_got, tot_want = got.double().sum().item(), want.double().sum().item()
     check(abs(tot_got - tot_want) <= 1e-6 * abs(tot_want),
-          f"gmm_logp total nats {tot_got} vs {tot_want}")
+          f"gmm_logp {path}: total nats {tot_got} vs {tot_want}")
     # the 1e-9 floor: symbols far outside every component
     y_far = torch.full_like(args[0], 1000.0)
     floor = gmm_kernel.gmm_logp(y_far, *args[1:])
     check(torch.allclose(floor, torch.full_like(floor, float(np.log(1e-9))), rtol=1e-6),
-          "gmm_logp floor")
+          f"gmm_logp {path}: floor")
     ms = median_ms(lambda: gmm_kernel.gmm_logp(*args))
     plain_ms = median_ms(lambda: gmm_kernel.mixture_log_likelihood_reference(*args))
     io_bytes = (3 * k + 2) * m * n * 4
     # about 34 float32 operations per (position, component), counting each
     # erff as 10, plus the floor and the log per position
     bound_ms, bound_by = bound(io_bytes, (34.0 * k + 12.0) * n * m, "f32_cuda_core")
-    print(f"  gmm  rows={n} K={k} M={m} err={err:.3e} (bulk {bulk_err:.3e}) "
+    print(f"  gmm  {path} rows={n} K={k} M={m} err={err:.3e} (bulk {bulk_err:.3e}) "
           f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})",
           flush=True)
-    return [dict(name="gmm_logp", **KERNEL_INFO["gmm_logp"], shape=[n, k, m], dtype="float32",
-                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    return [dict(name="gmm_logp", **KERNEL_INFO["gmm_logp"], path=path, shape=[n, k, m],
+                 dtype="float32", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                  bound_by=bound_by, peak="f32_cuda_core", library_ms=None)]
+
+
+def check_gdn_backward(x, gamma_t, beta_t, g, inverse, label):
+    """The backward kernel against its plain version: float32 outputs within
+    1e-4 relative plus 1e-5 of the largest value (other summation orders,
+    dgamma over up to 262,144 rows); a bf16 dx within one bf16 step of the
+    plain version. Two runs give the same bits (no atomics). Returns the
+    largest abs error of dx, dgamma and dbeta."""
+    got = gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, inverse)
+    want = gdn_kernel.gdn_backward_reference(x, gamma_t, beta_t, g, inverse)
+    torch.cuda.synchronize()
+    check(got[0].dtype == x.dtype and got[0].shape == x.shape, f"{label}: dx {got[0].dtype}")
+    errs = []
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        step = 2.0 ** -7 if (name == "dx" and x.dtype == torch.bfloat16) else 1e-4
+        limit = step * b.abs() + 1e-5 * b.abs().max()
+        check(bool((diff <= limit).all()),
+              f"{label}: {name} max abs err {diff.max().item():.3e} beyond tolerance")
+        errs.append(diff.max().item())
+    again = gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, inverse)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: runs differ")
+    print(f"  {label}: max abs err dx {errs[0]:.3e}, dgamma {errs[1]:.3e}, dbeta {errs[2]:.3e}")
+    return max(errs)
+
+
+def gdn_backward_cases(dev):
+    rng = np.random.default_rng(3)
+    c = M
+    gamma_t, beta_t = gdn_params(c, rng, dev)
+    records = []
+    for site, rows in TRAIN_GDN_SITES.items():
+        x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
+        g32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g = x32.to(dtype), g32.to(dtype)
+            for inverse in (False, True):
+                name = "igdn" if inverse else "gdn"
+                dname = str(dtype).replace("torch.", "")
+                err = check_gdn_backward(x, gamma_t, beta_t, g, inverse,
+                                         f"{name}-bwd {site} {dname}")
+                ms = median_ms(lambda: gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, inverse))
+                plain_ms = median_ms(
+                    lambda: gdn_kernel.gdn_backward_reference(x, gamma_t, beta_t, g, inverse))
+                # x and g read, dx written; gamma and beta read, dgamma and dbeta written
+                io_bytes = 3 * rows * c * x.element_size() + 2 * (c * c + c) * 4
+                # the three (N, C) x (C, C) products, counted once
+                peak = "tf32_tensor_core"
+                bound_ms, bound_by = bound(io_bytes, 6.0 * rows * c * c + 12.0 * rows * c, peak)
+                records.append(dict(
+                    name="gdn_backward", **KERNEL_INFO["gdn_backward"], path="train", site=site,
+                    inverse=inverse, shape=[rows, c], dtype=dname, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, peak=peak,
+                    library_ms=None))
+                print(f"  {name}-bwd {site} rows={rows} {dname:8s} kernel {ms:.4f} ms  "
+                      f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}, "
+                      f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
+        del x32, g32, x, g
+    for rows, c in GDN_EXTRA_CASES:
+        gamma_c, beta_c = gdn_params(c, rng, dev)
+        x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
+        g32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for inverse in (False, True):
+                name = "igdn" if inverse else "gdn"
+                check_gdn_backward(x32.to(dtype), gamma_c, beta_c, g32.to(dtype), inverse,
+                                   f"{name}-bwd rows={rows} C={c} "
+                                   f"{str(dtype).replace('torch.', '')}")
+    return records
+
+
+def gmm_backward_cases(dev):
+    n, k, m = TRAIN_GMM_ROWS, K, M
+    arrays = list(mixture_symbols(n, k, m, seed=4))
+    arrays[0] = arrays[0].copy()
+    arrays[0][0, :] = 1000.0  # a row below the 1e-9 floor: zero gradient
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (n, m), dtype=np.float32)).to(dev)
+    got = gmm_kernel.gmm_logp_backward(*args, g)
+    want = gmm_kernel.mixture_log_likelihood_backward_reference(*args, g)
+    torch.cuda.synchronize()
+    # both use CUDA's erff and expf; the K-sum and the divisions may round
+    # apart: 1e-4 relative plus 1e-6 of the largest value
+    err = 0.0
+    for name, a, b in zip(("dy", "dw", "dmu", "dsigma"), got, want):
+        diff = (a - b).abs()
+        check(bool((diff <= 1e-4 * b.abs() + 1e-6 * b.abs().max()).all()),
+              f"gmm backward {name} max abs err {diff.max().item():.3e}")
+        err = max(err, diff.max().item())
+    check(int(torch.count_nonzero(got[0][0])) == 0, "gmm backward: gradient below the floor")
+    ms = median_ms(lambda: gmm_kernel.gmm_logp_backward(*args, g))
+    plain_ms = median_ms(lambda: gmm_kernel.mixture_log_likelihood_backward_reference(*args, g))
+    io_bytes = (6 * k + 3) * m * n * 4
+    # per (position, component): both edges' erff (10 each) and expf (8
+    # each) and about 30 more; the floor, the division and the sum per position
+    bound_ms, bound_by = bound(io_bytes, (66.0 * k + 12.0) * n * m, "f32_cuda_core")
+    print(f"  gmm-bwd rows={n} K={k} M={m} err={err:.3e} kernel {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return [dict(name="gmm_logp_backward", **KERNEL_INFO["gmm_logp_backward"], path="train",
+                 shape=[n, k, m], dtype="float32", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, peak="f32_cuda_core", library_ms=None)]
 
 
 # --- phase 3: the card against the CPU ---------------------------------------
@@ -301,6 +446,59 @@ def parity(dev):
         a, b = loss_got[key].item(), loss_ref[key].item()
         print(f"  {key}: card {a:.7f} cpu {b:.7f}")
         check(abs(a - b) <= 1e-5 * abs(b), f"{key} card {a} vs cpu {b}")
+
+
+@contextlib.contextmanager
+def given_noise(noises):
+    """The model's noise_quantize adds these tensors, in order, on whatever
+    device it runs: one draw serves both devices."""
+    it = iter(noises)
+    drawn = joint_ar.noise_quantize
+    joint_ar.noise_quantize = lambda v, generator=None: v + next(it).to(v.device)
+    try:
+        yield
+    finally:
+        joint_ar.noise_quantize = drawn
+
+
+def grad_parity(dev):
+    """One float32 training step's loss and every parameter's gradient, the
+    card against the CPU, same weights, same noise."""
+    x = torch.from_numpy(np.random.default_rng(GRAD_SEED).uniform(
+        size=(1, TRAIN_SIZE, TRAIN_SIZE, 3)).astype(np.float32))
+    gen = torch.Generator().manual_seed(GRAD_SEED)
+    h = TRAIN_SIZE
+    noises = [torch.empty(1, h // 64, h // 64, M).uniform_(-0.5, 0.5, generator=gen),
+              torch.empty(1, h // 16, h // 16, M).uniform_(-0.5, 0.5, generator=gen)]
+    results = []
+    for device in ("cpu", dev):
+        model = JointAutoregressiveHierarchical(M, K, device=device, seed=GRAD_SEED)
+        xd = x.to(device)
+        with given_noise(noises):
+            loss = rd_loss(model(xd, training=True), xd, LAMBDA)["loss"]
+        loss.backward()
+        missing = [n for n, p in model.named_parameters() if p.grad is None]
+        check(not missing, f"{device}: no gradient reached {missing}")
+        results.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (loss_cpu, grads_cpu), (loss_card, grads_card) = results
+    print(f"  loss: card {loss_card:.7f} cpu {loss_cpu:.7f}")
+    check(abs(loss_card - loss_cpu) <= GRAD_LOSS_RTOL * abs(loss_cpu),
+          f"train loss card {loss_card} vs cpu {loss_cpu}")
+    worst = []
+    for name, want in grads_cpu.items():
+        scale = want.abs().max().item()
+        check(scale > 0, f"{name}: zero gradient on the CPU")
+        rel = (grads_card[name] - want).abs().max().item() / scale
+        worst.append((rel, name))
+        check(rel <= GRAD_LEAF_TOL, f"{name}: card-vs-cpu gradient differs by {rel:.3e} of "
+                                    f"its largest value")
+    worst.sort(reverse=True)
+    print(f"  {len(worst)} parameter gradients, card vs cpu: max abs diff over max abs value "
+          f"at most {worst[0][0]:.3e} ({worst[0][1]}), median "
+          f"{statistics.median(r for r, _ in worst):.3e} (tolerance {GRAD_LEAF_TOL:g}); "
+          f"each leaf:")
+    for rel, name in worst:
+        print(f"    {rel:.3e}  {name}")
 
 
 # --- phase 4: the main path ---------------------------------------------------
@@ -359,6 +557,70 @@ def serve_phase(dev, card: str):
     return forwards, results
 
 
+# --- phase 5: the training step -------------------------------------------------
+
+def train_run(dev, dtype, x, seed, steps, timed=False):
+    """``steps`` steps of a fresh model (weights from ``seed``) on batch x.
+    Returns the losses (tensors), per-step host times and the peak memory."""
+    model = JointAutoregressiveHierarchical(M, K, dtype=dtype, device=dev, seed=seed)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
+    step = make_train_step(model, opt, rd_loss, LAMBDA)
+    gen = torch.Generator(device=dev).manual_seed(100 + seed)
+    losses, times = [], []
+    if timed:
+        for _ in range(TRAIN_WARMUP):
+            losses.append(step(x, gen)["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(steps):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        losses.append(step(x, gen)["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        after = launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        check(launched == PER_STEP, f"one step launched {launched}, not {PER_STEP}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del model, opt, step
+    return torch.stack(losses).cpu(), times, peak
+
+
+def train_phase(dev, card: str):
+    x = torch.rand((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+                   generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    flops_img = flops.train_step_flops(
+        flops.joint_ar_eval_flops(M, K, TRAIN_SIZE, TRAIN_SIZE)["total"])
+    steps = 0
+    results = {}
+    for dtype, peak_name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        name = str(dtype).replace("torch.", "")
+        losses, times, peak_mem = train_run(dev, dtype, x, seed=0, steps=TRAIN_TIMED,
+                                            timed=True)
+        check(bool(torch.isfinite(losses).all()), f"{name}: a loss is not finite: {losses}")
+        conv, _, _ = train_run(dev, dtype, x, seed=1, steps=TRAIN_CONVERGE)
+        check(bool(torch.isfinite(conv).all()), f"{name}: a loss is not finite: {conv}")
+        first, last = conv[:10].mean().item(), conv[20:30].mean().item()
+        check(last < first, f"{name}: mean loss of steps 21-30 {last} not below steps 1-10 {first}")
+        steps += TRAIN_WARMUP + TRAIN_TIMED + TRAIN_CONVERGE
+        ms = 1e3 * statistics.median(times)
+        peak = flops.H100_PEAK_TFLOPS[peak_name]
+        results[name] = dict(
+            steps_per_s=1e3 / ms, ms_per_step=ms, ms_per_step_mean=1e3 * statistics.mean(times),
+            peak_mem_gib=peak_mem, mfu=flops.mfu(1e3 / ms * TRAIN_BATCH, flops_img, peak),
+            mfu_peak=f"{peak_name} {peak:g} TFLOP/s", flops_per_image=flops_img,
+            loss_first=losses[0].item(), loss_last=losses[-1].item(),
+            converge_mean_1_10=first, converge_mean_21_30=last)
+        r = results[name]
+        print(f"  {name}: {r['steps_per_s']:.3f} steps/s ({r['ms_per_step']:.3f} ms a step, "
+              f"mean {r['ms_per_step_mean']:.3f}) at batch {TRAIN_BATCH} of {TRAIN_SIZE}^2, "
+              f"peak memory {r['peak_mem_gib']:.2f} GiB, MFU {100 * r['mfu']:.2f}% of the "
+              f"{r['mfu_peak']} peak; loss {r['loss_first']:.4f} -> {r['loss_last']:.4f}; "
+              f"one batch, 30 steps: mean {first:.4f} (1-10) -> {last:.4f} (21-30) [{card}]",
+              flush=True)
+    return steps, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -379,25 +641,37 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
-    records = gdn_cases(dev) + gmm_cases(dev)
+    records = (gdn_cases(dev) + gmm_cases(dev) + gdn_backward_cases(dev)
+               + gmm_backward_cases(dev))
 
-    print("== phase 3: card against CPU, M=128 K=3, 2x256x256", flush=True)
+    print("== phase 3: card against CPU, M=128 K=3: eval forward 2x256x256, "
+          "train-step gradients 1x256x256", flush=True)
     torch.set_num_threads(8)
     parity(dev)
+    grad_parity(dev)
 
     print(f"== phase 4: serve, M={M} K={K}, {HEIGHT}x{WIDTH} [{card}]", flush=True)
     reset_launch_counts()
     forwards, serve_results = serve_phase(dev, card)
-    launches = {"gdn": gdn_kernel.gdn.launches, "gmm_logp": gmm_kernel.gmm_logp.launches}
-    check(launches["gdn"] == GDN_PER_FORWARD * forwards,
-          f"gdn launches {launches['gdn']} over {forwards} forwards")
-    check(launches["gmm_logp"] == GMM_PER_FORWARD * forwards,
-          f"gmm launches {launches['gmm_logp']} over {forwards} forwards")
-    print(f"main path: {forwards} forwards, launches {launches}")
+    serve_launches = launch_counts()
+    check(serve_launches == {"gdn": GDN_PER_FORWARD * forwards, "gdn_backward": 0,
+                             "gmm_logp": GMM_PER_FORWARD * forwards, "gmm_logp_backward": 0},
+          f"serve launches {serve_launches} over {forwards} forwards")
+    print(f"main path (serve): {forwards} forwards, launches {serve_launches}")
     print(json.dumps({"serve": serve_results, "card": card}))
 
+    print(f"== phase 5: train, M={M} K={K}, batch {TRAIN_BATCH} of {TRAIN_SIZE}x{TRAIN_SIZE} "
+          f"[{card}]", flush=True)
+    reset_launch_counts()
+    steps, train_results = train_phase(dev, card)
+    train_launches = launch_counts()
+    check(train_launches == {k: v * steps for k, v in PER_STEP.items()},
+          f"train launches {train_launches} over {steps} steps")
+    print(f"main path (train): {steps} steps, launches {train_launches}")
+    print(json.dumps({"train": train_results, "card": card}))
+
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = serve_launches[r["name"]] + train_launches[r["name"]]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,12 +9,16 @@ paths and class names. Public tensors keep the JAX layout: images are
 Entry points put their tensors on ``cuda`` unless the caller passes
 ``device="cpu"``, and raise when no CUDA device is present. On a CUDA tensor
 every kernel wrapper launches its hand-written kernel (``csrc/``); the plain
-PyTorch version of each kernel runs only for tensors on the CPU.
+PyTorch version of each kernel runs only for tensors on the CPU. The GDN
+and mixture-likelihood kernels have backward kernels, so the flagship
+trains on the card (``parallel.make_train_step``).
 
 This package imports torch and numpy only: never jax, flax or the JAX
 package.
 """
 
-from neural_image_compression_tpu_torch import entropy, models, ops, serving, train, utils
+from neural_image_compression_tpu_torch import (
+    entropy, models, ops, parallel, serving, train, utils,
+)
 
-__all__ = ["entropy", "models", "ops", "serving", "train", "utils"]
+__all__ = ["entropy", "models", "ops", "parallel", "serving", "train", "utils"]

@@ -3,11 +3,15 @@ of models/joint_ar.py: the 5x5 conv/GDN transforms, factorized hyper-
 bottleneck, masked-conv context and entropy parameters, with a mean-scale
 Gaussian (K=1) or K-component Gaussian mixture conditional.
 
-This slice ports the eval forward (round quantization). Its output dict has
-the JAX model's keys, NHWC: x_hat, y, y_in, z, z_in, p_z, logp_z, p_y,
-logp_y, training, plus mu/sigma (K=1) or weights/mus/sigmas (K>1, each
-(B, h, w, K, M)). The K>1 rate comes from the mixture-likelihood kernel:
-logp_y is its output and p_y = exp(logp_y).
+Quantization as in the JAX model: training adds U(-0.5, 0.5) noise to both
+z and y (float32, drawn on the model's device from the caller's
+torch.Generator, z first, then y); eval rounds. The output dict has the JAX
+model's keys, NHWC: x_hat, y, y_in, z, z_in, p_z, logp_z, p_y, logp_y,
+training, plus mu/sigma (K=1) or weights/mus/sigmas (K>1, each
+(B, h, w, K, M)). The K>1 rate comes from the mixture-likelihood kernel
+(differentiable: its backward is a kernel too): logp_y is its output and
+p_y = exp(logp_y). The K=1 rate is the plain Gaussian likelihood, as in the
+JAX package, which has no kernel there.
 """
 
 from typing import Dict, Optional
@@ -24,6 +28,22 @@ from neural_image_compression_tpu_torch.models.parameters import EntropyParamete
 from neural_image_compression_tpu_torch.ops.kernels.gmm_kernel import gmm_logp
 from neural_image_compression_tpu_torch.ops.masked_conv import ContextModel
 from neural_image_compression_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+def noise_quantize(x: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Additive uniform-noise relaxation: x + U(-0.5, 0.5), the noise float32
+    on x's device (torch's default generator there when none is given)."""
+    noise = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    return x + noise.uniform_(-0.5, 0.5, generator=generator)
+
+
+def quantize(x: torch.Tensor, training: bool,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    if training:
+        return noise_quantize(x, generator)
+    # torch.round rounds half to even, as jnp.round does
+    return torch.round(x)
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -72,25 +92,28 @@ class JointAutoregressiveHierarchical(nn.Module):
         combined = torch.cat([phi, psi], dim=1)
         return self.entropy_parameters(combined)
 
-    def forward(self, x: torch.Tensor, training: bool = True) -> Dict[str, torch.Tensor]:
-        """x: (B, H, W, 3) in [0, 1], H and W multiples of 64."""
-        if training:
-            raise NotImplementedError("training forward: later slice")
+    def forward(self, x: torch.Tensor, training: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """x: (B, H, W, 3) in [0, 1], H and W multiples of 64. training:
+        noise quantization, recorded by autograd; else rounding under
+        no_grad. generator: the noise's torch.Generator (on x's device)."""
         if x.shape[1] % 64 or x.shape[2] % 64:
             raise ValueError(
                 f"H and W must be multiples of 64 (x16 transform + x4 hyper "
                 f"downsampling), got {x.shape[1]}x{x.shape[2]}; pad first "
                 f"and crop the output")
-        # eval forward only: the kernels' backward comes with the training slice
+        if training:
+            return self._forward(x, True, generator)
         with torch.no_grad():
-            return self._eval_forward(x)
+            return self._forward(x, False, None)
 
-    def _eval_forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _forward(self, x: torch.Tensor, training: bool,
+                 generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         y = _nhwc(self.encoder(_nchw(x)))
         z = _nhwc(self.hyper_encoder(_nchw(y)))
-        # torch.round rounds half to even, as jnp.round does
-        z_in = torch.round(z.float())
-        y_in = torch.round(y.float())
+        # z first, then y: the order of the JAX model's noise keys (rng_z, rng_y)
+        z_in = quantize(z.float(), training, generator)
+        y_in = quantize(y.float(), training, generator)
 
         params_t = self.entropy_params_from_latents(y_in, z_in)
         if self.K == 1:
@@ -121,7 +144,7 @@ class JointAutoregressiveHierarchical(nn.Module):
             "logp_z": logp_z,
             "p_y": p_y,
             "logp_y": logp_y,
-            "training": False,
+            "training": training,
         }
         out.update(params)
         return out

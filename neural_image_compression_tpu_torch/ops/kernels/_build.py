@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNEL_SOURCES = ("gdn_kernel", "gmm_kernel")
+KERNEL_SOURCES = ("gdn_kernel", "gdn_bwd_kernel", "gmm_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,23 +1,30 @@
-"""GDN / IGDN over (N, C) rows: the hand-written CUDA kernel and its plain
-version.
+"""GDN / IGDN over (N, C) rows: the hand-written CUDA kernels, forward and
+backward, and their plain versions.
 
-Port of neural_image_compression_tpu/ops/pallas/gdn_kernel.py (``fused_gdn``).
-``gdn`` launches ``csrc/gdn_kernel.cu`` for CUDA tensors and runs
-``gdn_reference`` for CPU tensors; there is no other dispatch. Forward only:
-the backward kernel comes with the training forward.
+Port of neural_image_compression_tpu/ops/pallas/gdn_kernel.py (``fused_gdn``
+and ``gdn_fused_op`` with its ``_gdn_fwd``/``_gdn_bwd``). ``gdn`` is
+differentiable: where autograd records it, a ``torch.autograd.Function``
+saves x, gamma and beta (not the norm) and its backward calls
+``gdn_backward``, which recomputes the norm. Each wrapper launches its kernel
+(``csrc/gdn_kernel.cu``, ``csrc/gdn_bwd_kernel.cu``) for CUDA tensors and
+runs its plain version (``gdn_reference``, ``gdn_backward_reference``) for
+CPU tensors; there is no other dispatch. Under ``no_grad`` or
+``inference_mode`` ``gdn`` launches the forward kernel alone.
 
-The kernel takes 1 to 256 channels and loads x through TMA, which cannot
-describe a row stride that is not a multiple of 16 bytes (C % 4 != 0 in
-float32, C % 8 != 0 in bfloat16; only test widths) or a base address that
+The forward kernel takes 1 to 256 channels and loads x through TMA, which
+cannot describe a row stride that is not a multiple of 16 bytes (C % 4 != 0
+in float32, C % 8 != 0 in bfloat16; only test widths) or a base address that
 is not 16-byte aligned. For those the wrapper copies x into zero-padded
 (N, ceil(C/16)*16) rows, pads gamma with zeros and beta with ones, launches
-the same kernel and slices the result.
+the same kernel and slices the result. The backward kernel reads its rows
+element by element and takes every width from 1 to 256 as it is.
 """
 
 import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from neural_image_compression_tpu_torch.ops.kernels import _build
 
@@ -34,12 +41,47 @@ def gdn_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return out.to(x.dtype)
 
 
+def gdn_backward_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                           g: torch.Tensor, inverse: bool = False):
+    """Plain PyTorch backward of ``gdn_reference`` given g = dL/dout, as the
+    explicit formula (float32 math; dx in x's dtype, dgamma and dbeta
+    float32). With n = beta + (x*x) @ gamma, r = n^-1/2 and s = n^1/2:
+
+        GDN:  t = g*x*r^3, dx = g*r - x*(t @ gamma^T), dgamma = -1/2 (x*x)^T @ t
+        IGDN: t = g*x/s,   dx = g*s + x*(t @ gamma^T), dgamma = +1/2 (x*x)^T @ t
+
+    and dbeta = -+1/2 sum_rows t."""
+    xf, gf = x.float(), g.float()
+    sq = xf * xf
+    norm = torch.matmul(sq, gamma) + beta
+    if inverse:
+        root = torch.sqrt(norm)
+        t = gf * xf / root
+        dx = gf * root + xf * torch.matmul(t, gamma.t())
+        half = 0.5
+    else:
+        r = torch.rsqrt(norm)
+        t = gf * xf * (r * r * r)
+        dx = gf * r - xf * torch.matmul(t, gamma.t())
+        half = -0.5
+    return dx.to(x.dtype), half * torch.matmul(sq.t(), t), half * torch.sum(t, dim=0)
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("gdn_kernel").gdn_forward
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_entry():
+    fn = _build.load("gdn_bwd_kernel").gdn_backward
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -63,21 +105,39 @@ def _check(x, gamma, beta):
         raise ValueError("x, gamma and beta must be contiguous")
 
 
+class _GDN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, inverse):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.inverse = inverse
+        return _forward(x, gamma, beta, inverse)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, gamma, beta = ctx.saved_tensors
+        return (*gdn_backward(x, gamma, beta, g, ctx.inverse), None)
+
+
 def gdn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         inverse: bool = False) -> torch.Tensor:
     """x: (N, C) float32|bfloat16; gamma: (C, C) [in -> out]; beta: (C,).
 
     gamma and beta arrive reparametrized (ops/bound.nonneg). Returns (N, C)
-    in x's dtype, computed in float32.
+    in x's dtype, computed in float32; differentiable in x, gamma and beta.
     """
     _check(x, gamma, beta)
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        return _GDN.apply(x, gamma, beta, inverse)
+    return _forward(x, gamma, beta, inverse)
+
+
+def _forward(x, gamma, beta, inverse):
     if x.device.type == "cpu":
         return gdn_reference(x, gamma, beta, inverse)
     if x.device.type != "cuda":
         raise ValueError(f"no GDN kernel for device {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
-                                    or beta.requires_grad):
-        raise NotImplementedError("GDN backward kernel: training slice")
     n, c = x.shape
     if n == 0 or c == 0:
         return torch.empty_like(x)
@@ -107,4 +167,49 @@ def _launch(x, gamma, beta, inverse):
     return out
 
 
+def _chunking(n: int):
+    """(rows per chunk, chunks) of the backward kernel's dgamma partials: at
+    most 256 chunks of at least 256 rows, a function of n alone, so the sums
+    run in one order for a given shape."""
+    rows = max(256, -(-n // 256))
+    rows = -(-rows // 32) * 32
+    return rows, -(-n // rows)
+
+
+def gdn_backward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                 g: torch.Tensor, inverse: bool = False):
+    """Backward of ``gdn`` given g = dL/dout (x's shape and dtype) -> (dx in
+    x's dtype, dgamma (C, C) float32, dbeta (C,) float32). g may come in any
+    layout; a strided g is copied into contiguous rows first."""
+    _check(x, gamma, beta)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g must match x: {tuple(x.shape)} {x.dtype} on {x.device}, got "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    g = g.contiguous()
+    if x.device.type == "cpu":
+        return gdn_backward_reference(x, gamma, beta, g, inverse)
+    if x.device.type != "cuda":
+        raise ValueError(f"no GDN backward kernel for device {x.device}")
+    n, c = x.shape
+    dx = torch.empty_like(x)
+    dgamma = torch.empty_like(gamma)
+    dbeta = torch.empty_like(beta)
+    if n == 0 or c == 0:
+        return dx, dgamma.zero_(), dbeta.zero_()
+    chunk_rows, chunks = _chunking(n)
+    t = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    part = torch.empty(chunks * c * (c + 1), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _backward_entry()(
+            x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dx.data_ptr(),
+            dgamma.data_ptr(), dbeta.data_ptr(), t.data_ptr(), part.data_ptr(), n, c,
+            chunk_rows, chunks, int(inverse), int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"gdn backward kernel launch failed with CUDA error {err}")
+    gdn_backward.launches += 1
+    return dx, dgamma, dbeta
+
+
 gdn.launches = 0
+gdn_backward.launches = 0

@@ -1,24 +1,32 @@
-"""Discretized Gaussian-mixture log-likelihood: the hand-written CUDA kernel
-and its plain version.
+"""Discretized Gaussian-mixture log-likelihood: the hand-written CUDA kernels,
+forward and backward, and their plain versions.
 
 Port of neural_image_compression_tpu/ops/pallas/gmm_kernel.py
 (``fused_mixture_log_likelihood``), computed with exact erf as the JAX
 package's plain path (entropy/gaussian.py) does, not with the Pallas kernel's
-clipped rational erf. ``gmm_logp`` launches ``csrc/gmm_kernel.cu`` for CUDA
-tensors and runs ``mixture_log_likelihood_reference`` for CPU tensors; there
-is no other dispatch. Forward only.
+clipped rational erf. The JAX package has no backward kernel: its training
+autodiffs that plain path and ``jnp.log``. Here ``gmm_logp`` is
+differentiable: where autograd records it, a ``torch.autograd.Function``
+saves its inputs and its backward calls ``gmm_logp_backward``, which
+recomputes the likelihood. Each wrapper launches its entry of
+``csrc/gmm_kernel.cu`` for CUDA tensors and runs its plain version
+(``mixture_log_likelihood_reference``,
+``mixture_log_likelihood_backward_reference``) for CPU tensors; there is no
+other dispatch.
 """
 
 import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from neural_image_compression_tpu_torch.entropy.base import DEFAULT_LIKELIHOOD_LOWER_BOUND
 from neural_image_compression_tpu_torch.ops.kernels import _build
 from neural_image_compression_tpu_torch.ops.math import gaussian_cdf
 
 MAX_K = 8
+INV_SQRT_2PI = 0.3989422804014327
 
 
 def mixture_log_likelihood_reference(y: torch.Tensor, weights: torch.Tensor,
@@ -34,12 +42,45 @@ def mixture_log_likelihood_reference(y: torch.Tensor, weights: torch.Tensor,
     return torch.log(torch.clamp_min(p, DEFAULT_LIKELIHOOD_LOWER_BOUND))
 
 
+def mixture_log_likelihood_backward_reference(y: torch.Tensor, weights: torch.Tensor,
+                                              mus: torch.Tensor, sigmas: torch.Tensor,
+                                              g: torch.Tensor):
+    """Plain PyTorch backward of ``mixture_log_likelihood_reference`` given
+    g = dL/dlogp (N, M), as the explicit formula -> (dy, dweights, dmus,
+    dsigmas). With u, l the bin edges over sigma, phi the standard normal
+    density and G = g / p where p >= 1e-9 (0 below the floor):
+    dw = G (Phi(u) - Phi(l)), dmu = -G w (phi(u) - phi(l)) / sigma,
+    dsigma = -G w (phi(u) u - phi(l) l) / sigma, dy = -sum_k dmu."""
+    y_exp = y[:, None, :]
+    inv_s = 1.0 / sigmas
+    u = (y_exp + 0.5 - mus) * inv_s
+    l = (y_exp - 0.5 - mus) * inv_s
+    mass = gaussian_cdf(u) - gaussian_cdf(l)
+    p = torch.sum(weights * mass, dim=1)
+    gp = torch.where(p >= DEFAULT_LIKELIHOOD_LOWER_BOUND,
+                     g / torch.clamp_min(p, DEFAULT_LIKELIHOOD_LOWER_BOUND), 0.0)[:, None, :]
+    pdf_u = INV_SQRT_2PI * torch.exp(-0.5 * u * u)
+    pdf_l = INV_SQRT_2PI * torch.exp(-0.5 * l * l)
+    a = gp * weights * inv_s
+    dmus = -a * (pdf_u - pdf_l)
+    return -torch.sum(dmus, dim=1), gp * mass, dmus, -a * (pdf_u * u - pdf_l * l)
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("gmm_kernel").gmm_logp_forward
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_entry():
+    fn = _build.load("gmm_kernel").gmm_logp_backward
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -65,17 +106,34 @@ def _check(y, weights, mus, sigmas):
             raise ValueError(f"{name} must be contiguous")
 
 
+class _MixtureLogLikelihood(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, weights, mus, sigmas):
+        ctx.save_for_backward(y, weights, mus, sigmas)
+        return _forward(y, weights, mus, sigmas)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return gmm_logp_backward(*ctx.saved_tensors, g)
+
+
 def gmm_logp(y: torch.Tensor, weights: torch.Tensor, mus: torch.Tensor,
              sigmas: torch.Tensor) -> torch.Tensor:
-    """log(max(sum_k w * (Phi(u) - Phi(l)), 1e-9)) -> (N, M) float32."""
+    """log(max(sum_k w * (Phi(u) - Phi(l)), 1e-9)) -> (N, M) float32;
+    differentiable in every input."""
     _check(y, weights, mus, sigmas)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (y, weights, mus, sigmas)):
+        return _MixtureLogLikelihood.apply(y, weights, mus, sigmas)
+    return _forward(y, weights, mus, sigmas)
+
+
+def _forward(y, weights, mus, sigmas):
     if y.device.type == "cpu":
         return mixture_log_likelihood_reference(y, weights, mus, sigmas)
     if y.device.type != "cuda":
         raise ValueError(f"no mixture-likelihood kernel for device {y.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (y, weights, mus, sigmas)):
-        raise NotImplementedError("mixture-likelihood backward kernel: training slice")
     n, m = y.shape
     out = torch.empty_like(y)
     if n == 0 or m == 0:
@@ -90,4 +148,35 @@ def gmm_logp(y: torch.Tensor, weights: torch.Tensor, mus: torch.Tensor,
     return out
 
 
+def gmm_logp_backward(y: torch.Tensor, weights: torch.Tensor, mus: torch.Tensor,
+                      sigmas: torch.Tensor, g: torch.Tensor):
+    """Backward of ``gmm_logp`` given g = dL/dlogp (N, M) float32 ->
+    (dy, dweights, dmus, dsigmas), float32. g may come in any layout (a
+    broadcast from a sum, say); it is made contiguous first."""
+    _check(y, weights, mus, sigmas)
+    if g.shape != y.shape or g.dtype != torch.float32 or g.device != y.device:
+        raise ValueError(f"g must be float32 {tuple(y.shape)} on {y.device}, got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    g = g.contiguous()
+    if y.device.type == "cpu":
+        return mixture_log_likelihood_backward_reference(y, weights, mus, sigmas, g)
+    if y.device.type != "cuda":
+        raise ValueError(f"no mixture-likelihood backward kernel for device {y.device}")
+    n, m = y.shape
+    grads = (torch.empty_like(y), torch.empty_like(weights), torch.empty_like(mus),
+             torch.empty_like(sigmas))
+    if n == 0 or m == 0:
+        return grads
+    with torch.cuda.device(y.device):
+        err = _backward_entry()(y.data_ptr(), weights.data_ptr(), mus.data_ptr(),
+                                sigmas.data_ptr(), g.data_ptr(),
+                                *(t.data_ptr() for t in grads), n, weights.shape[1], m,
+                                torch.cuda.current_stream(y.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"gmm backward kernel launch failed with CUDA error {err}")
+    gmm_logp_backward.launches += 1
+    return grads
+
+
 gmm_logp.launches = 0
+gmm_logp_backward.launches = 0

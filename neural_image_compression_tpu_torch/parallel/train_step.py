@@ -1,0 +1,64 @@
+"""The training step, port of parallel/train_step.py (``make_train_step``)
+for one device: the model's forward with noise quantization, the
+rate-distortion loss, its backward (through the GDN and mixture-likelihood
+backward kernels on a card) and the caller's optimizer.
+
+PyTorch's idiom replaces the JAX step's pure (params, opt_state) threading:
+the step updates the model and the optimizer in place and returns only the
+metrics. The JAX step's ``mesh`` (data parallelism) and ``levels`` (the
+variable-rate family) have no counterpart here yet.
+"""
+
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+
+def _norm(batch, device: torch.device) -> torch.Tensor:
+    # uint8 batches normalize on the device (4x less host-to-device traffic)
+    batch = torch.as_tensor(batch, device=device)
+    if batch.dtype == torch.uint8:
+        return batch.float() / 255.0
+    return batch
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, rd_loss: Callable,
+                    lambda_val: float, ema_decay: Optional[float] = None):
+    """Build step(batch, generator=None) -> metrics.
+
+    batch: (B, H, W, 3) float in [0, 1] or uint8, moved to the model's
+    device; generator: the noise's torch.Generator on that device (torch's
+    default there when None). The step runs model(batch, training=True),
+    rd_loss(out, batch, lambda_val)["loss"].backward(), optimizer.step() and
+    optimizer.zero_grad(set_to_none=True). The metrics are rd_loss's dict,
+    detached, still on the device: the step never waits for the card.
+
+    With ema_decay in (0, 1) the step also keeps an exponential moving
+    average of the parameters, e <- e + (1 - d) * (p - e) after each update,
+    starting from the parameters as they are now: ``step.ema_params``, a
+    dict name -> tensor (None without ema_decay).
+    """
+    if ema_decay is not None and not (0.0 < ema_decay < 1.0):
+        raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
+    named = list(model.named_parameters())
+    device = named[0][1].device
+    ema: Optional[Dict[str, torch.Tensor]] = None
+    if ema_decay is not None:
+        ema = {name: p.detach().clone() for name, p in named}
+        ema_list = list(ema.values())
+        params = [p for _, p in named]
+
+    def step(batch, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        x = _norm(batch, device)
+        metrics = rd_loss(model(x, training=True, generator=generator), x, lambda_val)
+        metrics["loss"].backward()
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        if ema is not None:
+            with torch.no_grad():
+                torch._foreach_lerp_(ema_list, params, 1.0 - ema_decay)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    step.ema_params = ema
+    return step

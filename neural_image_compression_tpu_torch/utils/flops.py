@@ -1,0 +1,74 @@
+"""Analytic FLOP counts of the flagship's networks, the port's own copy of
+the JAX package's utils/flops.py (``joint_ar_eval_flops`` for the 5x5
+transforms, ``train_step_flops``, ``mfu``), with the card's peaks in place
+of the TPU's.
+
+Multiply-accumulates count 2 for every conv, deconv and GDN product on the
+eval forward, per image; deconvs count input_pixels * k^2 * Cin * Cout * 2,
+masked convs their full taps (the dense conv computes the zeros).
+Elementwise work is one small 'elementwise' estimate.
+"""
+
+from typing import Dict
+
+# Published dense peaks of one H100 SXM (NVIDIA data sheet), TFLOP/s: bf16
+# on the tensor cores, float32 on the CUDA cores (TF32 off, as the port's
+# measurements run).
+H100_PEAK_TFLOPS = {"bf16": 989.0, "tf32": 495.0, "f32": 67.0}
+
+
+def _conv(out_h: int, out_w: int, k: int, cin: int, cout: int) -> int:
+    return 2 * out_h * out_w * k * k * cin * cout
+
+
+def _deconv(in_h: int, in_w: int, k: int, cin: int, cout: int) -> int:
+    return 2 * in_h * in_w * k * k * cin * cout
+
+
+def _gdn(h: int, w: int, c: int) -> int:
+    return 2 * h * w * c * c  # the (BHW, C) x (C, C) norm product
+
+
+def joint_ar_eval_flops(M: int, K: int, H: int, W: int) -> Dict[str, int]:
+    """Per-image eval-forward FLOPs of JointAutoregressiveHierarchical with
+    the 5x5 conv/GDN transforms, by component. H, W: multiples of 64."""
+    h16, w16 = H // 16, W // 16
+    h64, w64 = H // 64, W // 64
+    out = {}
+    out["encoder"] = (
+        _conv(H // 2, W // 2, 5, 3, M) + _gdn(H // 2, W // 2, M)
+        + _conv(H // 4, W // 4, 5, M, M) + _gdn(H // 4, W // 4, M)
+        + _conv(H // 8, W // 8, 5, M, M) + _gdn(H // 8, W // 8, M)
+        + _conv(h16, w16, 5, M, M))
+    out["decoder"] = (
+        _deconv(h16, w16, 5, M, M) + _gdn(H // 8, W // 8, M)
+        + _deconv(H // 8, W // 8, 5, M, M) + _gdn(H // 4, W // 4, M)
+        + _deconv(H // 4, W // 4, 5, M, M) + _gdn(H // 2, W // 2, M)
+        + _deconv(H // 2, W // 2, 5, M, 3))
+    out["hyper_encoder"] = (
+        _conv(h16, w16, 3, M, M) + _conv(H // 32, W // 32, 5, M, M)
+        + _conv(h64, w64, 5, M, M))
+    out["hyper_decoder"] = (
+        _deconv(h64, w64, 5, M, M)
+        + _deconv(H // 32, W // 32, 5, M, int(1.5 * M))
+        + _conv(h16, w16, 3, int(1.5 * M), 2 * M))
+    out["context"] = _conv(h16, w16, 5, M, 2 * M)
+    ep_out = 2 * M if K == 1 else 3 * K * M
+    out["entropy_parameters"] = (
+        _conv(h16, w16, 1, 4 * M, 640) + _conv(h16, w16, 1, 640, 640)
+        + _conv(h16, w16, 1, 640, ep_out))
+    # likelihoods, quantization and the rest: ~100 FLOPs per latent and component
+    out["elementwise"] = 100 * (h16 * w16 * M * K + h64 * w64 * M)
+    out["total"] = sum(out.values())
+    return out
+
+
+def train_step_flops(eval_total: int) -> int:
+    """Forward + backward, approximated: the backward is ~2x the forward for
+    conv nets."""
+    return 3 * eval_total
+
+
+def mfu(images_per_sec: float, flops_per_image: int, peak_tflops: float) -> float:
+    """Model FLOP utilization: achieved FLOP/s over ``peak_tflops``."""
+    return images_per_sec * flops_per_image / (peak_tflops * 1e12)

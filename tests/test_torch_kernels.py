@@ -1,6 +1,7 @@
-"""PyTorch port, kernel wrappers: input checks and plain versions on the CPU
-and, on a CUDA card only, each hand-written kernel against its plain
-version. This file imports no JAX, so it also runs where only the port is
+"""PyTorch port, kernel wrappers: input checks, plain versions (forward and
+backward, the backward held against autograd of the plain forward) and the
+autograd plumbing on the CPU and, on a CUDA card only, each hand-written
+kernel against its plain version. This file imports no JAX, so it also runs where only the port is
 installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -140,6 +141,123 @@ def test_three_bf16_products_keep_norm_within_3e_5(c):
     assert err <= 3e-5, err
 
 
+# --- the backward's plain versions and the autograd plumbing -----------------
+
+def _gdn_case(n, c, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32))
+    gamma = torch.from_numpy(np.abs(rng.normal(0, 0.05, (c, c))).astype(np.float32))
+    beta = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32))
+    return x, gamma, beta, g
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("c", [6, 16, 128])
+def test_gdn_backward_reference_matches_autograd(c, inverse):
+    x, gamma, beta, g = _gdn_case(300, c, seed=c)
+    leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+    gdn_kernel.gdn_reference(*leaves, inverse).backward(g)
+    got = gdn_kernel.gdn_backward_reference(x, gamma, beta, g, inverse)
+    for name, a, leaf in zip(("dx", "dgamma", "dbeta"), got, leaves):
+        # float32 both ways, the products' sums in other orders
+        torch.testing.assert_close(a, leaf.grad, rtol=1e-5, atol=1e-5 * float(leaf.grad.abs().max()),
+                                   msg=name)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_autograd_runs_the_plain_backward_on_cpu(inverse):
+    x, gamma, beta, g = _gdn_case(70, 16, seed=9)
+    leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+    counts = (gdn_kernel.gdn.launches, gdn_kernel.gdn_backward.launches)
+    out = gdn_kernel.gdn(*leaves, inverse)
+    torch.testing.assert_close(out, gdn_kernel.gdn_reference(x, gamma, beta, inverse),
+                               rtol=0, atol=0)
+    # g in column-major layout: the wrapper copies it into rows
+    g_strided = g.t().contiguous().t()
+    out.backward(g_strided)
+    want = gdn_kernel.gdn_backward_reference(x, gamma, beta, g, inverse)
+    for a, leaf in zip(want, leaves):
+        torch.testing.assert_close(leaf.grad, a, rtol=0, atol=0)
+    assert (gdn_kernel.gdn.launches, gdn_kernel.gdn_backward.launches) == counts
+    with torch.no_grad():
+        assert gdn_kernel.gdn(*leaves, inverse).grad_fn is None
+
+
+def test_gdn_backward_bf16_keeps_dtypes():
+    x, gamma, beta, g = _gdn_case(50, 16, seed=11)
+    dx, dgamma, dbeta = gdn_kernel.gdn_backward(x.bfloat16(), gamma, beta, g.bfloat16())
+    assert dx.dtype == torch.bfloat16
+    assert dgamma.dtype == dbeta.dtype == torch.float32
+    want = gdn_kernel.gdn_backward_reference(x.bfloat16().float(), gamma, beta,
+                                             g.bfloat16().float())
+    torch.testing.assert_close(dx, want[0].bfloat16(), rtol=0, atol=0)
+    torch.testing.assert_close(dgamma, want[1], rtol=0, atol=0)
+
+
+def test_gdn_backward_checks_g():
+    x, gamma, beta, g = _gdn_case(8, 4, seed=0)
+    with pytest.raises(ValueError, match="g must match"):
+        gdn_kernel.gdn_backward(x, gamma, beta, g[:4])
+    with pytest.raises(ValueError, match="g must match"):
+        gdn_kernel.gdn_backward(x, gamma, beta, g.bfloat16())
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 16_384, 65_536, 100_003, 262_144, 4_718_592])
+def test_gdn_backward_chunking_covers_the_rows(n):
+    rows, chunks = gdn_kernel._chunking(n)
+    assert rows % 32 == 0 and rows >= 256
+    assert 1 <= chunks <= 256
+    assert (chunks - 1) * rows < n <= chunks * rows
+
+
+def _mixture_with_tails(n, k, m, seed):
+    """Mixture symbols plus positions far in a tail (p just above the 1e-9
+    floor) and beyond it (p below the floor: zero gradient)."""
+    y, w, mus, sigmas = mixture_symbols(n, k, m, seed)
+    y = y.copy()
+    y[0, :] = 1000.0                                  # below the floor everywhere
+    y[1, :] = np.round(mus[1, 0] + 5.8 * sigmas[1, 0])  # deep in one component's tail
+    return y, w, mus, sigmas
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_mixture_backward_reference_matches_autograd(k):
+    arrays = _mixture_with_tails(64, k, 16, seed=k)
+    inputs = [torch.from_numpy(a) for a in arrays]
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=arrays[0].shape).astype(np.float32))
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    gmm_kernel.mixture_log_likelihood_reference(*leaves).backward(g)
+    got = gmm_kernel.mixture_log_likelihood_backward_reference(*inputs, g)
+    for name, a, leaf in zip(("dy", "dw", "dmu", "dsigma"), got, leaves):
+        torch.testing.assert_close(a, leaf.grad, rtol=1e-4, atol=1e-6 * float(leaf.grad.abs().max()),
+                                   msg=name)
+    assert torch.count_nonzero(got[0][0]) == 0  # below the floor: no gradient
+    assert torch.count_nonzero(got[0][1]) > 0
+
+
+def test_gmm_autograd_runs_the_plain_backward_on_cpu():
+    inputs = [torch.from_numpy(a) for a in mixture_symbols(40, 3, 8, seed=2)]
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    counts = (gmm_kernel.gmm_logp.launches, gmm_kernel.gmm_logp_backward.launches)
+    logp = gmm_kernel.gmm_logp(*leaves)
+    # a loss like rd_loss's: the sum's gradient reaches the kernel as a broadcast
+    (-logp.sum() / 3.0).backward()
+    want = gmm_kernel.mixture_log_likelihood_backward_reference(
+        *inputs, torch.full_like(inputs[0], -1.0 / 3.0))
+    for a, leaf in zip(want, leaves):
+        torch.testing.assert_close(leaf.grad, a, rtol=0, atol=0)
+    assert (gmm_kernel.gmm_logp.launches, gmm_kernel.gmm_logp_backward.launches) == counts
+
+
+def test_gmm_backward_checks_g():
+    inputs = [torch.from_numpy(a) for a in mixture_symbols(4, 2, 8, seed=0)]
+    with pytest.raises(ValueError, match="g must be"):
+        gmm_kernel.gmm_logp_backward(*inputs, torch.zeros(4, 7))
+    with pytest.raises(ValueError, match="g must be"):
+        gmm_kernel.gmm_logp_backward(*inputs, torch.zeros(4, 8, dtype=torch.float64))
+
+
 def test_gmm_wrapper_checks_its_inputs():
     y = torch.zeros(4, 8)
     w = torch.ones(4, 3, 8) / 3
@@ -197,3 +315,76 @@ def test_gmm_kernel_matches_plain_on_card(cuda_device, n, k, m):
     bulk = want > np.log(1e-6)
     torch.testing.assert_close(got[bulk], want[bulk], rtol=0, atol=1e-5)
     np.testing.assert_allclose(got.double().sum().item(), want.double().sum().item(), rtol=1e-6)
+
+
+def _assert_grad_close(got, want, name, dtype=torch.float32):
+    """f32: within 1e-4 relative plus 1e-5 of the largest value (the kernel
+    sums in other orders than cuBLAS, dgamma over up to 262,144 rows); a
+    bf16 dx: within one bf16 step (at most 2^-7 relative) of the plain
+    version, where their float32 values round to neighbouring steps."""
+    scale = float(want.float().abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale, msg=name)
+    else:
+        diff = (got.float() - want.float()).abs()
+        limit = 2.0 ** -7 * want.float().abs() + 1e-5 * scale
+        assert bool((diff <= limit).all()), f"{name}: max diff {float(diff.max()):.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inverse", [False, True])
+# the train step's three sites (batch 16 at 256x256), ragged rows, widths
+# that leave ragged 32-channel groups, and 256
+@pytest.mark.parametrize("n,c", [(262_144, 128), (65_536, 128), (16_384, 128),
+                                 (100_003, 128), (77, 100), (300, 16), (513, 256),
+                                 (4096, 192), (64, 10)])
+def test_gdn_backward_kernel_matches_plain_on_card(cuda_device, dtype, inverse, n, c):
+    x, gamma, beta, g = (t.to(cuda_device) for t in _gdn_case(n, c, seed=1))
+    x, g = x.to(dtype), g.to(dtype)
+    before = gdn_kernel.gdn_backward.launches
+    got = gdn_kernel.gdn_backward(x, gamma, beta, g, inverse)
+    torch.cuda.synchronize()
+    assert gdn_kernel.gdn_backward.launches == before + 1
+    want = gdn_kernel.gdn_backward_reference(x, gamma, beta, g, inverse)
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    _assert_grad_close(got[0], want[0], "dx", dtype)
+    _assert_grad_close(got[1], want[1], "dgamma")
+    _assert_grad_close(got[2], want[2], "dbeta")
+    # no atomics: a second run gives the same bits
+    again = gdn_kernel.gdn_backward(x, gamma, beta, g, inverse)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_gdn_autograd_launches_both_kernels_on_card(cuda_device):
+    x, gamma, beta, g = (t.to(cuda_device) for t in _gdn_case(4096, 128, seed=2))
+    leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+    counts = (gdn_kernel.gdn.launches, gdn_kernel.gdn_backward.launches)
+    # g in another layout than the rows: the wrapper copies it
+    gdn_kernel.gdn(*leaves).backward(g.t().contiguous().t())
+    torch.cuda.synchronize()
+    assert (gdn_kernel.gdn.launches, gdn_kernel.gdn_backward.launches) == (counts[0] + 1,
+                                                                           counts[1] + 1)
+    want = gdn_kernel.gdn_backward_reference(x, gamma, beta, g)
+    for name, a, leaf in zip(("dx", "dgamma", "dbeta"), want, leaves):
+        _assert_grad_close(leaf.grad, a, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,m", [(4096, 3, 128), (37, 1, 100), (50, 8, 16)])
+def test_gmm_backward_kernel_matches_plain_on_card(cuda_device, n, k, m):
+    arrays = _mixture_with_tails(n, k, m, seed=6)
+    inputs = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    g = torch.from_numpy(np.random.default_rng(8).normal(size=(n, m)).astype(np.float32)).to(
+        cuda_device)
+    before = gmm_kernel.gmm_logp_backward.launches
+    got = gmm_kernel.gmm_logp_backward(*inputs, g)
+    torch.cuda.synchronize()
+    assert gmm_kernel.gmm_logp_backward.launches == before + 1
+    want = gmm_kernel.mixture_log_likelihood_backward_reference(*inputs, g)
+    for name, a, b in zip(("dy", "dw", "dmu", "dsigma"), got, want):
+        # both use CUDA's erff and expf; the K-sum and divisions may round apart
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * float(b.abs().max()), msg=name)
+    assert torch.count_nonzero(got[0][0]) == 0

@@ -1,6 +1,7 @@
-"""PyTorch port, ops: bound/nonneg, GDN and its kernel's plain version, conv
-and deconv, the masked-conv context model, each held against the JAX
-package on the same numpy inputs (CPU, small shapes)."""
+"""PyTorch port, ops: bound/nonneg, GDN and its kernel's plain versions
+(forward and backward, the module's gradients too), conv and deconv, the
+masked-conv context model, each held against the JAX package on the same
+numpy inputs (CPU, small shapes)."""
 
 import os
 
@@ -17,7 +18,7 @@ from neural_image_compression_tpu.ops.gdn import GDN as JGDN
 from neural_image_compression_tpu.ops.masked_conv import (
     ContextModel as JContextModel, causal_mask as jcausal_mask,
 )
-from neural_image_compression_tpu.ops.pallas.gdn_kernel import fused_gdn
+from neural_image_compression_tpu.ops.pallas.gdn_kernel import _gdn_reference, fused_gdn
 from neural_image_compression_tpu_torch.ops import bound
 from neural_image_compression_tpu_torch.ops.conv import Conv2d, Deconv2d
 from neural_image_compression_tpu_torch.ops.gdn import GDN
@@ -118,6 +119,70 @@ def test_gdn_golden_forward(inverse):
     load_jax_params(mod, {"beta": fx[f"{tag}_beta_raw"], "gamma": fx[f"{tag}_gamma_raw"].T})
     got = _from_port(mod(_to_port(x)))
     np.testing.assert_allclose(got, _nchw_to_nhwc(fx[f"{tag}_y"]), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("c", [6, 16, 128])
+def test_gdn_backward_reference_matches_jax_vjp(c, inverse):
+    """The plain backward (the kernel's formula) against jax.vjp of the
+    JAX package's _gdn_reference, which its gdn_fused_op's backward is."""
+    rng = np.random.default_rng(20 + c)
+    n = 257
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    gamma = np.abs(rng.normal(0.0, 0.05, size=(c, c))).astype(np.float32)
+    beta = rng.uniform(0.5, 1.5, size=(c,)).astype(np.float32)
+    g = rng.normal(size=(n, c)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, d: _gdn_reference(a, b, d, inverse),
+                     jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+    want = vjp(jnp.asarray(g))
+    got = gdn_kernel.gdn_backward_reference(torch.from_numpy(x), torch.from_numpy(gamma),
+                                            torch.from_numpy(beta), torch.from_numpy(g),
+                                            inverse)
+    for name, a, w in zip(("dx", "dgamma", "dbeta"), got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(a.numpy(), w, rtol=1e-5, atol=1e-5 * np.abs(w).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_golden_grads(inverse):
+    """The module's gradients to x and to its raw beta and gamma (through
+    nonneg's lower bound, which the fixture's perturbed params reach) at the
+    tolerances of tests/test_golden_parity.py's GDN gradients."""
+    fx = np.load(os.path.join(GOLDEN, "gdn_ref.npz"))
+    tag = "igdn" if inverse else "gdn"
+    x = _to_port(_nchw_to_nhwc(fx[f"{tag}_x"])).clone().requires_grad_(True)
+    mod = GDN(x.shape[1], inverse=inverse, device="cpu")
+    # the reference stores gamma as torch's (C_out, C_in); the port keeps (C_in, C_out)
+    load_jax_params(mod, {"beta": fx[f"{tag}_beta_raw"], "gamma": fx[f"{tag}_gamma_raw"].T})
+    mod(x).backward(_to_port(_nchw_to_nhwc(fx[f"{tag}_cotangent"])))
+    np.testing.assert_allclose(_from_port(x.grad), _nchw_to_nhwc(fx[f"{tag}_grad_x"]),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(mod.beta.grad.numpy(), fx[f"{tag}_grad_beta"], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(mod.gamma.grad.numpy().T, fx[f"{tag}_grad_gamma"],
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_module_grads_match_jax(inverse):
+    rng = np.random.default_rng(12)
+    c = 16
+    x = rng.normal(size=(2, 5, 7, c)).astype(np.float32)
+    cot = rng.normal(size=x.shape).astype(np.float32)
+    beta, gamma = _raw_gdn_params(rng, c)
+    jmod = JGDN(inverse=inverse, use_pallas=False)
+    _, vjp = jax.vjp(lambda p, a: jmod.apply({"params": p}, a),
+                     {"beta": jnp.asarray(beta), "gamma": jnp.asarray(gamma)}, jnp.asarray(x))
+    want_p, want_x = vjp(jnp.asarray(cot))
+    mod = GDN(c, inverse=inverse, device="cpu")
+    load_jax_params(mod, {"beta": beta, "gamma": gamma})
+    xt = _to_port(x).clone().requires_grad_(True)
+    mod(xt).backward(_to_port(cot))
+    np.testing.assert_allclose(_from_port(xt.grad), np.asarray(want_x), rtol=1e-5, atol=1e-6)
+    for name in ("beta", "gamma"):
+        w = np.asarray(want_p[name])
+        np.testing.assert_allclose(getattr(mod, name).grad.numpy(), w, rtol=1e-5,
+                                   atol=1e-6 * np.abs(w).max(), err_msg=name)
 
 
 def _single(module: nn.Module, name: str) -> nn.Module:

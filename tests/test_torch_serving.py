@@ -1,5 +1,6 @@
 """PyTorch port, serving path: rd_loss and make_serving_fn against the JAX
-package, the port's import graph and its device defaults (CPU)."""
+package, the port's import graph, its device defaults and its FLOP counts
+(CPU)."""
 
 import os
 import subprocess
@@ -14,9 +15,11 @@ import torch
 from neural_image_compression_tpu import serving as jserving
 from neural_image_compression_tpu.models import JointAutoregressiveHierarchical as JModel
 from neural_image_compression_tpu.train import rd_loss as jrd_loss
+from neural_image_compression_tpu.utils import flops as jflops
 from neural_image_compression_tpu_torch import serving
 from neural_image_compression_tpu_torch.models import JointAutoregressiveHierarchical
 from neural_image_compression_tpu_torch.train import rd_loss
+from neural_image_compression_tpu_torch.utils import flops
 from neural_image_compression_tpu_torch.utils.weights import load_jax_params
 
 torch.set_num_threads(1)
@@ -85,10 +88,13 @@ def test_port_import_loads_no_jax():
         "import sys\n"
         "import neural_image_compression_tpu_torch as p\n"
         "import neural_image_compression_tpu_torch.ops.kernels._build\n"
+        "import neural_image_compression_tpu_torch.parallel.train_step\n"
+        "import neural_image_compression_tpu_torch.utils.flops\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'neural_image_compression_tpu')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'flax.', 'neural_image_compression_tpu.')))\n"
         "assert not bad, bad\n"
         "assert 'neural_image_compression_tpu_torch.models.joint_ar' in sys.modules\n"
+        "assert 'neural_image_compression_tpu_torch.parallel.train_step' in sys.modules\n"
         "print('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -104,3 +110,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         JointAutoregressiveHierarchical(8, 3)
     model = JointAutoregressiveHierarchical(8, 3, device="cpu")
     assert all(p.device.type == "cpu" for p in model.parameters())
+
+
+@pytest.mark.parametrize("M,K,H,W", [(128, 3, 256, 256), (16, 1, 64, 128), (192, 1, 768, 512)])
+def test_flops_copy_matches_jax(M, K, H, W):
+    want = jflops.joint_ar_eval_flops(M, K, H, W)
+    assert flops.joint_ar_eval_flops(M, K, H, W) == want
+    assert flops.train_step_flops(want["total"]) == jflops.train_step_flops(want["total"])
+    assert flops.mfu(100.0, want["total"], 989.0) == jflops.mfu(100.0, want["total"], 989.0)

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Where the device time goes in the PyTorch port's serving forward.
+"""Where the device time goes in the PyTorch port's serving forward or its
+training step.
 
-Profiles the flagship eval forward (JointAutoregressiveHierarchical, M=128,
-K=3) through make_serving_fn at 768x512, batch 48 and batch 1, in float32
-and bfloat16 transforms, with torch.profiler on one CUDA card. Prints, per
-configuration, the device time by layer (cuDNN convolutions, the GDN kernel,
-the mixture-likelihood kernel, other) and the device's busy share of the
-profiled window, then one JSON line with the same numbers. Imports only the
-port, never JAX; TF32 off as in chip_smoke.py.
+Profiles, with torch.profiler on one CUDA card, the flagship
+(JointAutoregressiveHierarchical, M=128, K=3) in float32 and bfloat16
+transforms: by default the eval forward through make_serving_fn at 768x512,
+batch 48 and batch 1; with --train the training step through
+make_train_step (batch 16 of 256x256, rd_loss at lambda 0.005, Adam 1e-4).
+Prints, per configuration, the device time by layer (cuDNN convolutions,
+the GDN kernels, the mixture-likelihood kernels, the optimizer, other) and
+the device's busy share of the profiled window, then one JSON line with the
+same numbers. Imports only the port, never JAX; TF32 off as in
+chip_smoke.py.
 
-    python3 tools/profile_torch_serve.py
+    python3 tools/profile_torch_serve.py [--train]
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -26,17 +31,26 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from neural_image_compression_tpu_torch.models import JointAutoregressiveHierarchical  # noqa: E402
+from neural_image_compression_tpu_torch.ops.kernels import gdn_kernel  # noqa: E402
+from neural_image_compression_tpu_torch.parallel import make_train_step  # noqa: E402
 from neural_image_compression_tpu_torch.serving import make_serving_fn  # noqa: E402
+from neural_image_compression_tpu_torch.train import rd_loss  # noqa: E402
 
 ITERS = 3
 
 
 def layer_of(kernel_name: str) -> str:
     n = kernel_name.lower()
+    if "gdn_bwd_" in n:
+        return "gdn backward kernel"
     if "gdn_rows_kernel" in n:
         return "gdn kernel"
+    if "gmm_logp_backward_kernel" in n:
+        return "gmm backward kernel"
     if "gmm_logp_kernel" in n:
         return "gmm kernel"
+    if "multi_tensor_apply" in n or "adam" in n:
+        return "optimizer (Adam)"
     if any(s in n for s in ("conv", "xmma", "cudnn", "implicit", "dgrad", "wgrad", "fprop")):
         return "cudnn conv"
     if "gemm" in n or "cutlass" in n:
@@ -44,31 +58,94 @@ def layer_of(kernel_name: str) -> str:
     return "other (elementwise, softmax, reductions, copies)"
 
 
-def profile_config(serve, x):
-    serve(x)
+def profile_config(run, x, warmup=1):
+    for _ in range(warmup):
+        run(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ITERS):
-            serve(x)
+            run(x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_layer = defaultdict(float)
     by_kernel = defaultdict(float)
     for evt in prof.key_averages():
         dev_us = evt.self_device_time_total
-        if dev_us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+        # record_function ranges (Optimizer.step, ...) also appear on the
+        # device timeline and would count their kernels twice
+        if (dev_us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
             continue
         by_layer[layer_of(evt.key)] += dev_us / 1e3 / ITERS
         by_kernel[evt.key] += dev_us / 1e3 / ITERS
     device_ms = sum(by_layer.values())
-    return {"wall_ms_per_forward": wall_ms / ITERS, "device_ms_per_forward": device_ms,
+    return {"wall_ms_per_call": wall_ms / ITERS, "device_ms_per_call": device_ms,
             "device_busy_share": device_ms / (wall_ms / ITERS),
             "by_layer_ms": dict(sorted(by_layer.items(), key=lambda kv: -kv[1])),
             "top_kernels_ms": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])}
 
 
+def report(tag, r, card, unit):
+    print(f"== {tag}: wall {r['wall_ms_per_call']:.3f} ms/{unit}, device "
+          f"{r['device_ms_per_call']:.3f} ms, busy {100 * r['device_busy_share']:.1f}% [{card}]")
+    for layer, ms in r["by_layer_ms"].items():
+        print(f"   {layer:50s} {ms:9.3f} ms  {100 * ms / r['device_ms_per_call']:5.1f}%")
+    for name, ms in r["top_kernels_ms"].items():
+        print(f"     {ms:9.3f} ms  {name[:110]}")
+
+
+def profile_serve(card):
+    x48 = torch.from_numpy(np.random.default_rng(2).uniform(
+        size=(48, 512, 768, 3)).astype(np.float32)).cuda()
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        serve = make_serving_fn(JointAutoregressiveHierarchical(128, 3, dtype=dtype, device="cuda"))
+        for batch in (48, 1):
+            tag = f"{str(dtype).replace('torch.', '')} batch {batch}"
+            results[tag] = profile_config(serve, x48[:batch].contiguous())
+            report(tag, results[tag], card, "forward")
+    return results
+
+
+def profile_train(card):
+    x = torch.rand((16, 256, 256, 3), generator=torch.Generator(device="cuda").manual_seed(7),
+                   device="cuda")
+    # how the gradient reaches the GDN backward: rows as they are, or in
+    # another layout the wrapper must copy first (autograd looks the
+    # Function's backward up on the class at each call)
+    backward = gdn_kernel._GDN.backward
+    layouts = {"calls": 0, "g_copied": 0}
+
+    def tallied(ctx, g):
+        layouts["calls"] += 1
+        layouts["g_copied"] += int(not g.is_contiguous())
+        return backward(ctx, g)
+
+    results = {}
+    gdn_kernel._GDN.backward = staticmethod(tallied)
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            model = JointAutoregressiveHierarchical(128, 3, dtype=dtype, device="cuda")
+            opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
+            step = make_train_step(model, opt, rd_loss, 0.005)
+            tag = f"{str(dtype).replace('torch.', '')} train step, batch 16 of 256x256"
+            results[tag] = profile_config(step, x, warmup=3)
+            report(tag, results[tag], card, "step")
+            del model, opt, step
+    finally:
+        gdn_kernel._GDN.backward = staticmethod(backward)
+    print(f"GDN backward: g came in another layout than contiguous rows, and was copied, in "
+          f"{layouts['g_copied']} of {layouts['calls']} calls")
+    results["gdn_backward_g_layout"] = layouts
+    return results
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--train", action="store_true",
+                        help="profile the training step instead of the serving forward")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
@@ -77,22 +154,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}")
-    x48 = torch.from_numpy(np.random.default_rng(2).uniform(
-        size=(48, 512, 768, 3)).astype(np.float32)).cuda()
-    results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        serve = make_serving_fn(JointAutoregressiveHierarchical(128, 3, dtype=dtype, device="cuda"))
-        for batch in (48, 1):
-            tag = f"{str(dtype).replace('torch.', '')} batch {batch}"
-            r = profile_config(serve, x48[:batch].contiguous())
-            results[tag] = r
-            print(f"== {tag}: wall {r['wall_ms_per_forward']:.3f} ms/forward, device "
-                  f"{r['device_ms_per_forward']:.3f} ms, busy {100 * r['device_busy_share']:.1f}% "
-                  f"[{card}]")
-            for layer, ms in r["by_layer_ms"].items():
-                print(f"   {layer:50s} {ms:9.3f} ms  {100 * ms / r['device_ms_per_forward']:5.1f}%")
-            for name, ms in r["top_kernels_ms"].items():
-                print(f"     {ms:9.3f} ms  {name[:110]}")
+    results = profile_train(card) if args.train else profile_serve(card)
     print(json.dumps({"card": card, "profile": results}))
     return 0
 
