@@ -10,9 +10,10 @@ Phases, in order; any failure exits non-zero:
   2. kernels: each hand-written kernel against its plain PyTorch version on
      the card, timed with CUDA events beside its bound: the forwards at the
      serve's shapes (batch 48 at 768x512, M = 128, K = 3) and at the train
-     step's (batch 16 at 256x256), the backwards at the train step's; GDN
-     forward and backward also at a ragged row count, at 192 and 256
-     channels and at 10.
+     step's (batch 16 at 256x256), the backwards at the train step's (the
+     GDN backward also beside its design's floor, the bytes its four
+     launches move); GDN forward and backward also at a ragged row count,
+     at 192 and 256 channels and at 10.
   3. cross-device parity: the M=128, K=3 eval forward, and one float32
      training step's loss and parameter gradients (batch 1 at 256x256, the
      noise drawn once on the CPU), on the card against the same weights on
@@ -328,6 +329,22 @@ def check_gdn_backward(x, gamma_t, beta_t, g, inverse, label):
     return max(errs)
 
 
+def gdn_backward_design_bytes(rows, c, esz):
+    """Bytes the GDN backward's four launches move, each launch's inputs read
+    once and outputs written once (csrc/gdn_bwd_kernel.cu): norm reads x and
+    g and writes t and d1 (float32); mix reads t, x and d1 and writes dx;
+    partials reads x and t and writes the chunks' partials; reduce reads
+    them and writes dgamma and dbeta. gamma and beta are read by the
+    launches that use them."""
+    elems, params = rows * c, (c * c + c) * 4
+    part = gdn_kernel._chunking(rows)[1] * c * (c + 1) * 4
+    norm = elems * (2 * esz + 8) + params
+    mix = elems * (2 * esz + 8) + c * c * 4
+    partials = elems * (esz + 4) + part
+    reduce = part + params
+    return norm + mix + partials + reduce
+
+
 def gdn_backward_cases(dev):
     rng = np.random.default_rng(3)
     c = M
@@ -351,6 +368,9 @@ def gdn_backward_cases(dev):
                 # the three (N, C) x (C, C) products, counted once
                 peak = "tf32_tensor_core"
                 bound_ms, bound_by = bound(io_bytes, 6.0 * rows * c * c + 12.0 * rows * c, peak)
+                # what this design must move (t written once, read twice; d1)
+                floor_ms = (gdn_backward_design_bytes(rows, c, x.element_size())
+                            / HBM_BYTES_PER_S * 1e3)
                 records.append(dict(
                     name="gdn_backward", **KERNEL_INFO["gdn_backward"], path="train", site=site,
                     inverse=inverse, shape=[rows, c], dtype=dname, max_abs_err=err, ms=ms,
@@ -358,7 +378,8 @@ def gdn_backward_cases(dev):
                     library_ms=None))
                 print(f"  {name}-bwd {site} rows={rows} {dname:8s} kernel {ms:.4f} ms  "
                       f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}, "
-                      f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
+                      f"{100 * bound_ms / ms:.1f}% of it)  design floor {floor_ms:.4f} ms "
+                      f"({100 * floor_ms / ms:.1f}% of it)", flush=True)
         del x32, g32, x, g
     for rows, c in GDN_EXTRA_CASES:
         gamma_c, beta_c = gdn_params(c, rng, dev)

@@ -11,13 +11,13 @@ runs its plain version (``gdn_reference``, ``gdn_backward_reference``) for
 CPU tensors; there is no other dispatch. Under ``no_grad`` or
 ``inference_mode`` ``gdn`` launches the forward kernel alone.
 
-The forward kernel takes 1 to 256 channels and loads x through TMA, which
+Both kernels take 1 to 256 channels and load their rows through TMA, which
 cannot describe a row stride that is not a multiple of 16 bytes (C % 4 != 0
 in float32, C % 8 != 0 in bfloat16; only test widths) or a base address that
-is not 16-byte aligned. For those the wrapper copies x into zero-padded
-(N, ceil(C/16)*16) rows, pads gamma with zeros and beta with ones, launches
-the same kernel and slices the result. The backward kernel reads its rows
-element by element and takes every width from 1 to 256 as it is.
+is not 16-byte aligned. For those the wrapper copies the rows (x, and g for
+the backward) into zero-padded (N, ceil(C/16)*16) rows, pads gamma with
+zeros and beta with ones, launches the same kernels and slices the results:
+the padded channels add nothing to the others' results.
 """
 
 import ctypes
@@ -80,7 +80,7 @@ def _entry():
 @functools.lru_cache(maxsize=None)
 def _backward_entry():
     fn = _build.load("gdn_bwd_kernel").gdn_backward
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -141,16 +141,37 @@ def _forward(x, gamma, beta, inverse):
     n, c = x.shape
     if n == 0 or c == 0:
         return torch.empty_like(x)
-    if (c * x.element_size()) % 16 or x.data_ptr() % 16:
-        cp = -(-c // 16) * 16
-        xp = x.new_zeros((n, cp))
-        xp[:, :c] = x
-        gp = gamma.new_zeros((cp, cp))
-        gp[:c, :c] = gamma
-        bp = beta.new_ones(cp)
-        bp[:c] = beta
-        return _launch(xp, gp, bp, inverse)[:, :c].contiguous()
+    cp = _padded_width(c, x.element_size(), (x.data_ptr(),))
+    if cp is not None:
+        return _launch(_pad_rows(x, cp), *_pad_params(gamma, beta, cp), inverse)[:, :c].contiguous()
     return _launch(x, gamma, beta, inverse)
+
+
+def _padded_width(c: int, element_size: int, addresses):
+    """None where TMA can describe rows of c channels as they are (a row
+    stride that is a multiple of 16 bytes, every base address 16-byte
+    aligned); else the width of the aligned, zero-padded copies the kernels
+    run on: c rounded up to a multiple of 16."""
+    if (c * element_size) % 16 or any(a % 16 for a in addresses):
+        return -(-c // 16) * 16
+    return None
+
+
+def _pad_rows(rows, cp):
+    out = rows.new_zeros((rows.shape[0], cp))
+    out[:, :rows.shape[1]] = rows
+    return out
+
+
+def _pad_params(gamma, beta, cp):
+    """gamma padded with zeros and beta with ones to cp channels: the padded
+    channels' norm is 1 and they mix into no other channel."""
+    c = beta.shape[0]
+    gp = gamma.new_zeros((cp, cp))
+    gp[:c, :c] = gamma
+    bp = beta.new_ones(cp)
+    bp[:c] = beta
+    return gp, bp
 
 
 def _launch(x, gamma, beta, inverse):
@@ -191,20 +212,32 @@ def gdn_backward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no GDN backward kernel for device {x.device}")
     n, c = x.shape
+    if n == 0 or c == 0:
+        return torch.zeros_like(x), torch.zeros_like(gamma), torch.zeros_like(beta)
+    cp = _padded_width(c, x.element_size(), (x.data_ptr(), g.data_ptr()))
+    if cp is not None:
+        dx, dgamma, dbeta = _launch_backward(_pad_rows(x, cp), *_pad_params(gamma, beta, cp),
+                                             _pad_rows(g, cp), inverse)
+        return dx[:, :c].contiguous(), dgamma[:c, :c].contiguous(), dbeta[:c].contiguous()
+    return _launch_backward(x, gamma, beta, g, inverse)
+
+
+def _launch_backward(x, gamma, beta, g, inverse):
+    n, c = x.shape
+    bf16 = x.dtype == torch.bfloat16
     dx = torch.empty_like(x)
     dgamma = torch.empty_like(gamma)
     dbeta = torch.empty_like(beta)
-    if n == 0 or c == 0:
-        return dx, dgamma.zero_(), dbeta.zero_()
     chunk_rows, chunks = _chunking(n)
-    t = torch.empty((n, c), dtype=torch.float32, device=x.device)
-    part = torch.empty(chunks * c * (c + 1), dtype=torch.float32, device=x.device)
+    # one float32 buffer, in the C entry point's layout: t (n, c), for
+    # bfloat16 rows d1 (n, c), then each chunk's dgamma and dbeta partials
+    scratch = torch.empty(n * c * (2 if bf16 else 1) + chunks * c * (c + 1),
+                          dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _backward_entry()(
             x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dx.data_ptr(),
-            dgamma.data_ptr(), dbeta.data_ptr(), t.data_ptr(), part.data_ptr(), n, c,
-            chunk_rows, chunks, int(inverse), int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            dgamma.data_ptr(), dbeta.data_ptr(), scratch.data_ptr(), n, c, chunk_rows, chunks,
+            int(inverse), int(bf16), torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"gdn backward kernel launch failed with CUDA error {err}")
     gdn_backward.launches += 1

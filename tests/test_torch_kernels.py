@@ -128,6 +128,89 @@ def test_three_tf32_products_keep_float32_grade_norm(c):
     assert single > 1e-4, single
 
 
+def _split(a, rnd):
+    hi = rnd(a)
+    return hi, rnd(a - hi)
+
+
+def _split_product(a, b, rnd):
+    """a @ b as the kernels take it: each operand split into hi and lo in
+    the tensor cores' type, lo @ lo dropped, the rest summed exactly."""
+    a_hi, a_lo = _split(a, rnd)
+    b_hi, b_lo = _split(b, rnd)
+    f = np.float64
+    return a_lo.astype(f) @ b_hi + a_hi.astype(f) @ b_lo + a_hi.astype(f) @ b_hi
+
+
+def _backward_terms(n, x, g, inverse):
+    """t and d1 from the norm, in float32 as the norm launch's epilogue."""
+    n = n.astype(np.float32)
+    if inverse:
+        s = np.sqrt(n)
+        return g * x / s, g * s
+    r = np.float32(1.0) / np.sqrt(n)
+    return g * x * (r * r * r), g * r
+
+
+def _backward_float64(x, gamma, beta, g, inverse):
+    """dx, dgamma, dbeta in float64 from the same float32 inputs."""
+    x, g, gamma = x.astype(np.float64), g.astype(np.float64), gamma.astype(np.float64)
+    n = (x * x) @ gamma + beta
+    s = np.sqrt(n)
+    t = g * x / s if inverse else g * x / (n * s)
+    sign, half = (1.0, 0.5) if inverse else (-1.0, -0.5)
+    dx = (g * s if inverse else g / s) + sign * x * (t @ gamma.T)
+    return dx, half * ((x * x).T @ t), half * t.sum(axis=0)
+
+
+def _within_backward_tolerance(got, want, shrink=1.0):
+    """chip_smoke.py's check_gdn_backward tolerance for float32 outputs, 1e-4
+    relative plus 1e-5 of the largest value, divided by ``shrink``."""
+    limit = (1e-4 * np.abs(want) + 1e-5 * np.abs(want).max()) / shrink
+    return bool((np.abs(got - want) <= limit).all())
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("c", [16, 128, 192])
+def test_mix_launch_three_tf32_products_keep_float32_grade_dx(c, inverse):
+    # csrc/gdn_bwd_kernel.cu launch 2: u = t . gamma^T as 3xTF32 (t and gamma
+    # each split hi/lo), after launch 1's 3xTF32 norm and float32 t, d1
+    x, gamma, beta = _gdn_operands(8192, c, seed=200 + c)
+    g = np.random.default_rng(c).standard_normal(x.shape, dtype=np.float32)
+    n = _split_product(x * x, gamma, _tf32_rna) + beta
+    t, d1 = _backward_terms(n, x, g, inverse)
+    u = _split_product(t, gamma.T, _tf32_rna)
+    scale = np.abs(t).astype(np.float64) @ np.abs(gamma.T)
+    assert (np.abs(u - t.astype(np.float64) @ gamma.T) / scale).max() <= 1e-6
+    sign = np.float32(1.0 if inverse else -1.0)
+    dx = d1 + sign * x * u.astype(np.float32)
+    want = _backward_float64(x, gamma, beta, g, inverse)[0]
+    assert _within_backward_tolerance(dx, want, shrink=10.0)
+    # one TF32 product for u (t and gamma rounded to TF32 once) fails the
+    # tolerance itself
+    single = (_tf32_rna(t).astype(np.float64) @ _tf32_rna(gamma.T)).astype(np.float32)
+    assert not _within_backward_tolerance(d1 + sign * x * single, want)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("c", [16, 128])
+def test_norm_launch_three_bf16_products_keep_dgamma_dbeta(c, inverse):
+    # csrc/gdn_bwd_kernel.cu launch 1 for bfloat16 rows: the norm as 3xbf16
+    # (x^2 split exactly, gamma hi/lo), t in float32, then dgamma and dbeta
+    # summed over 65,536 rows (float64 here; launches 3 and 4 in float32)
+    x, gamma, beta = _gdn_operands(65_536, c, seed=300 + c)
+    x = _bf16(x)
+    g = _bf16(np.random.default_rng(c).standard_normal(x.shape, dtype=np.float32))
+    n = _split_product(x * x, gamma, _bf16) + beta
+    t = _backward_terms(n, x, g, inverse)[0].astype(np.float64)
+    half = 0.5 if inverse else -0.5
+    dgamma = half * ((x * x).astype(np.float64).T @ t)
+    dbeta = half * t.sum(axis=0)
+    _, want_dgamma, want_dbeta = _backward_float64(x, gamma, beta, g, inverse)
+    assert _within_backward_tolerance(dgamma, want_dgamma)
+    assert _within_backward_tolerance(dbeta, want_dbeta)
+
+
 @pytest.mark.parametrize("c", [16, 128, 192])
 def test_three_bf16_products_keep_norm_within_3e_5(c):
     x, gamma, beta = _gdn_operands(8192, c, seed=100 + c)
@@ -209,6 +292,18 @@ def test_gdn_backward_chunking_covers_the_rows(n):
     assert rows % 32 == 0 and rows >= 256
     assert 1 <= chunks <= 256
     assert (chunks - 1) * rows < n <= chunks * rows
+
+
+@pytest.mark.parametrize("esz", [4, 2])
+@pytest.mark.parametrize("c", [1, 3, 4, 8, 10, 16, 100, 128, 192, 250, 256])
+def test_gdn_padded_width_suits_tma(c, esz):
+    # rows go to the kernels as they are only where TMA can describe them
+    aligned = gdn_kernel._padded_width(c, esz, (0, 512))
+    assert (aligned is None) == ((c * esz) % 16 == 0)
+    for cp in (aligned, gdn_kernel._padded_width(c, esz, (0, 4))):
+        if cp is not None:
+            assert cp >= c and cp % 16 == 0 and cp <= gdn_kernel.MAX_CHANNELS
+    assert gdn_kernel._padded_width(c, esz, (0, 4)) is not None
 
 
 def _mixture_with_tails(n, k, m, seed):
@@ -334,11 +429,13 @@ def _assert_grad_close(got, want, name, dtype=torch.float32):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("inverse", [False, True])
-# the train step's three sites (batch 16 at 256x256), ragged rows, widths
-# that leave ragged 32-channel groups, and 256
+# the train step's three sites (batch 16 at 256x256), ragged rows (also at
+# the widths where gamma is cut into slices: 192, 256), widths that leave
+# ragged 64-channel groups, and widths the wrapper pads (10; 100 in bf16)
 @pytest.mark.parametrize("n,c", [(262_144, 128), (65_536, 128), (16_384, 128),
                                  (100_003, 128), (77, 100), (300, 16), (513, 256),
-                                 (4096, 192), (64, 10)])
+                                 (4096, 192), (64, 10), (1001, 192), (70, 256),
+                                 (1001, 10)])
 def test_gdn_backward_kernel_matches_plain_on_card(cuda_device, dtype, inverse, n, c):
     x, gamma, beta, g = (t.to(cuda_device) for t in _gdn_case(n, c, seed=1))
     x, g = x.to(dtype), g.to(dtype)
@@ -355,6 +452,29 @@ def test_gdn_backward_kernel_matches_plain_on_card(cuda_device, dtype, inverse, 
     again = gdn_kernel.gdn_backward(x, gamma, beta, g, inverse)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gdn_kernels_take_rows_at_an_unaligned_address_on_card(cuda_device, dtype):
+    # rows starting 4 bytes past an aligned address: TMA cannot take them, so
+    # both wrappers run their kernels on aligned, padded copies
+    x, gamma, beta, g = (t.to(cuda_device) for t in _gdn_case(1000, 128, seed=3))
+    x, g = x.to(dtype), g.to(dtype)
+    shift = 4 // x.element_size()
+    xs = torch.empty(x.numel() + shift, dtype=dtype, device=cuda_device)[shift:].view_as(x)
+    gs = torch.empty(g.numel() + shift, dtype=dtype, device=cuda_device)[shift:].view_as(g)
+    xs.copy_(x)
+    gs.copy_(g)
+    assert xs.data_ptr() % 16 and gs.data_ptr() % 16
+    got = gdn_kernel.gdn(xs, gamma, beta)
+    torch.testing.assert_close(got.float(), gdn_kernel.gdn_reference(x, gamma, beta).float(),
+                               rtol=1e-5 if dtype == torch.float32 else 8e-3,
+                               atol=1e-5 if dtype == torch.float32 else 8e-3)
+    got = gdn_kernel.gdn_backward(xs, gamma, beta, gs)
+    want = gdn_kernel.gdn_backward_reference(x, gamma, beta, g)
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+        _assert_grad_close(a, b, name, dtype if name == "dx" else torch.float32)
 
 
 @pytest.mark.cuda

@@ -16,6 +16,8 @@ variants.json maps a name to a list of [old, new] substitutions; the
 source as it stands is {"base": []}. For example, three warpgroups for
 float32 too, at the widths whose ring holds three tiles:
     {"base": [], "three": [["(ESZ == 2 && CP <= 192) ? 3 : 2", "(CP <= 128) ? 3 : 2"]]}
+A name may map to a path instead: another gdn_kernel.cu taken as it is (an
+older commit's, unpacked with git archive), to time it beside this one.
 """
 
 import ctypes
@@ -43,14 +45,19 @@ def build(variants):
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, subs in variants.items():
-        src = source
+        if isinstance(subs, str):
+            src, subs = Path(subs).read_text(), []
+        else:
+            src = source
         for old, new in subs:
             if old not in src:
                 raise SystemExit(f"variant {name}: {old!r} not in the source")
             src = src.replace(old, new)
         cu = out_dir / f"{name}.cu"
         cu.write_text(src)
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"), str(cu)]
+        # -I: the variant lives in _build/variants/, its header in csrc/
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+               "-o", str(out_dir / f"lib{name}.so"), str(cu)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     entries = {}

@@ -8,7 +8,8 @@ transforms: by default the eval forward through make_serving_fn at 768x512,
 batch 48 and batch 1; with --train the training step through
 make_train_step (batch 16 of 256x256, rd_loss at lambda 0.005, Adam 1e-4).
 Prints, per configuration, the device time by layer (cuDNN convolutions,
-the GDN kernels, the mixture-likelihood kernels, the optimizer, other) and
+the GDN kernels, the GDN backward split by launch: norm, mix, partials and
+reduce, the mixture-likelihood kernels, the optimizer, other) and
 the device's busy share of the profiled window, then one JSON line with the
 same numbers. Imports only the port, never JAX; TF32 off as in
 chip_smoke.py.
@@ -42,7 +43,8 @@ ITERS = 3
 def layer_of(kernel_name: str) -> str:
     n = kernel_name.lower()
     if "gdn_bwd_" in n:
-        return "gdn backward kernel"
+        # one layer per launch of csrc/gdn_bwd_kernel.cu: gdn_bwd_<launch>_kernel
+        return "gdn backward kernel: " + n.split("gdn_bwd_", 1)[1].split("_kernel", 1)[0]
     if "gdn_rows_kernel" in n:
         return "gdn kernel"
     if "gmm_logp_backward_kernel" in n:
