@@ -24,24 +24,38 @@ Phases, in order; any failure exits non-zero:
      of 256x256, rd_loss at lambda 0.005, Adam 1e-4) in bfloat16 and float32
      transforms: steps/s, peak memory and MFU over 20 timed steps, and the
      loss falling over 30 steps on one batch.
-Phases 4 and 5 are the main paths: the kernels' launch counts are set to 0
-just before each and read just after it.
+  6. codec: the GDN kernel against its plain version at the codec's rows,
+     then coding.JointARCodec on one 768x512 image (a uint8 and a float32
+     one), f32 and bf16 transforms: the exact round trip of the latents,
+     decompress against the eval forward, stream bits against the analytic
+     rate, streams and psi the same across TF32/autotuning settings and
+     fresh codecs, 3 GDN launches per compress and per decompress, and
+     encode and decode latency split into device and host stages.
+Phases 4, 5 and 6 are the main paths: the kernels' launch counts are set to
+0 just before each and read just after it.
 The last lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
-TF32 is off throughout (convolutions and products in full float32).
+TF32 is off throughout (convolutions and products in full float32), except
+where phase 6 turns it on to show that the codec's streams do not depend on
+it.
 """
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from neural_image_compression_tpu_torch.coding import JointARCodec
+from neural_image_compression_tpu_torch.coding import backend as rans_backend
+from neural_image_compression_tpu_torch.coding import codec as codec_module
 from neural_image_compression_tpu_torch.models import JointAutoregressiveHierarchical, joint_ar
 from neural_image_compression_tpu_torch.ops.kernels import (
     _build, gdn_kernel, gmm_kernel, launch_counts, reset_launch_counts,
@@ -208,36 +222,43 @@ def check_gdn(x, gamma_t, beta_t, inverse, label):
     return err
 
 
+def gdn_site_records(path, sites, rng, gamma_t, beta_t, dev):
+    """The GDN kernel at each site's rows against its plain version, timed
+    beside its bound, in float32 and bfloat16, GDN and IGDN."""
+    c = gamma_t.shape[0]
+    records = []
+    for site, rows in sites.items():
+        x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            dname = str(dtype).replace("torch.", "")
+            for inverse in (False, True):
+                name = "igdn" if inverse else "gdn"
+                err = check_gdn(x, gamma_t, beta_t, inverse, f"{name:4s} {path} {site} {dname}")
+                ms = median_ms(lambda: gdn_kernel.gdn(x, gamma_t, beta_t, inverse))
+                plain_ms = median_ms(
+                    lambda: gdn_kernel.gdn_reference(x, gamma_t, beta_t, inverse))
+                io_bytes = rows * c * x.element_size() * 2 + (c * c + c) * 4
+                # the work counted once (not the three split products)
+                peak = "tf32_tensor_core"
+                bound_ms, bound_by = bound(io_bytes, 2.0 * rows * c * c + 4.0 * rows * c, peak)
+                records.append(dict(
+                    name="gdn", **KERNEL_INFO["gdn"], path=path, site=site, inverse=inverse,
+                    shape=[rows, c], dtype=dname, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, peak=peak, library_ms=None))
+                print(f"  {name:4s} {path} {site} rows={rows} {dname:8s} "
+                      f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                      f"({bound_by}, {100 * bound_ms / ms:.1f}% of it)", flush=True)
+        del x32, x
+    return records
+
+
 def gdn_cases(dev):
     rng = np.random.default_rng(0)
-    c = M
-    gamma_t, beta_t = gdn_params(c, rng, dev)
+    gamma_t, beta_t = gdn_params(M, rng, dev)
     records = []
     for path, sites in (("serve", GDN_SITES), ("train", TRAIN_GDN_SITES)):
-        for site, rows in sites.items():
-            x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
-            for dtype in (torch.float32, torch.bfloat16):
-                x = x32.to(dtype)
-                dname = str(dtype).replace("torch.", "")
-                for inverse in (False, True):
-                    name = "igdn" if inverse else "gdn"
-                    err = check_gdn(x, gamma_t, beta_t, inverse, f"{name:4s} {path} {site} {dname}")
-                    ms = median_ms(lambda: gdn_kernel.gdn(x, gamma_t, beta_t, inverse))
-                    plain_ms = median_ms(
-                        lambda: gdn_kernel.gdn_reference(x, gamma_t, beta_t, inverse))
-                    io_bytes = rows * c * x.element_size() * 2 + (c * c + c) * 4
-                    # the work counted once (not the three split products)
-                    peak = "tf32_tensor_core"
-                    bound_ms, bound_by = bound(io_bytes, 2.0 * rows * c * c + 4.0 * rows * c,
-                                               peak)
-                    records.append(dict(
-                        name="gdn", **KERNEL_INFO["gdn"], path=path, site=site, inverse=inverse,
-                        shape=[rows, c], dtype=dname, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by, peak=peak, library_ms=None))
-                    print(f"  {name:4s} {path} {site} rows={rows} {dname:8s} "
-                          f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                          f"({bound_by}, {100 * bound_ms / ms:.1f}% of it)", flush=True)
-            del x32, x
+        records += gdn_site_records(path, sites, rng, gamma_t, beta_t, dev)
     for rows, c in GDN_EXTRA_CASES:
         gamma_c, beta_c = gdn_params(c, rng, dev)
         x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
@@ -434,13 +455,20 @@ def rounding_margin(v: torch.Tensor) -> float:
     return (f - f.floor() - 0.5).abs().min().item()
 
 
-def parity(dev):
-    cpu_model = JointAutoregressiveHierarchical(M, K, device="cpu", seed=PARITY_SEED)
+def gained_model(device, dtype=None):
+    """The flagship from PARITY_SEED with the parity gains on the last
+    analysis convs, so that y and z spread over several integers."""
+    model = JointAutoregressiveHierarchical(M, K, dtype=dtype, device=device, seed=PARITY_SEED)
     with torch.no_grad():
-        for conv, gain in ((cpu_model.encoder.Conv2d_3, PARITY_GAIN_Y),
-                           (cpu_model.hyper_encoder.Conv2d_2, PARITY_GAIN_Z)):
+        for conv, gain in ((model.encoder.Conv2d_3, PARITY_GAIN_Y),
+                           (model.hyper_encoder.Conv2d_2, PARITY_GAIN_Z)):
             conv.weight.mul_(gain)
             conv.bias.mul_(gain)
+    return model
+
+
+def parity(dev):
+    cpu_model = gained_model("cpu")
     card_model = JointAutoregressiveHierarchical(M, K, device=dev, seed=PARITY_SEED)
     card_model.load_state_dict(cpu_model.state_dict())
     x = torch.from_numpy(np.random.default_rng(PARITY_SEED).uniform(
@@ -642,6 +670,207 @@ def train_phase(dev, card: str):
     return steps, results
 
 
+# --- phase 6: the codec ------------------------------------------------------------
+
+CODEC_SEED = 12
+CODEC_WARMUP, CODEC_ITERS = 1, 5
+# stream bits against the eval forward's analytic bits: 2% plus the 26-byte
+# header and the two 4-byte rANS state flushes (z and y)
+CODEC_RATE_SLACK, CODEC_FIXED_BYTES = 1.02, 26 + 2 * 4
+# decompress against the eval forward's x_hat: float32 within 1e-5 (the
+# decoders run the same operations on the same latents; cuDNN's transposed
+# convolutions may sum in other orders from call to call); bfloat16 within
+# one bf16 step
+CODEC_F32_XHAT_TOL = 1e-5
+NO_LAUNCHES = {"gdn": 0, "gdn_backward": 0, "gmm_logp": 0, "gmm_logp_backward": 0}
+CODEC_PER_CALL = dict(NO_LAUNCHES, gdn=3)  # 3 GDN in analysis, 3 IGDN in synthesis
+
+
+# GDN rows of one image at the three transform depths (3 GDN in analysis,
+# 3 IGDN in synthesis)
+CODEC_GDN_SITES = {"H/2": (HEIGHT // 2) * (WIDTH // 2), "H/4": (HEIGHT // 4) * (WIDTH // 4),
+                   "H/8": (HEIGHT // 8) * (WIDTH // 8)}
+
+
+def gdn_codec_cases(dev):
+    rng = np.random.default_rng(13)
+    gamma_t, beta_t = gdn_params(M, rng, dev)
+    return gdn_site_records("codec", CODEC_GDN_SITES, rng, gamma_t, beta_t, dev)
+
+
+def codec_images():
+    rng = np.random.default_rng(CODEC_SEED)
+    return {"uint8": (rng.uniform(size=(1, HEIGHT, WIDTH, 3)) * 256).astype(np.uint8),
+            "float32": rng.uniform(size=(1, HEIGHT, WIDTH, 3)).astype(np.float32)}
+
+
+def codec_references(dev, models, images):
+    """The eval forward of each model on each image (uint8 as x/255): the
+    latents, the clipped x_hat and the analytic bits, on the host."""
+    refs = {}
+    for dname, model in models.items():
+        for iname, x in images.items():
+            xf = x.astype(np.float32) / 255.0 if x.dtype == np.uint8 else x
+            xd = torch.from_numpy(xf).to(dev)
+            out = model(xd, training=False)
+            refs[dname, iname] = dict(
+                y_in=out["y_in"][0].cpu().numpy(), z_in=out["z_in"][0].cpu().numpy(),
+                x_hat=torch.clamp(out["x_hat"], 0.0, 1.0).cpu().numpy(),
+                bits=rd_loss(out, xd, LAMBDA)["bits_total"].item())
+            del out, xd
+    return refs
+
+
+def counted(total, expect, fn, *args):
+    """fn(*args) with its kernel launches checked against ``expect`` and
+    added to ``total``; returns (result, seconds on the host clock)."""
+    before = launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = launch_counts()
+    got = {k: after[k] - before[k] for k in after}
+    check(got == expect, f"{getattr(fn, '__name__', fn)} launched {got}, not {expect}")
+    for k, v in got.items():
+        total[k] += v
+    return out, seconds
+
+
+def median_call_ms(total, expect, fn, *args):
+    """Median host-clock ms of CODEC_ITERS calls after CODEC_WARMUP."""
+    for _ in range(CODEC_WARMUP):
+        counted(total, expect, fn, *args)
+    return 1e3 * statistics.median(counted(total, expect, fn, *args)[1]
+                                   for _ in range(CODEC_ITERS))
+
+
+def set_fast_numerics(on: bool) -> None:
+    torch.backends.cudnn.benchmark = on
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def codec_numerics_check(total, model, x, dname):
+    """Compress with cuDNN autotuning and TF32 on, decode with both off: the
+    stream decodes exactly (its decoded latents re-encode to the same
+    bytes) and psi is the same bits; two fresh codecs give equal bytes and
+    equal psi."""
+    set_fast_numerics(True)
+    try:
+        fast = JointARCodec(model)
+        data, _ = counted(total, CODEC_PER_CALL, fast.compress, x)
+        check(torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.benchmark
+              and torch.backends.cuda.matmul.allow_tf32,
+              f"{dname}: the codec did not restore the caller's numerics settings")
+        (y_fast, z_fast), _ = counted(total, NO_LAUNCHES, fast.decode_latents, data)
+        psi_fast = fast._psi(z_fast[None])
+    finally:
+        set_fast_numerics(False)
+    plain = JointARCodec(model)
+    (y_q, z_q), _ = counted(total, NO_LAUNCHES, plain.decode_latents, data)
+    check(np.array_equal(y_q, y_fast) and np.array_equal(z_q, z_fast),
+          f"{dname}: latents decoded with TF32 off differ from those decoded with it on")
+    again, _ = counted(total, NO_LAUNCHES, plain.compress_latents, y_q, z_q, HEIGHT, WIDTH)
+    check(again == data, f"{dname}: the TF32-on stream's latents re-encode to other bytes "
+                         f"with TF32 off")
+    check(np.array_equal(plain._psi(z_q[None]), psi_fast), f"{dname}: psi depends on TF32")
+    first, second = JointARCodec(model), JointARCodec(model)
+    d1, _ = counted(total, CODEC_PER_CALL, first.compress, x)
+    d2, _ = counted(total, CODEC_PER_CALL, second.compress, x)
+    check(d1 == d2, f"{dname}: two fresh codecs wrote different streams")
+    z1 = first.decode_latents(d1)[1][None]
+    check(np.array_equal(first._psi(z1), second._psi(z1)), f"{dname}: two fresh codecs' psi differ")
+    print(f"  {dname}: TF32 + autotuned compress decodes exactly with both off (stream "
+          f"re-encodes to the same {len(data)} bytes, psi bit-equal); two fresh codecs: "
+          f"equal bytes and psi", flush=True)
+
+
+def codec_case(total, codec, x, ref, dname, iname, card):
+    """One model on one image: correctness, then latency by stage."""
+    label = f"{dname} {iname}"
+    data, _ = counted(total, CODEC_PER_CALL, codec.compress, x)
+    (y_q, z_q), _ = counted(total, NO_LAUNCHES, codec.decode_latents, data)
+    check(np.array_equal(y_q, ref["y_in"]) and np.array_equal(z_q, ref["z_in"]),
+          f"{label}: decoded latents differ from the eval forward's y_in/z_in "
+          f"({int((y_q != ref['y_in']).sum())} y, {int((z_q != ref['z_in']).sum())} z)")
+    check(len(np.unique(y_q)) >= 3, f"{label}: y_q takes fewer than 3 values")
+    x_hat, _ = counted(total, CODEC_PER_CALL, codec.decompress, data)
+    check(x_hat.shape == (1, HEIGHT, WIDTH, 3) and np.isfinite(x_hat).all(), f"{label}: x_hat")
+    xhat_err = float(np.abs(x_hat - ref["x_hat"]).max())
+    if dname == "float32":
+        check(xhat_err <= CODEC_F32_XHAT_TOL, f"{label}: x_hat differs by {xhat_err:.3e}")
+        xhat_note = f"max abs diff {xhat_err:.3e}"
+    else:
+        steps = bf16_steps_apart(torch.from_numpy(x_hat).bfloat16(),
+                                 torch.from_numpy(ref["x_hat"]).bfloat16()).max().item()
+        check(steps <= 1, f"{label}: x_hat {steps} bf16 steps from the eval forward's")
+        xhat_note = f"max abs diff {xhat_err:.3e}, at most {steps} bf16 step(s)"
+    if iname == "uint8":
+        x8, _ = counted(total, CODEC_PER_CALL, codec.decompress, data, True)
+        want8 = np.round(x_hat * 255.0).astype(np.int32)
+        check(x8.dtype == np.uint8 and np.abs(x8.astype(np.int32) - want8).max() <= 1,
+              f"{label}: as_uint8 output beyond one level")
+    bits = 8 * len(data)
+    ratio = bits / ref["bits"]
+    check(bits <= ref["bits"] * CODEC_RATE_SLACK + 8 * CODEC_FIXED_BYTES,
+          f"{label}: {bits} stream bits against {ref['bits']:.1f} analytic")
+
+    encode_ms = median_call_ms(total, CODEC_PER_CALL, codec.compress, x)
+    decode_ms = median_call_ms(total, CODEC_PER_CALL, codec.decompress, data)
+    # the stages compress and decompress run, one at a time
+    img_h, img_w, y_s, z_s, psi = counted(total, CODEC_PER_CALL, codec._analyse_image, x)[0]
+    header = codec._header(data)
+    y_payload = data[codec_module._HEADER_SIZE + header[9]:]
+    h, w = HEIGHT // 16, WIDTH // 16
+    stages = {
+        "encode_analysis_psi": median_call_ms(total, CODEC_PER_CALL, codec._analyse_image, x),
+        "encode_host_z_and_wavefront": median_call_ms(total, NO_LAUNCHES, codec._encode_from,
+                                                      y_s, z_s, psi, img_h, img_w),
+        "decode_host_z": median_call_ms(total, NO_LAUNCHES, codec._decode_z, data, header),
+        "decode_psi": median_call_ms(total, NO_LAUNCHES, codec._psi, z_q[None]),
+        "decode_host_wavefront": median_call_ms(total, NO_LAUNCHES,
+                                                codec_module._ar_decode_latents,
+                                                codec._host_nets, y_payload, psi, h, w),
+        "decode_synthesis": median_call_ms(total, CODEC_PER_CALL, codec._synthesize, y_q,
+                                           HEIGHT, WIDTH),
+    }
+    result = dict(
+        encode_ms=encode_ms, decode_ms=decode_ms,
+        encode_device_ms=stages["encode_analysis_psi"],
+        encode_host_ms=stages["encode_host_z_and_wavefront"],
+        decode_device_ms=stages["decode_psi"] + stages["decode_synthesis"],
+        decode_host_ms=stages["decode_host_z"] + stages["decode_host_wavefront"],
+        stages_ms=stages, stream_bytes=len(data), bpp=bits / (HEIGHT * WIDTH),
+        analytic_bpp=ref["bits"] / (HEIGHT * WIDTH), stream_over_analytic=ratio,
+        x_hat_max_abs_diff=xhat_err)
+    print(f"  {label}: encode {encode_ms:.2f} ms (device {result['encode_device_ms']:.2f}, host "
+          f"{result['encode_host_ms']:.2f}), decode {decode_ms:.2f} ms (device "
+          f"{result['decode_device_ms']:.2f}, host {result['decode_host_ms']:.2f}); "
+          f"{result['bpp']:.5f} bpp, {ratio:.5f} of analytic; latents exact, x_hat {xhat_note} "
+          f"[{card}, {os.cpu_count()} host cores]", flush=True)
+    return result
+
+
+def codec_phase(dev, card):
+    """Returns (launches of the codec's calls, results)."""
+    images = codec_images()
+    models = {"float32": gained_model(dev), "bfloat16": gained_model(dev, torch.bfloat16)}
+    refs = codec_references(dev, models, images)
+    reset_launch_counts()
+    total = dict(NO_LAUNCHES)
+    results = {}
+    for dname, model in models.items():
+        codec = JointARCodec(model)
+        results[dname] = {iname: codec_case(total, codec, x, refs[dname, iname], dname, iname,
+                                            card)
+                          for iname, x in images.items()}
+        codec_numerics_check(total, model, images["float32"], dname)
+    launches = launch_counts()
+    check(launches == total, f"codec launches {launches}, its calls counted {total}")
+    return launches, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -654,8 +883,12 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)")
     print(card, flush=True)  # name and power limit, as nvidia-smi gives them
     t0 = time.perf_counter()
-    _build.build(verbose=True)
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    with ThreadPoolExecutor(1) as pool:  # g++ for the rANS coder beside the nvcc builds
+        rans = pool.submit(rans_backend.build, True)
+        _build.build(verbose=True)
+        rans_lib = rans.result()
+    print(f"kernels and the rANS coder ({rans_lib.name}) built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     print("== phase 2: kernels against their plain versions", flush=True)
     torch.backends.cudnn.allow_tf32 = False
@@ -691,8 +924,16 @@ def main() -> int:
     print(f"main path (train): {steps} steps, launches {train_launches}")
     print(json.dumps({"train": train_results, "card": card}))
 
+    print(f"== phase 6: codec, M={M} K={K}, one {HEIGHT}x{WIDTH} image [{card}]", flush=True)
+    records += gdn_codec_cases(dev)
+    codec_launches, codec_results = codec_phase(dev, card)
+    check(codec_launches["gdn"] > 0, "the codec launched no GDN kernel")
+    print(f"main path (codec): launches {codec_launches}")
+    print(json.dumps({"codec": codec_results, "card": card, "cpu_count": os.cpu_count()}))
+
     for r in records:
-        r["launches"] = serve_launches[r["name"]] + train_launches[r["name"]]
+        r["launches"] = (serve_launches[r["name"]] + train_launches[r["name"]]
+                         + codec_launches[r["name"]])
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,14 +11,17 @@ Entry points put their tensors on ``cuda`` unless the caller passes
 every kernel wrapper launches its hand-written kernel (``csrc/``); the plain
 PyTorch version of each kernel runs only for tensors on the CPU. The GDN
 and mixture-likelihood kernels have backward kernels, so the flagship
-trains on the card (``parallel.make_train_step``).
+trains on the card (``parallel.make_train_step``). ``coding.JointARCodec``
+writes and reads real bitstreams: the transforms run on the model's device,
+the rANS and wavefront coders on the host (C++, built with g++ at first
+use).
 
 This package imports torch and numpy only: never jax, flax or the JAX
 package.
 """
 
 from neural_image_compression_tpu_torch import (
-    entropy, models, ops, parallel, serving, train, utils,
+    coding, entropy, models, ops, parallel, serving, train, utils,
 )
 
-__all__ = ["entropy", "models", "ops", "parallel", "serving", "train", "utils"]
+__all__ = ["coding", "entropy", "models", "ops", "parallel", "serving", "train", "utils"]

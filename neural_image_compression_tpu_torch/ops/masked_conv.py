@@ -29,6 +29,12 @@ def causal_mask(kernel_size: int, mask_type: str = "A") -> np.ndarray:
     return mask
 
 
+def causal_positions(kernel_size: int, mask_type: str = "A"):
+    """(r, c) taps the causal mask keeps, in raster order."""
+    m = causal_mask(kernel_size, mask_type)[:, :, 0, 0]
+    return [(r, c) for r in range(kernel_size) for c in range(kernel_size) if m[r, c] > 0]
+
+
 class MaskedConv2d(Conv2d):
     """Same-padded conv whose kernel is masked to the causal taps."""
 
