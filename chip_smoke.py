@@ -25,12 +25,22 @@ Phases, in order; any failure exits non-zero:
      transforms: steps/s, peak memory and MFU over 20 timed steps, and the
      loss falling over 30 steps on one batch.
   6. codec: the GDN kernel against its plain version at the codec's rows,
+     the IGDN backward (dx alone) and the mixture kernels at refinement's,
      then coding.JointARCodec on one 768x512 image (a uint8 and a float32
      one), f32 and bf16 transforms: the exact round trip of the latents,
      decompress against the eval forward, stream bits against the analytic
      rate, streams and psi the same across TF32/autotuning settings and
      fresh codecs, 3 GDN launches per compress and per decompress, and
-     encode and decode latency split into device and host stages.
+     encode and decode latency split into device and host stages; then
+     interleaved streams (n_streams 4 and 8 against 1: exact latents,
+     bytes, latency by stage), 2x2 tiles (exact latents, bpp), a batch of 8
+     images through compress_batch / decompress_batch (streams equal to
+     compress's, exact latents, images/s against 8 single calls), latent
+     refinement (20 Adam steps: the loss falls, the refined latents round
+     trip, launches per call, ms a step) and portable streams (a card built
+     on the card machine, saved and loaded; exact latents, bpp against the
+     float stream, latency; at 64x128 the native and numpy coders write the
+     same bytes).
 Phases 4, 5 and 6 are the main paths: the kernels' launch counts are set to
 0 just before each and read just after it.
 The last lines are the kernels' JSON record and
@@ -47,13 +57,15 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from neural_image_compression_tpu_torch.coding import JointARCodec
+from neural_image_compression_tpu_torch.coding import JointARCodec, PortableCard, make_refiner
+from neural_image_compression_tpu_torch.coding import portable
 from neural_image_compression_tpu_torch.coding import backend as rans_backend
 from neural_image_compression_tpu_torch.coding import codec as codec_module
 from neural_image_compression_tpu_torch.models import JointAutoregressiveHierarchical, joint_ar
@@ -87,7 +99,8 @@ TRAIN_GDN_SITES = {"H/2": TRAIN_BATCH * (TRAIN_SIZE // 2) ** 2,
                    "H/4": TRAIN_BATCH * (TRAIN_SIZE // 4) ** 2,
                    "H/8": TRAIN_BATCH * (TRAIN_SIZE // 8) ** 2}
 TRAIN_GMM_ROWS = TRAIN_BATCH * (TRAIN_SIZE // 16) ** 2
-PER_STEP = {"gdn": 6, "gdn_backward": 6, "gmm_logp": 1, "gmm_logp_backward": 1}
+PER_STEP = {"gdn": 6, "gdn_backward": 6, "gdn_backward_params": 6, "gmm_logp": 1,
+            "gmm_logp_backward": 1}
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_CONVERGE = 3, 20, 30
 # GDN correctness beyond the main path: (rows, channels)
 GDN_EXTRA_CASES = ((100_003, 128), (65_536, 192), (65_536, 256), (65_536, 10))
@@ -325,16 +338,22 @@ def gmm_case(dev, path, n, seed):
                  bound_by=bound_by, peak="f32_cuda_core", library_ms=None)]
 
 
-def check_gdn_backward(x, gamma_t, beta_t, g, inverse, label):
+def check_gdn_backward(x, gamma_t, beta_t, g, inverse, label, param_grads=True):
     """The backward kernel against its plain version: float32 outputs within
     1e-4 relative plus 1e-5 of the largest value (other summation orders,
     dgamma over up to 262,144 rows); a bf16 dx within one bf16 step of the
-    plain version. Two runs give the same bits (no atomics). Returns the
-    largest abs error of dx, dgamma and dbeta."""
-    got = gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, inverse)
-    want = gdn_kernel.gdn_backward_reference(x, gamma_t, beta_t, g, inverse)
+    plain version. Two runs give the same bits (no atomics). Without
+    param_grads, dgamma and dbeta are None and dx is the full backward's.
+    Returns the largest abs error of the outputs."""
+    got = gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, inverse, param_grads)
+    want = gdn_kernel.gdn_backward_reference(x, gamma_t, beta_t, g, inverse, param_grads)
     torch.cuda.synchronize()
     check(got[0].dtype == x.dtype and got[0].shape == x.shape, f"{label}: dx {got[0].dtype}")
+    if not param_grads:
+        check(got[1] is None and got[2] is None, f"{label}: dgamma/dbeta without param_grads")
+        full = gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, inverse)
+        check(torch.equal(got[0], full[0]), f"{label}: dx differs from the full backward's")
+        got, want = got[:1], want[:1]
     errs = []
     for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
         a, b = a.float(), b.float()
@@ -344,9 +363,10 @@ def check_gdn_backward(x, gamma_t, beta_t, g, inverse, label):
         check(bool((diff <= limit).all()),
               f"{label}: {name} max abs err {diff.max().item():.3e} beyond tolerance")
         errs.append(diff.max().item())
-    again = gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, inverse)
+    again = gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, inverse, param_grads)
     check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: runs differ")
-    print(f"  {label}: max abs err dx {errs[0]:.3e}, dgamma {errs[1]:.3e}, dbeta {errs[2]:.3e}")
+    print(f"  {label}: max abs err " + ", ".join(
+        f"{n} {e:.3e}" for n, e in zip(("dx", "dgamma", "dbeta"), errs)))
     return max(errs)
 
 
@@ -416,12 +436,16 @@ def gdn_backward_cases(dev):
 
 
 def gmm_backward_cases(dev):
-    n, k, m = TRAIN_GMM_ROWS, K, M
-    arrays = list(mixture_symbols(n, k, m, seed=4))
+    return gmm_backward_case(dev, "train", TRAIN_GMM_ROWS, seed=4)
+
+
+def gmm_backward_case(dev, path, n, seed):
+    k, m = K, M
+    arrays = list(mixture_symbols(n, k, m, seed=seed))
     arrays[0] = arrays[0].copy()
     arrays[0][0, :] = 1000.0  # a row below the 1e-9 floor: zero gradient
     args = [torch.from_numpy(a).to(dev) for a in arrays]
-    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+    g = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
         (n, m), dtype=np.float32)).to(dev)
     got = gmm_kernel.gmm_logp_backward(*args, g)
     want = gmm_kernel.mixture_log_likelihood_backward_reference(*args, g)
@@ -441,9 +465,9 @@ def gmm_backward_cases(dev):
     # per (position, component): both edges' erff (10 each) and expf (8
     # each) and about 30 more; the floor, the division and the sum per position
     bound_ms, bound_by = bound(io_bytes, (66.0 * k + 12.0) * n * m, "f32_cuda_core")
-    print(f"  gmm-bwd rows={n} K={k} M={m} err={err:.3e} kernel {ms:.4f} ms  plain "
+    print(f"  gmm-bwd {path} rows={n} K={k} M={m} err={err:.3e} kernel {ms:.4f} ms  plain "
           f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-    return [dict(name="gmm_logp_backward", **KERNEL_INFO["gmm_logp_backward"], path="train",
+    return [dict(name="gmm_logp_backward", **KERNEL_INFO["gmm_logp_backward"], path=path,
                  shape=[n, k, m], dtype="float32", max_abs_err=err, ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, peak="f32_cuda_core", library_ms=None)]
 
@@ -682,7 +706,8 @@ CODEC_RATE_SLACK, CODEC_FIXED_BYTES = 1.02, 26 + 2 * 4
 # convolutions may sum in other orders from call to call); bfloat16 within
 # one bf16 step
 CODEC_F32_XHAT_TOL = 1e-5
-NO_LAUNCHES = {"gdn": 0, "gdn_backward": 0, "gmm_logp": 0, "gmm_logp_backward": 0}
+NO_LAUNCHES = {"gdn": 0, "gdn_backward": 0, "gdn_backward_params": 0, "gmm_logp": 0,
+               "gmm_logp_backward": 0}
 CODEC_PER_CALL = dict(NO_LAUNCHES, gdn=3)  # 3 GDN in analysis, 3 IGDN in synthesis
 
 
@@ -696,6 +721,49 @@ def gdn_codec_cases(dev):
     rng = np.random.default_rng(13)
     gamma_t, beta_t = gdn_params(M, rng, dev)
     return gdn_site_records("codec", CODEC_GDN_SITES, rng, gamma_t, beta_t, dev)
+
+
+# latent refinement: the decoder's three IGDN backwards (dx alone: the
+# weights are frozen) at one image's rows, and the mixture at its latents
+REFINE_GMM_ROWS = (HEIGHT // 16) * (WIDTH // 16)
+
+
+def refine_kernel_cases(dev):
+    """The IGDN backward without its dgamma/dbeta stage at the codec's rows,
+    and both mixture kernels at refinement's rows, against their plain
+    versions, timed beside their bounds."""
+    rng = np.random.default_rng(14)
+    c = M
+    gamma_t, beta_t = gdn_params(c, rng, dev)
+    records = []
+    for site, rows in CODEC_GDN_SITES.items():
+        x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
+        g32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g = x32.to(dtype), g32.to(dtype)
+            dname = str(dtype).replace("torch.", "")
+            err = check_gdn_backward(x, gamma_t, beta_t, g, True, f"igdn-bwd dx refine {site} {dname}",
+                                     param_grads=False)
+            ms = median_ms(lambda: gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, True, False))
+            plain_ms = median_ms(
+                lambda: gdn_kernel.gdn_backward_reference(x, gamma_t, beta_t, g, True, False))
+            # x and g read, dx written, gamma and beta read; the two (N, C) x
+            # (C, C) products (the norm, t @ gamma^T), counted once
+            peak = "tf32_tensor_core"
+            bound_ms, bound_by = bound(3 * rows * c * x.element_size() + (c * c + c) * 4,
+                                       4.0 * rows * c * c + 10.0 * rows * c, peak)
+            records.append(dict(
+                name="gdn_backward", **KERNEL_INFO["gdn_backward"], path="refine", site=site,
+                inverse=True, param_grads=False, shape=[rows, c], dtype=dname, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, peak=peak,
+                library_ms=None))
+            print(f"  igdn-bwd dx refine {site} rows={rows} {dname:8s} kernel {ms:.4f} ms  "
+                  f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}, "
+                  f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
+        del x32, g32, x, g
+    records += gmm_case(dev, "refine", REFINE_GMM_ROWS, seed=15)
+    records += gmm_backward_case(dev, "refine", REFINE_GMM_ROWS, seed=16)
+    return records
 
 
 def codec_images():
@@ -832,7 +900,7 @@ def codec_case(total, codec, x, ref, dname, iname, card):
         "decode_host_wavefront": median_call_ms(total, NO_LAUNCHES,
                                                 codec_module._ar_decode_latents,
                                                 codec._host_nets, y_payload, psi, h, w),
-        "decode_synthesis": median_call_ms(total, CODEC_PER_CALL, codec._synthesize, y_q,
+        "decode_synthesis": median_call_ms(total, CODEC_PER_CALL, codec._synthesize, y_q[None],
                                            HEIGHT, WIDTH),
     }
     result = dict(
@@ -852,11 +920,232 @@ def codec_case(total, codec, x, ref, dname, iname, card):
     return result
 
 
+CODEC_STREAMS = (4, 8)
+CODEC_TILES = (2, 2)
+BATCH_IMAGES, BATCH_ITERS = 8, 3
+REFINE_STEPS, REFINE_LR, REFINE_ITERS = 20, 1e-2, 3
+# the eval forward (3 GDN, 3 IGDN, 1 mixture), each step's decoder (3 IGDN
+# forward and backward, dx alone) and rate (1 mixture forward and
+# backward), and the refined latents' forward (3 IGDN, 1 mixture)
+REFINE_PER_CALL = dict(NO_LAUNCHES, gdn=6 + 3 * REFINE_STEPS + 3, gdn_backward=3 * REFINE_STEPS,
+                       gmm_logp=1 + REFINE_STEPS + 1, gmm_logp_backward=REFINE_STEPS)
+REFINE_ZERO_STEPS = dict(NO_LAUNCHES, gdn=9, gmm_logp=2)
+PORTABLE_SMALL = (64, 128)
+
+
+def check_latents(label, got, ref):
+    y_q, z_q = got
+    check(np.array_equal(y_q, ref["y_in"]) and np.array_equal(z_q, ref["z_in"]),
+          f"{label}: decoded latents differ from the eval forward's y_in/z_in "
+          f"({int((y_q != ref['y_in']).sum())} y, {int((z_q != ref['z_in']).sum())} z)")
+
+
+def codec_streams_case(total, codec, x, ref, dname):
+    """Interleaved streams against one stream in this call: exact latents,
+    bytes (each stream adds a 4-byte length-table entry and a 4-byte rANS
+    flush) and latency by stage, the device stages shared by every N."""
+    img_h, img_w, y_s, z_s, psi = counted(total, CODEC_PER_CALL, codec._analyse_image, x)[0]
+    h, w = HEIGHT // 16, WIDTH // 16
+    rows = {}
+    for n in (1,) + CODEC_STREAMS:
+        data, _ = counted(total, CODEC_PER_CALL, codec.compress, x, None, n)
+        check_latents(f"{dname} n_streams={n}", counted(total, NO_LAUNCHES,
+                                                        codec.decode_latents, data)[0], ref)
+        if n == 1:
+            base = len(data)
+        check(len(data) <= base + 8 * n, f"{dname} n_streams={n}: {len(data)} bytes against "
+                                         f"{base} in one stream")
+        header = codec._header(data)
+        payload = data[codec_module._HEADER_SIZE + header[9]:]
+        rows[n] = dict(
+            stream_bytes=len(data), extra_bytes=len(data) - base,
+            encode_ms=median_call_ms(total, CODEC_PER_CALL, codec.compress, x, None, n),
+            decode_ms=median_call_ms(total, CODEC_PER_CALL, codec.decompress, data),
+            encode_host_ms=median_call_ms(total, NO_LAUNCHES, codec._encode_from, y_s, z_s, psi,
+                                          img_h, img_w, None, n),
+            decode_host_z_ms=median_call_ms(total, NO_LAUNCHES, codec._decode_z, data, header),
+            decode_host_wavefront_ms=median_call_ms(total, NO_LAUNCHES, codec._decode_y, payload,
+                                                    psi, h, w, header[6]))
+    z_q = ref["z_in"][None]
+    device = dict(
+        encode_analysis_psi_ms=median_call_ms(total, CODEC_PER_CALL, codec._analyse_image, x),
+        decode_psi_ms=median_call_ms(total, NO_LAUNCHES, codec._psi, z_q),
+        decode_synthesis_ms=median_call_ms(total, CODEC_PER_CALL, codec._synthesize,
+                                           ref["y_in"][None], HEIGHT, WIDTH))
+    for n in CODEC_STREAMS:
+        r = rows[n]
+        r["decode_wavefront_speedup"] = (rows[1]["decode_host_wavefront_ms"]
+                                         / r["decode_host_wavefront_ms"])
+        r["encode_host_speedup"] = rows[1]["encode_host_ms"] / r["encode_host_ms"]
+        print(f"  {dname} n_streams={n}: +{r['extra_bytes']} bytes; encode {r['encode_ms']:.2f} ms "
+              f"(host {r['encode_host_ms']:.2f}, {r['encode_host_speedup']:.2f}x N=1's "
+              f"{rows[1]['encode_host_ms']:.2f}), decode {r['decode_ms']:.2f} ms (host wavefront "
+              f"{r['decode_host_wavefront_ms']:.2f}, {r['decode_wavefront_speedup']:.2f}x N=1's "
+              f"{rows[1]['decode_host_wavefront_ms']:.2f}); N=1 encode {rows[1]['encode_ms']:.2f}, "
+              f"decode {rows[1]['decode_ms']:.2f} ms; latents exact", flush=True)
+    return dict(by_streams=rows, device_ms=device)
+
+
+def codec_tiles_case(total, codec, x, ref, dname):
+    """2x2 tiles: exact latents, and their rate against one stream (on
+    random weights the border pixels' lost context costs less than on a
+    trained model)."""
+    data, _ = counted(total, CODEC_PER_CALL, codec.compress, x, CODEC_TILES)
+    check_latents(f"{dname} tiles {CODEC_TILES}",
+                  counted(total, NO_LAUNCHES, codec.decode_latents, data)[0], ref)
+    one, _ = counted(total, CODEC_PER_CALL, codec.compress, x)
+    r = dict(bpp=8 * len(data) / (HEIGHT * WIDTH), untiled_bpp=8 * len(one) / (HEIGHT * WIDTH),
+             decode_ms=median_call_ms(total, CODEC_PER_CALL, codec.decompress, data))
+    r["bpp_over_untiled"] = r["bpp"] / r["untiled_bpp"]
+    print(f"  {dname} tiles {CODEC_TILES}: {r['bpp']:.5f} bpp against {r['untiled_bpp']:.5f} "
+          f"untiled ({r['bpp_over_untiled']:.4f}x); decode {r['decode_ms']:.2f} ms; latents exact",
+          flush=True)
+    return r
+
+
+def batch_images():
+    rng = np.random.default_rng(CODEC_SEED + 1)
+    return (rng.uniform(size=(BATCH_IMAGES, HEIGHT, WIDTH, 3)) * 256).astype(np.uint8)
+
+
+def batch_references(model, xs, dev):
+    """The eval forward's latents and clipped x_hat for each image, one
+    image a forward as compress runs the analysis (a batched bf16 forward
+    may round a latent on its boundary the other way)."""
+    outs = [model(torch.from_numpy(xs[b:b + 1]).to(dev).float() / 255.0, training=False)
+            for b in range(len(xs))]
+    return tuple(np.concatenate([f(o).cpu().numpy() for o in outs])
+                 for f in (lambda o: o["y_in"], lambda o: o["z_in"],
+                           lambda o: torch.clamp(o["x_hat"], 0.0, 1.0)))
+
+
+def codec_batch_case(total, codec, xs, refs, dname):
+    """compress_batch / decompress_batch of BATCH_IMAGES images: streams equal
+    to compress's, exact latents, images against decompress's, and
+    images/s against one call per image (medians of BATCH_ITERS)."""
+    n = len(xs)
+    enc_batch = dict(NO_LAUNCHES, gdn=3 * n)
+    streams, _ = counted(total, enc_batch, codec.compress_batch, xs)
+    singles = [counted(total, CODEC_PER_CALL, codec.compress, xs[b:b + 1])[0] for b in range(n)]
+    check(streams == singles, f"{dname}: compress_batch streams differ from compress's")
+    y_in, z_in, x_ref = refs
+    for b, data in enumerate(streams):
+        check_latents(f"{dname} batch image {b}",
+                      counted(total, NO_LAUNCHES, codec.decode_latents, data)[0],
+                      dict(y_in=y_in[b], z_in=z_in[b]))
+    images, _ = counted(total, CODEC_PER_CALL, codec.decompress_batch, streams)
+    one_by_one = np.concatenate([counted(total, CODEC_PER_CALL, codec.decompress, d)[0]
+                                 for d in streams])
+    check(images.shape == (n, HEIGHT, WIDTH, 3), f"{dname}: decompress_batch shape {images.shape}")
+    for got in (images, one_by_one):
+        if dname == "float32":  # one batched synthesis against batch-1 ones and the forward
+            err = float(np.abs(got - x_ref).max())
+            check(err <= CODEC_F32_XHAT_TOL, f"{dname}: batch images differ by {err:.3e}")
+        else:
+            steps = bf16_steps_apart(torch.from_numpy(got).bfloat16(),
+                                     torch.from_numpy(x_ref).bfloat16()).max().item()
+            check(steps <= 1, f"{dname}: batch images {steps} bf16 steps from the forward's")
+
+    def per_image_encode():
+        return [codec.compress(xs[b:b + 1]) for b in range(n)]
+
+    def per_image_decode():
+        return [codec.decompress(d) for d in streams]
+
+    def median_s(expect, fn, *args):
+        return statistics.median(counted(total, expect, fn, *args)[1] for _ in range(BATCH_ITERS))
+
+    r = dict(encode_batch_s=median_s(enc_batch, codec.compress_batch, xs),
+             encode_single_s=median_s(dict(NO_LAUNCHES, gdn=3 * n), per_image_encode),
+             decode_batch_s=median_s(CODEC_PER_CALL, codec.decompress_batch, streams),
+             decode_single_s=median_s(dict(NO_LAUNCHES, gdn=3 * n), per_image_decode))
+    for k in ("encode_batch", "encode_single", "decode_batch", "decode_single"):
+        r[k + "_img_per_s"] = n / r[k + "_s"]
+    print(f"  {dname} batch of {n}: encode {r['encode_batch_img_per_s']:.2f} img/s "
+          f"(one call per image {r['encode_single_img_per_s']:.2f}), decode "
+          f"{r['decode_batch_img_per_s']:.2f} img/s ({r['decode_single_img_per_s']:.2f}); streams "
+          f"equal compress's, latents exact [{os.cpu_count()} host cores]", flush=True)
+    return r
+
+
+def refine_case(total, model, codec, x, dev, dname):
+    """REFINE_STEPS Adam steps on one image's latents: the loss falls, the
+    refined latents round trip through the codec, the launches per call,
+    and ms a step (a call of REFINE_STEPS steps less one of none)."""
+    xd = torch.from_numpy(x).to(dev)
+    refine = make_refiner(model, LAMBDA, steps=REFINE_STEPS, lr=REFINE_LR)
+    (y_q, z_q, m), _ = counted(total, REFINE_PER_CALL, refine, xd)
+    pre, post = m["pre_loss"].item(), m["post_loss"].item()
+    check(np.isfinite(pre) and np.isfinite(post) and post <= pre,
+          f"{dname} refine: loss {pre} -> {post}")
+    data, _ = counted(total, NO_LAUNCHES, codec.compress_latents, y_q, z_q, HEIGHT, WIDTH)
+    y_d, z_d = counted(total, NO_LAUNCHES, codec.decode_latents, data)[0]
+    check(np.array_equal(y_d, y_q[0].cpu().numpy()) and np.array_equal(z_d, z_q[0].cpu().numpy()),
+          f"{dname} refine: the refined latents do not round trip")
+    none = make_refiner(model, LAMBDA, steps=0, lr=REFINE_LR)
+    full_ms = 1e3 * statistics.median(counted(total, REFINE_PER_CALL, refine, xd)[1]
+                                      for _ in range(REFINE_ITERS))
+    zero_ms = 1e3 * statistics.median(counted(total, REFINE_ZERO_STEPS, none, xd)[1]
+                                      for _ in range(REFINE_ITERS))
+    r = dict(pre_loss=pre, post_loss=post, pre_bpp=m["pre_bpp_total"].item(),
+             post_bpp=m["post_bpp_total"].item(), pre_psnr=m["pre_psnr"].item(),
+             post_psnr=m["post_psnr"].item(), refine_ms=full_ms, no_steps_ms=zero_ms,
+             ms_per_step=(full_ms - zero_ms) / REFINE_STEPS, stream_bytes=len(data),
+             launches_per_call=REFINE_PER_CALL)
+    print(f"  {dname} refine {REFINE_STEPS} steps (lr {REFINE_LR}): loss {pre:.4f} -> {post:.4f}, "
+          f"bpp {r['pre_bpp']:.5f} -> {r['post_bpp']:.5f}, PSNR {r['pre_psnr']:.3f} -> "
+          f"{r['post_psnr']:.3f}; {full_ms:.2f} ms a call, {r['ms_per_step']:.3f} ms a step; "
+          f"round trip exact; launches {REFINE_PER_CALL}", flush=True)
+    return r
+
+
+def portable_case(total, model, x, ref, float_bytes, dname):
+    """A card built here, saved and loaded (same hash); compress_portable's
+    latents exact, its rate against the float stream's, encode and decode
+    latency; at 64x128 the native and numpy coders write the same bytes."""
+    t0 = time.perf_counter()
+    card, _ = counted(total, NO_LAUNCHES, PortableCard.build, model)
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "card.npz")
+        card.save(path)
+        loaded = PortableCard.load(path)
+    check(loaded.hash == card.hash, f"{dname}: the loaded card's hash differs")
+    codec = JointARCodec(model, portable_card=loaded)
+    encode_only = dict(NO_LAUNCHES, gdn=3)
+    data, _ = counted(total, encode_only, codec.compress_portable, x)
+    check_latents(f"{dname} portable", counted(total, NO_LAUNCHES, codec.decode_latents, data)[0],
+                  ref)
+    r = dict(card_hash=card.hash.hex(), card_build_s=build_s, stream_bytes=len(data),
+             bpp=8 * len(data) / (HEIGHT * WIDTH), over_float=len(data) / float_bytes,
+             encode_ms=median_call_ms(total, encode_only, codec.compress_portable, x),
+             decode_ms=median_call_ms(total, CODEC_PER_CALL, codec.decompress, data))
+    small = x[:, :PORTABLE_SMALL[0], :PORTABLE_SMALL[1]]
+    small_data, _ = counted(total, encode_only, codec.compress_portable, small)
+    y_s, z_s = counted(total, NO_LAUNCHES, codec.decode_latents, small_data)[0]
+    psi_fix = loaded.hyper_forward(z_s)
+    check(np.array_equal(psi_fix, loaded.hyper_forward(z_s, native=False)),
+          f"{dname}: native and numpy hyper_forward differ")
+    native = portable.portable_ar_encode(loaded, y_s, psi_fix)
+    check(native == portable.portable_ar_encode(loaded, y_s, psi_fix, native=False),
+          f"{dname}: native and numpy portable streams differ at {PORTABLE_SMALL}")
+    h, w = PORTABLE_SMALL[0] // 16, PORTABLE_SMALL[1] // 16
+    check(np.array_equal(portable.portable_ar_decode(loaded, native, psi_fix, h, w, native=False),
+                         y_s), f"{dname}: the numpy decoder misreads the native stream")
+    print(f"  {dname} portable: card {r['card_hash']} built in {build_s:.2f} s, saved and loaded "
+          f"(same hash); {r['bpp']:.5f} bpp, {r['over_float']:.5f}x the float stream; encode "
+          f"{r['encode_ms']:.2f} ms, decode {r['decode_ms']:.2f} ms; latents exact; native = numpy "
+          f"bytes at {PORTABLE_SMALL[0]}x{PORTABLE_SMALL[1]}", flush=True)
+    return r
+
+
 def codec_phase(dev, card):
     """Returns (launches of the codec's calls, results)."""
     images = codec_images()
     models = {"float32": gained_model(dev), "bfloat16": gained_model(dev, torch.bfloat16)}
     refs = codec_references(dev, models, images)
+    xs = batch_images()
+    batch_refs = {dname: batch_references(model, xs, dev) for dname, model in models.items()}
     reset_launch_counts()
     total = dict(NO_LAUNCHES)
     results = {}
@@ -866,6 +1155,13 @@ def codec_phase(dev, card):
                                             card)
                           for iname, x in images.items()}
         codec_numerics_check(total, model, images["float32"], dname)
+        x, ref = images["float32"], refs[dname, "float32"]
+        results[dname]["interleaved"] = codec_streams_case(total, codec, x, ref, dname)
+        results[dname]["tiles"] = codec_tiles_case(total, codec, x, ref, dname)
+        results[dname]["batch"] = codec_batch_case(total, codec, xs, batch_refs[dname], dname)
+        results[dname]["refine"] = refine_case(total, model, codec, x, dev, dname)
+        results[dname]["portable"] = portable_case(
+            total, model, x, ref, results[dname]["float32"]["stream_bytes"], dname)
     launches = launch_counts()
     check(launches == total, f"codec launches {launches}, its calls counted {total}")
     return launches, results
@@ -909,7 +1205,8 @@ def main() -> int:
     forwards, serve_results = serve_phase(dev, card)
     serve_launches = launch_counts()
     check(serve_launches == {"gdn": GDN_PER_FORWARD * forwards, "gdn_backward": 0,
-                             "gmm_logp": GMM_PER_FORWARD * forwards, "gmm_logp_backward": 0},
+                             "gdn_backward_params": 0, "gmm_logp": GMM_PER_FORWARD * forwards,
+                             "gmm_logp_backward": 0},
           f"serve launches {serve_launches} over {forwards} forwards")
     print(f"main path (serve): {forwards} forwards, launches {serve_launches}")
     print(json.dumps({"serve": serve_results, "card": card}))
@@ -925,7 +1222,7 @@ def main() -> int:
     print(json.dumps({"train": train_results, "card": card}))
 
     print(f"== phase 6: codec, M={M} K={K}, one {HEIGHT}x{WIDTH} image [{card}]", flush=True)
-    records += gdn_codec_cases(dev)
+    records += gdn_codec_cases(dev) + refine_kernel_cases(dev)
     codec_launches, codec_results = codec_phase(dev, card)
     check(codec_launches["gdn"] > 0, "the codec launched no GDN kernel")
     print(f"main path (codec): launches {codec_launches}")

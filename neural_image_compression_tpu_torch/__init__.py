@@ -12,12 +12,14 @@ every kernel wrapper launches its hand-written kernel (``csrc/``); the plain
 PyTorch version of each kernel runs only for tensors on the CPU. The GDN
 and mixture-likelihood kernels have backward kernels, so the flagship
 trains on the card (``parallel.make_train_step``). ``coding.JointARCodec``
-writes and reads real bitstreams: the transforms run on the model's device,
-the rANS and wavefront coders on the host (C++, built with g++ at first
-use).
+writes and reads real bitstreams (single images, batches, interleaved and
+tiled streams, portable integer streams), and ``coding.make_refiner``
+refines latents before coding: the transforms run on the model's device,
+the rANS, wavefront and portable coders on the host (C++, built with g++
+at first use).
 
-This package imports torch and numpy only: never jax, flax or the JAX
-package.
+This package imports torch and numpy (and scipy's ``ndtr`` for a portable
+card's tables, where it is installed): never jax, flax or the JAX package.
 """
 
 from neural_image_compression_tpu_torch import (

@@ -1,6 +1,8 @@
 """Build and ctypes bindings of the native coders (``csrc/rans/``): the
-generic rANS stream coder and the autoregressive wavefront codec, port of
-coding/backend.py (the subset the single-image joint-AR codec calls).
+generic rANS stream coder, the autoregressive wavefront codec (one stream
+or N interleaved) and the portable integer wavefront codec, port of
+coding/backend.py (the subset the joint-AR codec calls; the portable
+coder's checkerboard and hyperprior entry points are not bound).
 
 The library is compiled at first use with ``g++ -O3 -march=native`` into
 ``librans-<hash>.so`` under the package's ``_build/`` (a directory git
@@ -23,7 +25,7 @@ import numpy as np
 from neural_image_compression_tpu_torch.ops.kernels._build import BUILD_DIR, CSRC
 
 RANS_DIR = CSRC / "rans"
-SOURCES = ("rans.cc", "ar_wavefront.cc")
+SOURCES = ("rans.cc", "ar_wavefront.cc", "ar_portable.cc")
 HEADERS = ("rans_core.h",)
 GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-fopenmp", "-std=c++17")
 
@@ -112,6 +114,37 @@ def get_lib() -> ctypes.CDLL:
         lib.arwave_encode.argtypes = [c_void_p, f32p, f32p, c_int, c_int, u8p, c_int]
         lib.arwave_decode.restype = c_int
         lib.arwave_decode.argtypes = [c_void_p, u8p, c_int, f32p, c_int, c_int, f32p]
+        lib.arwave_encode_n.restype = c_int
+        lib.arwave_encode_n.argtypes = [c_void_p, f32p, f32p, c_int, c_int, c_int, u8p, c_int]
+        lib.arwave_decode_n.restype = c_int
+        lib.arwave_decode_n.argtypes = [c_void_p, u8p, c_int, f32p, c_int, c_int, c_int, f32p]
+        i16p = ctypes.POINTER(ctypes.c_int16)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        c_int64 = ctypes.c_int64
+        lib.arport_create.restype = c_void_p
+        lib.arport_create.argtypes = [
+            c_int, c_int, c_int, c_int, c_int, c_int,  # M, K, phi_dim, hidden, out_dim, n_bins
+            i16p, i64p, c_int,                         # ctx
+            i16p, c_int,                               # ep1_phi
+            i16p, i64p, c_int,                         # ep2
+            i16p, i64p, c_int,                         # ep3
+            i64p, i64p, i64p, i64p,                    # sigma_thr, sigma_fix, sigma2_fix, sigma_R
+            i32p, c_int64, i64p, i64p,                 # tables, their total, offsets, lengths
+            i64p, c_int]                               # exp LUT
+        lib.arport_destroy.restype = None
+        lib.arport_destroy.argtypes = [c_void_p]
+        lib.arport_encode.restype = c_int
+        lib.arport_encode.argtypes = [c_void_p, i32p, i64p, c_int, c_int, u8p, c_int]
+        lib.arport_decode.restype = c_int
+        lib.arport_decode.argtypes = [c_void_p, u8p, c_int, i64p, c_int, c_int, i32p]
+        lib.arport_psi.restype = None
+        lib.arport_psi.argtypes = [i16p, i64p, c_int, c_int, i64p, c_int, i64p]
+        lib.arport_hyper_create.restype = c_void_p
+        lib.arport_hyper_create.argtypes = [c_int, i64p, i16p, i64p, i64p, i64p]
+        lib.arport_hyper_destroy.restype = None
+        lib.arport_hyper_destroy.argtypes = [c_void_p]
+        lib.arport_hyper_run.restype = c_int64
+        lib.arport_hyper_run.argtypes = [c_void_p, i32p, c_int, c_int, i64p, c_int64]
         _lib = lib
         return lib
 
@@ -320,7 +353,198 @@ class ArWaveCoder:
             raise ValueError("corrupt or truncated AR stream")
         return y_out
 
+    def encode_n(self, y_q: np.ndarray, psi: np.ndarray, n_streams: int) -> bytes:
+        """N-way interleaved encode (symbol s to stream s % N): encode()'s
+        entropy parameters and CDFs, about 4 (N - 1) bytes more, and decode_n
+        pulls the N streams concurrently with the exact context."""
+        _check_streams(n_streams)
+        y_q = np.ascontiguousarray(y_q, np.float32)
+        if y_q.ndim != 3 or y_q.shape[2] != self.M:
+            raise ValueError(f"y_q {y_q.shape} is not (H, W, {self.M})")
+        _require_integral_latents(y_q)
+        h, w = y_q.shape[:2]
+        psi = self._psi(psi, h, w)
+        cap = max(1024, h * w * self.M * 8 + 64 + 8 * n_streams)
+        out = np.empty(cap, np.uint8)
+        ln = self._lib.arwave_encode_n(self._handle, _ptr(y_q, ctypes.c_float),
+                                       _ptr(psi, ctypes.c_float), h, w, n_streams,
+                                       _ptr(out, ctypes.c_uint8), cap)
+        _checked_length(ln)
+        return out[:ln].tobytes()
+
+    def decode_n(self, data: bytes, psi: np.ndarray, h: int, w: int,
+                 n_streams: int) -> np.ndarray:
+        """(h, w, M) float32 latents from an N-way interleaved stream; the
+        streams of each wave are decoded on OpenMP threads."""
+        _check_streams(n_streams)
+        psi = self._psi(psi, h, w)
+        buf = np.frombuffer(data, np.uint8)
+        y_out = np.empty((h, w, self.M), np.float32)
+        rc = self._lib.arwave_decode_n(self._handle, _ptr(buf, ctypes.c_uint8), len(data),
+                                       _ptr(psi, ctypes.c_float), h, w, n_streams,
+                                       _ptr(y_out, ctypes.c_float))
+        if rc != 0:
+            raise ValueError("corrupt interleaved stream")
+        return y_out
+
     def __del__(self):
         if getattr(self, "_handle", None):
             self._lib.arwave_destroy(self._handle)
             self._handle = None
+
+
+def _check_streams(n_streams: int) -> None:
+    if not 1 <= n_streams <= 255:
+        raise ValueError(f"n_streams must be in 1..255, got {n_streams}")
+
+
+class ArPortableCoder:
+    """Native integer wavefront codec over a ``portable.PortableCard``
+    (``csrc/rans/ar_portable.cc``): the hyper-decoder, the layer-1 psi
+    accumulators and the wavefront coder, bit-identical to the numpy spec in
+    ``coding/portable.py`` (exact integer arithmetic on both)."""
+
+    def __init__(self, card):
+        self._lib = get_lib()
+        self.M, self.K = card.M, card.K
+        self.hidden = card.ep2.wq.shape[0]
+        self.psi_dim = card.ep1_psi.wq.shape[0]
+        # hyper-decoder rows [kind, kh, kw, cin, cout, stride, pad, opad, sw]
+        metas, w_parts, b_parts = [], [], []
+        self._hyper_geom = []
+        for kind, layer, geom in card.hyper:
+            kh, kw, cin, cout = layer.wq.shape
+            stride, pad = geom[0], geom[1]
+            opad = geom[2] if kind == "deconv" else 0
+            metas.append([0 if kind == "conv" else 1, kh, kw, cin, cout, stride, pad, opad,
+                          layer.sw])
+            w_parts.append(np.ascontiguousarray(layer.wq, np.int16).reshape(-1))
+            b_parts.append(np.ascontiguousarray(layer.bq, np.int64))
+            self._hyper_geom.append((kind, kh, kw, cout, stride, pad, opad))
+
+        def offsets(parts):
+            return np.concatenate([[0], np.cumsum([p.size for p in parts[:-1]])]).astype(np.int64)
+
+        table_len = np.array([len(t) for t in card.tables], np.int64)
+        # every buffer stays referenced here while the handles live
+        self._arrs = a = dict(
+            hyper_meta=np.ascontiguousarray(np.array(metas, np.int64)),
+            hyper_w=np.concatenate(w_parts), hyper_w_off=offsets(w_parts),
+            hyper_b=np.concatenate(b_parts), hyper_b_off=offsets(b_parts),
+            ctx_w=np.ascontiguousarray(card.ctx.wq, np.int16),
+            ctx_b=np.ascontiguousarray(card.ctx.bq, np.int64),
+            ep1_psi_w=np.ascontiguousarray(card.ep1_psi.wq, np.int16),
+            ep1_psi_b=np.ascontiguousarray(card.ep1_psi.bq, np.int64),
+            ep1_w=np.ascontiguousarray(card.ep1_phi.wq, np.int16),
+            ep2_w=np.ascontiguousarray(card.ep2.wq, np.int16),
+            ep2_b=np.ascontiguousarray(card.ep2.bq, np.int64),
+            ep3_w=np.ascontiguousarray(card.ep3.wq, np.int16),
+            ep3_b=np.ascontiguousarray(card.ep3.bq, np.int64),
+            sigma_thr=np.ascontiguousarray(card.sigma_thr, np.int64),
+            sigma_fix=np.ascontiguousarray(card.sigma_fix, np.int64),
+            sigma2_fix=np.ascontiguousarray(card.sigma2_fix, np.int64),
+            sigma_R=np.ascontiguousarray(card.sigma_R, np.int64),
+            tables_cat=np.ascontiguousarray(np.concatenate(
+                [t.astype(np.int32) for t in card.tables])),
+            table_off=np.concatenate([[0], np.cumsum(table_len[:-1])]).astype(np.int64),
+            table_len=table_len,
+            exp_lut=np.ascontiguousarray(card.exp_lut, np.int64))
+        i16, i32, i64 = ctypes.c_int16, ctypes.c_int32, ctypes.c_int64
+        self._handle = self._lib.arport_create(
+            self.M, self.K, card.ctx.wq.shape[1], self.hidden, card.ep3.wq.shape[1],
+            len(card.tables),
+            _ptr(a["ctx_w"], i16), _ptr(a["ctx_b"], i64), card.ctx.sw,
+            _ptr(a["ep1_w"], i16), card.ep1_phi.sw,
+            _ptr(a["ep2_w"], i16), _ptr(a["ep2_b"], i64), card.ep2.sw,
+            _ptr(a["ep3_w"], i16), _ptr(a["ep3_b"], i64), card.ep3.sw,
+            _ptr(a["sigma_thr"], i64), _ptr(a["sigma_fix"], i64),
+            _ptr(a["sigma2_fix"], i64), _ptr(a["sigma_R"], i64),
+            _ptr(a["tables_cat"], i32), int(a["tables_cat"].shape[0]),
+            _ptr(a["table_off"], i64), _ptr(a["table_len"], i64),
+            _ptr(a["exp_lut"], i64), len(a["exp_lut"]))
+        if not self._handle:
+            raise ValueError("the native portable coder rejected the card (K, M or sigma_R "
+                             "out of spec)")
+        self._hyper_handle = self._lib.arport_hyper_create(
+            len(card.hyper), _ptr(a["hyper_meta"], i64), _ptr(a["hyper_w"], i16),
+            _ptr(a["hyper_w_off"], i64), _ptr(a["hyper_b"], i64), _ptr(a["hyper_b_off"], i64))
+
+    def hyper_shape(self, h: int, w: int):
+        """(oh, ow, cout) of the hyper-decoder's output for an (h, w) z grid."""
+        cout = None
+        for kind, kh, kw, cout, stride, pad, opad in self._hyper_geom:
+            if kind == "conv":
+                h = (h + 2 * pad - kh) // stride + 1
+                w = (w + 2 * pad - kw) // stride + 1
+            else:
+                # per-axis pads (kh against kw), as portable._int_deconv2d
+                h = (h - 1) * stride + 1 + 2 * (kh - 1 - pad) + opad - kh + 1
+                w = (w - 1) * stride + 1 + 2 * (kw - 1 - pad) + opad - kw + 1
+        return h, w, cout
+
+    def hyper(self, z_q: np.ndarray) -> np.ndarray:
+        """(hz, wz, M) integer z -> (oh, ow, 2M) int64 psi at F_BITS: the
+        native twin of ``PortableCard.hyper_forward``'s numpy path."""
+        z = np.ascontiguousarray(z_q, np.int32)
+        h, w = z.shape[:2]
+        out = np.empty(self.hyper_shape(h, w), np.int64)
+        n = self._lib.arport_hyper_run(self._hyper_handle, _ptr(z, ctypes.c_int32), h, w,
+                                       _ptr(out, ctypes.c_int64), out.size)
+        if n != out.size:
+            raise RuntimeError("hyper-decoder output size mismatch")
+        return out
+
+    def psi(self, psi_flat: np.ndarray) -> np.ndarray:
+        """(n, psi_dim) int64 psi -> (n, hidden) int64 layer-1 accumulators,
+        bias included: the native twin of ``PortableCard.psi_precompute``."""
+        psi_flat = np.ascontiguousarray(psi_flat, np.int64)
+        if psi_flat.ndim != 2 or psi_flat.shape[1] != self.psi_dim:
+            raise ValueError(f"psi {psi_flat.shape} is not (n, {self.psi_dim})")
+        n = psi_flat.shape[0]
+        out = np.empty((n, self.hidden), np.int64)
+        self._lib.arport_psi(_ptr(self._arrs["ep1_psi_w"], ctypes.c_int16),
+                             _ptr(self._arrs["ep1_psi_b"], ctypes.c_int64),
+                             self.psi_dim, self.hidden, _ptr(psi_flat, ctypes.c_int64), n,
+                             _ptr(out, ctypes.c_int64))
+        return out
+
+    def _p_acc(self, p_acc: np.ndarray, h: int, w: int) -> np.ndarray:
+        p_acc = np.ascontiguousarray(p_acc, np.int64)
+        if p_acc.shape != (h * w, self.hidden):
+            raise ValueError(f"p_acc {p_acc.shape} is not ({h * w}, {self.hidden})")
+        return p_acc
+
+    def encode(self, y_q: np.ndarray, p_acc: np.ndarray) -> bytes:
+        """y_q: (H, W, M) integer-valued; p_acc: (H*W, hidden) int64."""
+        y = np.ascontiguousarray(y_q, np.int32)
+        if y.ndim != 3 or y.shape[2] != self.M:
+            raise ValueError(f"y_q {y.shape} is not (H, W, {self.M})")
+        h, w = y.shape[:2]
+        p_acc = self._p_acc(p_acc, h, w)
+        cap = max(1024, h * w * self.M * 8 + 64)
+        out = np.empty(cap, np.uint8)
+        ln = self._lib.arport_encode(self._handle, _ptr(y, ctypes.c_int32),
+                                     _ptr(p_acc, ctypes.c_int64), h, w,
+                                     _ptr(out, ctypes.c_uint8), cap)
+        _checked_length(ln)
+        return out[:ln].tobytes()
+
+    def decode(self, data: bytes, p_acc: np.ndarray, h: int, w: int) -> np.ndarray:
+        """(h, w, M) float32 latents from one portable stream."""
+        p_acc = self._p_acc(p_acc, h, w)
+        buf = np.frombuffer(data, np.uint8)
+        y_out = np.empty((h, w, self.M), np.int32)
+        rc = self._lib.arport_decode(self._handle, _ptr(buf, ctypes.c_uint8), len(data),
+                                     _ptr(p_acc, ctypes.c_int64), h, w,
+                                     _ptr(y_out, ctypes.c_int32))
+        if rc != 0:
+            raise ValueError("corrupt or truncated portable AR stream")
+        return y_out.astype(np.float32)
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.arport_destroy(self._handle)
+            self._handle = None
+        if getattr(self, "_hyper_handle", None):
+            self._lib.arport_hyper_destroy(self._hyper_handle)
+            self._hyper_handle = None

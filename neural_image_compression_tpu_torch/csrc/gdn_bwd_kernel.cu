@@ -355,7 +355,7 @@ cudaError_t launch_all(const RowsArgs<T>& a, float* dgamma, float* dbeta, float*
     case 3: err = launch_rows_dir<T, 192>(inverse, a, stream); break;
     default: err = launch_rows_dir<T, 256>(inverse, a, stream); break;
   }
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || dgamma == nullptr) return err;
   const int c = a.c;
   const unsigned tiles = static_cast<unsigned>((c + TILE - 1) / TILE);
   gdn_bwd_partials_kernel<T><<<dim3(tiles, tiles, static_cast<unsigned>(chunks)), THREADS, 0,
@@ -400,7 +400,9 @@ int run(const void* x, const void* g, const void* gamma, const void* beta, void*
 // float32, already reparametrized; dgamma (c, c) and dbeta (c,) float32 out.
 // scratch: 16-byte aligned float32, t (n, c), then for bfloat16 d1 (n, c),
 // then the partials (chunks * c * c + chunks * c), with chunks =
-// ceil(n / chunk_rows). Launches four kernels on `stream` and returns
+// ceil(n / chunk_rows). dgamma and dbeta null (both) skip the dgamma/dbeta
+// stage, launches 3 and 4, and the scratch then ends after t (and d1).
+// Launches four kernels (two without dgamma) on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue without
 // launching when n < 1, n >= 2^31 - 64, c < 1, c > 256, the row stride or an
 // alignment does not suit TMA, chunk_rows < 1, chunks is not
@@ -414,7 +416,7 @@ extern "C" int gdn_backward(const void* x, const void* g, const void* gamma, con
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   if (n < 1 || n >= 0x7fffffffLL - ROWS || c < 1 || c > 256 || (c * esz) % 16 != 0 ||
       misaligned(x) || misaligned(g) || misaligned(dx) || misaligned(scratch) ||
-      chunk_rows < 1 || chunks > 65535 ||
+      chunk_rows < 1 || chunks > 65535 || (dgamma == nullptr) != (dbeta == nullptr) ||
       static_cast<long long>(chunks) != (n + chunk_rows - 1) / chunk_rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

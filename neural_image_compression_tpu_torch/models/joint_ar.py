@@ -92,6 +92,21 @@ class JointAutoregressiveHierarchical(nn.Module):
         combined = torch.cat([phi, psi], dim=1)
         return self.entropy_parameters(combined)
 
+    def conditional_likelihood(self, y_in: torch.Tensor, params_t):
+        """(params, p_y, logp_y) of y_in (B, h, w, M) under the entropy
+        parameters params_t: {mu, sigma} and the Gaussian likelihood (K=1),
+        or {weights, mus, sigmas} and the mixture kernel's log-likelihood
+        (K>1, p_y = exp(logp_y))."""
+        if self.K == 1:
+            mu, sigma = params_t
+            p_y = gaussian_likelihood(y_in, mu, sigma)
+            return {"mu": mu, "sigma": sigma}, p_y, torch.log(p_y)
+        weights, mus, sigmas = (t.contiguous() for t in params_t)
+        b, h, w, k, m = weights.shape
+        logp_y = gmm_logp(y_in.reshape(-1, m), weights.view(-1, k, m),
+                          mus.view(-1, k, m), sigmas.view(-1, k, m)).view(b, h, w, m)
+        return {"weights": weights, "mus": mus, "sigmas": sigmas}, torch.exp(logp_y), logp_y
+
     def forward(self, x: torch.Tensor, training: bool = True,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """x: (B, H, W, 3) in [0, 1], H and W multiples of 64. training:
@@ -115,20 +130,8 @@ class JointAutoregressiveHierarchical(nn.Module):
         z_in = quantize(z.float(), training, generator)
         y_in = quantize(y.float(), training, generator)
 
-        params_t = self.entropy_params_from_latents(y_in, z_in)
-        if self.K == 1:
-            mu, sigma = params_t
-            params = {"mu": mu, "sigma": sigma}
-            p_y = gaussian_likelihood(y_in, mu, sigma)
-            logp_y = torch.log(p_y)
-        else:
-            weights, mus, sigmas = (t.contiguous() for t in params_t)
-            params = {"weights": weights, "mus": mus, "sigmas": sigmas}
-            b, h, w, k, m = weights.shape
-            logp_y = gmm_logp(y_in.reshape(-1, m), weights.view(-1, k, m),
-                              mus.view(-1, k, m), sigmas.view(-1, k, m)).view(b, h, w, m)
-            p_y = torch.exp(logp_y)
-
+        params, p_y, logp_y = self.conditional_likelihood(
+            y_in, self.entropy_params_from_latents(y_in, z_in))
         p_z = self.factorized_entropy_model(z_in)
         logp_z = torch.log(p_z)
 

@@ -15,11 +15,16 @@ KERNELS = (gdn, gmm_logp, gdn_backward, gmm_logp_backward)
 def reset_launch_counts() -> None:
     for wrapper in KERNELS:
         wrapper.launches = 0
+    gdn_backward.param_launches = 0
 
 
 def launch_counts() -> dict:
-    """Each wrapper's name -> the launches it has counted."""
-    return {wrapper.__name__: wrapper.launches for wrapper in KERNELS}
+    """Each wrapper's name -> the launches it has counted, and
+    ``gdn_backward_params`` -> the GDN backward launches that ran its
+    dgamma/dbeta stage."""
+    counts = {wrapper.__name__: wrapper.launches for wrapper in KERNELS}
+    counts["gdn_backward_params"] = gdn_backward.param_launches
+    return counts
 
 
 __all__ = ["gdn", "gdn_reference", "gdn_backward", "gdn_backward_reference",

@@ -5,7 +5,9 @@ Port of neural_image_compression_tpu/ops/pallas/gdn_kernel.py (``fused_gdn``
 and ``gdn_fused_op`` with its ``_gdn_fwd``/``_gdn_bwd``). ``gdn`` is
 differentiable: where autograd records it, a ``torch.autograd.Function``
 saves x, gamma and beta (not the norm) and its backward calls
-``gdn_backward``, which recomputes the norm. Each wrapper launches its kernel
+``gdn_backward``, which recomputes the norm; where neither gamma nor beta
+needs a gradient (frozen weights, as in latent refinement) it asks for dx
+alone, and the dgamma/dbeta stage does not run. Each wrapper launches its kernel
 (``csrc/gdn_kernel.cu``, ``csrc/gdn_bwd_kernel.cu``) for CUDA tensors and
 runs its plain version (``gdn_reference``, ``gdn_backward_reference``) for
 CPU tensors; there is no other dispatch. Under ``no_grad`` or
@@ -42,10 +44,11 @@ def gdn_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 def gdn_backward_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                           g: torch.Tensor, inverse: bool = False):
+                           g: torch.Tensor, inverse: bool = False, param_grads: bool = True):
     """Plain PyTorch backward of ``gdn_reference`` given g = dL/dout, as the
     explicit formula (float32 math; dx in x's dtype, dgamma and dbeta
-    float32). With n = beta + (x*x) @ gamma, r = n^-1/2 and s = n^1/2:
+    float32, or None for both when param_grads is False). With
+    n = beta + (x*x) @ gamma, r = n^-1/2 and s = n^1/2:
 
         GDN:  t = g*x*r^3, dx = g*r - x*(t @ gamma^T), dgamma = -1/2 (x*x)^T @ t
         IGDN: t = g*x/s,   dx = g*s + x*(t @ gamma^T), dgamma = +1/2 (x*x)^T @ t
@@ -64,6 +67,8 @@ def gdn_backward_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Ten
         t = gf * xf * (r * r * r)
         dx = gf * r - xf * torch.matmul(t, gamma.t())
         half = -0.5
+    if not param_grads:
+        return dx.to(x.dtype), None, None
     return dx.to(x.dtype), half * torch.matmul(sq.t(), t), half * torch.sum(t, dim=0)
 
 
@@ -116,7 +121,8 @@ class _GDN(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         x, gamma, beta = ctx.saved_tensors
-        return (*gdn_backward(x, gamma, beta, g, ctx.inverse), None)
+        _, needs_gamma, needs_beta, _ = ctx.needs_input_grad
+        return (*gdn_backward(x, gamma, beta, g, ctx.inverse, needs_gamma or needs_beta), None)
 
 
 def gdn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -198,51 +204,64 @@ def _chunking(n: int):
 
 
 def gdn_backward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                 g: torch.Tensor, inverse: bool = False):
+                 g: torch.Tensor, inverse: bool = False, param_grads: bool = True):
     """Backward of ``gdn`` given g = dL/dout (x's shape and dtype) -> (dx in
     x's dtype, dgamma (C, C) float32, dbeta (C,) float32). g may come in any
-    layout; a strided g is copied into contiguous rows first."""
+    layout; a strided g is copied into contiguous rows first. With
+    param_grads False the dgamma/dbeta stage (the partials and reduce
+    launches) does not run and both come back None. ``gdn_backward.launches``
+    counts the calls that launch the kernel, ``gdn_backward.param_launches``
+    those of them that run the dgamma/dbeta stage."""
     _check(x, gamma, beta)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"g must match x: {tuple(x.shape)} {x.dtype} on {x.device}, got "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
     g = g.contiguous()
     if x.device.type == "cpu":
-        return gdn_backward_reference(x, gamma, beta, g, inverse)
+        return gdn_backward_reference(x, gamma, beta, g, inverse, param_grads)
     if x.device.type != "cuda":
         raise ValueError(f"no GDN backward kernel for device {x.device}")
     n, c = x.shape
     if n == 0 or c == 0:
+        if not param_grads:
+            return torch.zeros_like(x), None, None
         return torch.zeros_like(x), torch.zeros_like(gamma), torch.zeros_like(beta)
     cp = _padded_width(c, x.element_size(), (x.data_ptr(), g.data_ptr()))
     if cp is not None:
         dx, dgamma, dbeta = _launch_backward(_pad_rows(x, cp), *_pad_params(gamma, beta, cp),
-                                             _pad_rows(g, cp), inverse)
+                                             _pad_rows(g, cp), inverse, param_grads)
+        if not param_grads:
+            return dx[:, :c].contiguous(), None, None
         return dx[:, :c].contiguous(), dgamma[:c, :c].contiguous(), dbeta[:c].contiguous()
-    return _launch_backward(x, gamma, beta, g, inverse)
+    return _launch_backward(x, gamma, beta, g, inverse, param_grads)
 
 
-def _launch_backward(x, gamma, beta, g, inverse):
+def _launch_backward(x, gamma, beta, g, inverse, param_grads):
     n, c = x.shape
     bf16 = x.dtype == torch.bfloat16
     dx = torch.empty_like(x)
-    dgamma = torch.empty_like(gamma)
-    dbeta = torch.empty_like(beta)
+    dgamma = torch.empty_like(gamma) if param_grads else None
+    dbeta = torch.empty_like(beta) if param_grads else None
     chunk_rows, chunks = _chunking(n)
     # one float32 buffer, in the C entry point's layout: t (n, c), for
     # bfloat16 rows d1 (n, c), then each chunk's dgamma and dbeta partials
-    scratch = torch.empty(n * c * (2 if bf16 else 1) + chunks * c * (c + 1),
+    # (none without the dgamma/dbeta stage, which null pointers skip)
+    scratch = torch.empty(n * c * (2 if bf16 else 1)
+                          + (chunks * c * (c + 1) if param_grads else 0),
                           dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _backward_entry()(
             x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dx.data_ptr(),
-            dgamma.data_ptr(), dbeta.data_ptr(), scratch.data_ptr(), n, c, chunk_rows, chunks,
-            int(inverse), int(bf16), torch.cuda.current_stream(x.device).cuda_stream)
+            dgamma.data_ptr() if param_grads else None,
+            dbeta.data_ptr() if param_grads else None, scratch.data_ptr(), n, c, chunk_rows,
+            chunks, int(inverse), int(bf16), torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"gdn backward kernel launch failed with CUDA error {err}")
     gdn_backward.launches += 1
+    gdn_backward.param_launches += int(param_grads)
     return dx, dgamma, dbeta
 
 
 gdn.launches = 0
 gdn_backward.launches = 0
+gdn_backward.param_launches = 0

@@ -1,7 +1,8 @@
 from neural_image_compression_tpu_torch.utils import flops
 from neural_image_compression_tpu_torch.utils.device import resolve_device
 from neural_image_compression_tpu_torch.utils.weights import (
-    joint_ar_state_from_jax, load_jax_params,
+    joint_ar_params_to_jax, joint_ar_state_from_jax, load_jax_params,
 )
 
-__all__ = ["flops", "resolve_device", "joint_ar_state_from_jax", "load_jax_params"]
+__all__ = ["flops", "resolve_device", "joint_ar_params_to_jax", "joint_ar_state_from_jax",
+           "load_jax_params"]

@@ -15,7 +15,9 @@ with a layout change where the two frameworks differ:
 
 Leaves are numpy arrays (or anything ``np.asarray`` takes). Each leaf maps
 to exactly one key; a key the model lacks, or one it has that the tree does
-not fill, raises.
+not fill, raises. ``joint_ar_params_to_jax`` is the exact inverse: a model's
+parameters back to the flax tree (the portable card quantizes flax-layout
+kernels, where a deconv kernel is the flipped direct-conv one).
 """
 
 from typing import Dict, Mapping
@@ -58,6 +60,36 @@ def joint_ar_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(params, ())
     return state
+
+
+def _to_jax(key: str, value: np.ndarray):
+    path = key.split(".")
+    module, leaf = (path[-2] if len(path) > 1 else ""), path[-1]
+    if leaf == "weight":
+        if module.startswith("Deconv2d_"):
+            # torch (in, out, kh, kw) -> the flipped direct-conv kernel (kh, kw, in, out)
+            return "kernel", np.transpose(value[:, :, ::-1, ::-1], (2, 3, 0, 1))
+        if module.startswith(("Conv2d_", "MaskedConv2d_")):
+            return "kernel", np.transpose(value, (2, 3, 1, 0))
+        raise KeyError(f"{key}: weight under an unknown module kind {module!r}")
+    if leaf in ("bias", "beta", "gamma") or leaf.startswith(("matrix_", "bias_", "factor_")):
+        return leaf, value
+    raise KeyError(f"{key}: unknown parameter name {leaf!r}")
+
+
+def joint_ar_params_to_jax(model: nn.Module) -> Dict:
+    """The model's parameters as the flax ``params`` tree of
+    models.joint_ar.JointAutoregressiveHierarchical: float32 numpy copies
+    (whatever the model's dtype) in the JAX layouts, the inverse of
+    ``joint_ar_state_from_jax``."""
+    params: Dict = {}
+    for key, tensor in model.state_dict().items():
+        leaf, value = _to_jax(key, tensor.detach().to("cpu", torch.float32).numpy())
+        node = params
+        for name in key.split(".")[:-1]:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return params
 
 
 def load_jax_params(model: nn.Module, params: Mapping, strict: bool = True) -> nn.Module:

@@ -1,12 +1,13 @@
-"""PyTorch port, real bitstreams: ``coding.JointARCodec`` (one image) and
-what it drives, held against the JAX package's coding modules on the same
-weights (JAX-initialised, carried across with load_jax_params) and against
-the port's own eval forward (CPU, M=16, 64x128 and a ragged 70x100).
+"""PyTorch port, real bitstreams: ``coding.JointARCodec`` (single images,
+interleaved and tiled streams, batches) and what it drives, held against the
+JAX package's coding modules on the same weights (JAX-initialised, carried
+across with load_jax_params) and against the port's own eval forward (CPU,
+M=16, 64x128 and a ragged 70x100). Portable streams: test_torch_portable.py.
 
 Float streams are per build: no stream crosses between the packages. What
 must match across them, given the same inputs, is checked instead: the
 latents, the coder-layout weights, the z tables and the bytes the shared
-C++ coder writes for the same symbols and distributions.
+C++ coder writes for the same symbols, distributions and layout.
 """
 
 import filecmp
@@ -28,7 +29,7 @@ from neural_image_compression_tpu.models import JointAutoregressiveHierarchical 
 from neural_image_compression_tpu_torch.coding import (
     JointARCodec, backend, bitstream_bpp, factorized_tables, quantize_pmf_rows, stream_size,
 )
-from neural_image_compression_tpu_torch.coding import codec
+from neural_image_compression_tpu_torch.coding import PortableCard, codec
 from neural_image_compression_tpu_torch.models import JointAutoregressiveHierarchical
 from neural_image_compression_tpu_torch.train import rd_loss
 from neural_image_compression_tpu_torch.utils.weights import load_jax_params
@@ -99,7 +100,7 @@ def coded(pair):
 
 # --- the native coder ---------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["rans_core.h", "rans.cc", "ar_wavefront.cc"])
+@pytest.mark.parametrize("name", ["rans_core.h", "rans.cc", "ar_wavefront.cc", "ar_portable.cc"])
 def test_native_sources_are_byte_copies(name):
     ours = backend.RANS_DIR / name
     theirs = os.path.join(REPO, "neural_image_compression_tpu", "coding", "rans", name)
@@ -204,6 +205,107 @@ def test_ar_coder_bytes_match_jax(pair):
     jnets = jcodec._HostParamNets(params["context_model"], params["entropy_parameters"], M, K)
     assert data == jcodec._ar_encode_latents(jnets, y_q, psi)
     np.testing.assert_array_equal(codec._ar_decode_latents(nets, data, psi, h, w), y_q)
+
+
+@pytest.mark.parametrize("n_streams", [2, 8])
+def test_interleaved_coder_bytes_match_jax(pair, n_streams):
+    K, _, params, model = pair
+    rng = np.random.default_rng(21 + K + n_streams)
+    h, w = 5, 7
+    y_q = np.round(rng.normal(scale=2.0, size=(h, w, M))).astype(np.float32)
+    psi = rng.normal(size=(h, w, 2 * M)).astype(np.float32)
+    coder = codec._HostParamNets(model).native_coder()
+    data = coder.encode_n(y_q, psi, n_streams)
+    jnets = jcodec._HostParamNets(params["context_model"], params["entropy_parameters"], M, K)
+    assert data == jnets.native_coder().encode_n(y_q, psi, n_streams)
+    np.testing.assert_array_equal(coder.decode_n(data, psi, h, w, n_streams), y_q)
+    # interleaving costs each stream a 4-byte length-table entry and a 4-byte
+    # rANS state flush, the symbols nothing
+    assert len(data) <= len(coder.encode(y_q, psi)) + 8 * n_streams
+
+
+LAYOUTS = {"tiles2x2": dict(tiles=(2, 2)), "tiles1x3": dict(tiles=(1, 3)),
+           "streams2": dict(n_streams=2), "streams8": dict(n_streams=8)}
+
+
+def _jax_codec_with_tables(pair, cod, zmin, zmax):
+    """The JAX codec on the pair's weights, given the port's z tables for
+    [zmin, zmax] (the two packages' tables may differ by a count)."""
+    _, jmodel, params, _ = pair
+    jc = jcodec.JointARCodec(jmodel, {"params": params})
+    jc._z_cache[(zmin, zmax)] = cod._z_tables(zmin, zmax)
+    return jc
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_layout_bytes_match_jax(pair, coded, layout):
+    cod, x, _, _ = coded("70x100")
+    img_h, img_w, y_q, z_q, psi = cod._analyse_image(x)
+    kw = LAYOUTS[layout]
+    data = cod._encode_from(y_q, z_q, psi, img_h, img_w, **kw)
+    jc = _jax_codec_with_tables(pair, cod, int(z_q.min()), int(z_q.max()))
+    assert data == jc._encode_from(y_q, z_q, psi, img_h, img_w, kw.get("tiles"),
+                                   kw.get("n_streams", 1))
+    assert data == cod.compress(x, **kw)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_layouts_round_trip(coded, shape, layout):
+    cod, x, data, out = coded(shape)
+    tiled = cod.compress(x, **LAYOUTS[layout])
+    y_q, z_q = cod.decode_latents(tiled)
+    np.testing.assert_array_equal(y_q, out["y_in"][0])
+    np.testing.assert_array_equal(z_q, out["z_in"][0])
+    np.testing.assert_array_equal(cod.decompress(tiled), cod.decompress(data))
+    if "n_streams" in LAYOUTS[layout]:
+        n = LAYOUTS[layout]["n_streams"]
+        assert len(tiled) <= len(data) + 8 * n
+
+
+def test_layout_limits_raise(coded):
+    cod, x, _, _ = coded("64x128")
+    for kw, match in ((dict(tiles=(2, 2), n_streams=2), "exclusive"),
+                      (dict(n_streams=0), "1..255"), (dict(n_streams=256), "1..255"),
+                      (dict(tiles=(128, 1)), "127 x 255"), (dict(tiles=(1, 256)), "127 x 255"),
+                      (dict(tiles=(0, 1)), "127 x 255")):
+        with pytest.raises(ValueError, match=match):
+            cod.compress(x, **kw)
+
+
+def _batch(n, seed):
+    return np.random.default_rng(seed).uniform(size=(n, 64, 128, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("workers", [None, 2])
+def test_compress_batch_matches_compress(pair, workers):
+    cod = JointARCodec(pair[3])
+    xs = _batch(3, seed=30)
+    assert cod.compress_batch(xs, workers=workers) == [cod.compress(xs[b:b + 1])
+                                                       for b in range(3)]
+
+
+def test_decompress_batch_matches_decompress(pair):
+    cod = JointARCodec(pair[3])
+    xs = _batch(4, seed=31)
+    datas = [cod.compress(xs[b:b + 1], n_streams=1 + 3 * (b % 2)) for b in range(4)]
+    got = cod.decompress_batch(datas, workers=2)
+    want = np.concatenate([cod.decompress(d) for d in datas])
+    assert got.shape == want.shape == (4, 64, 128, 3)
+    # one batched synthesis against four batch-1 ones: the CPU convolutions
+    # sum in other orders (measured at most 3e-8)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    got8 = cod.decompress_batch(datas, as_uint8=True)
+    want8 = np.concatenate([cod.decompress(d, as_uint8=True) for d in datas])
+    assert got8.dtype == np.uint8 and np.abs(got8.astype(int) - want8.astype(int)).max() <= 1
+
+
+def test_decompress_batch_rejects_tiled_and_mixed(coded):
+    cod, x, data, _ = coded("64x128")
+    with pytest.raises(ValueError, match="tiled streams with decompress"):
+        cod.decompress_batch([data, cod.compress(x, tiles=(2, 2))])
+    with pytest.raises(ValueError, match="one image size"):
+        cod.decompress_batch([data, cod.compress(x[:, :, :100])])
 
 
 # --- end to end ------------------------------------------------------------------
@@ -317,16 +419,24 @@ def _with_header_field(data, index, value):
     ("cut_z_and_y", "truncated"),
     ("trailing", "header says"),
     ("bad_magic", "not a NIC1"),
-    ("tiled", "tiled streams"),
-    ("interleaved", "interleaved streams"),
-    ("portable", "portable"),
+    ("interleaved_count_0", "stream count 0"),
+    ("tiled_table_overrun", "length table"),
+    ("portable_other_card", "different card"),
     ("factorized_kind", "kind 2"),
     ("zmin_above_zmax", "zmin"),
     ("empty_image", "image size"),
     ("y_corrupt", "corrupt or truncated"),
 ])
-def test_malformed_streams_raise(coded, case, match):
-    cod, _, data, _ = coded("64x128")
+def test_malformed_streams_raise(pair, coded, case, match):
+    cod, x, data, _ = coded("64x128")
+    if case == "tiled_table_overrun":
+        tiled = cod.compress(x, tiles=(2, 2))
+        start = codec._HEADER_SIZE + codec._read_header(tiled)[9]
+        (first,) = struct.unpack("<I", tiled[start:start + 4])
+        data = tiled[:start] + struct.pack("<I", first + 1) + tiled[start + 4:]
+    if case == "portable_other_card":
+        data = cod.compress_portable(x)
+        cod = JointARCodec(pair[3], portable_card=PortableCard.build(pair[3], -16, 16))
     bad = {
         "empty": lambda: b"",
         "header_only": lambda: data[:codec._HEADER_SIZE],
@@ -334,9 +444,9 @@ def test_malformed_streams_raise(coded, case, match):
         "cut_z_and_y": lambda: data[:codec._HEADER_SIZE + 3],
         "trailing": lambda: data + b"\0",
         "bad_magic": lambda: b"NIC2" + data[4:],
-        "tiled": lambda: _with_header_field(data, 6, (2 << 8) | 2),
-        "interleaved": lambda: _with_header_field(data, 6, 0x8000 | 4),
-        "portable": lambda: _with_header_field(data, 1, 4),
+        "interleaved_count_0": lambda: _with_header_field(data, 6, 0x8000),
+        "tiled_table_overrun": lambda: data,
+        "portable_other_card": lambda: data,
         "factorized_kind": lambda: _with_header_field(data, 1, 2),
         "zmin_above_zmax": lambda: _with_header_field(data, 7, 100),
         "empty_image": lambda: _with_header_field(data, 4, 0),
@@ -376,6 +486,8 @@ def test_coding_import_loads_no_jax():
         "import sys\n"
         "import neural_image_compression_tpu_torch.coding\n"
         "import neural_image_compression_tpu_torch.coding.codec\n"
+        "import neural_image_compression_tpu_torch.coding.portable\n"
+        "import neural_image_compression_tpu_torch.coding.refine\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'neural_image_compression_tpu')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'flax.', 'neural_image_compression_tpu.')))\n"
         "assert not bad, bad\n"

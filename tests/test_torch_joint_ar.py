@@ -18,7 +18,7 @@ from neural_image_compression_tpu_torch.models import (
     EntropyParameters, JointAutoregressiveHierarchical,
 )
 from neural_image_compression_tpu_torch.utils.weights import (
-    joint_ar_state_from_jax, load_jax_params,
+    joint_ar_params_to_jax, joint_ar_state_from_jax, load_jax_params,
 )
 
 torch.set_num_threads(1)
@@ -158,6 +158,20 @@ def test_state_bridge_uses_every_leaf_once(jax_pair):
     w = state["decoder.Deconv2d_3.weight"].numpy()
     assert w.shape == (M, 3, 5, 5)
     np.testing.assert_array_equal(w[:, :, 0, 0], k[4, 4])
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_params_to_jax_inverts_the_loader(jax_pair, dtype):
+    # a bf16 model keeps float32 parameters (ops/conv.py casts at compute)
+    K, _, params, _ = jax_pair
+    model = JointAutoregressiveHierarchical(M, K, dtype=dtype, device="cpu")
+    back = joint_ar_params_to_jax(load_jax_params(model, params))
+    want = jax.tree_util.tree_flatten_with_path(params)[0]
+    got = jax.tree_util.tree_flatten_with_path(back)[0]
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        assert g.dtype == np.float32 and g.flags.c_contiguous, path
+        np.testing.assert_array_equal(g, np.asarray(w), err_msg=str(path))
 
 
 def test_load_rejects_missing_and_unexpected_keys(jax_pair):

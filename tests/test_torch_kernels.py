@@ -267,6 +267,28 @@ def test_gdn_autograd_runs_the_plain_backward_on_cpu(inverse):
         assert gdn_kernel.gdn(*leaves, inverse).grad_fn is None
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_backward_skips_param_grads_for_frozen_weights(inverse, monkeypatch):
+    x, gamma, beta, g = _gdn_case(90, 16, seed=12)
+    full = gdn_kernel.gdn_backward(x, gamma, beta, g, inverse)
+    dx, dgamma, dbeta = gdn_kernel.gdn_backward(x, gamma, beta, g, inverse, param_grads=False)
+    assert dgamma is None and dbeta is None
+    torch.testing.assert_close(dx, full[0], rtol=0, atol=0)
+    # autograd asks for dx alone where neither gamma nor beta needs a gradient
+    asked = []
+    real = gdn_kernel.gdn_backward
+    monkeypatch.setattr(gdn_kernel, "gdn_backward",
+                        lambda *a: asked.append(a[-1]) or real(*a))
+    for needs in ((False, False), (True, False), (True, True)):
+        xl = x.clone().requires_grad_(True)
+        gl, bl = gamma.clone().requires_grad_(needs[0]), beta.clone().requires_grad_(needs[1])
+        gdn_kernel.gdn(xl, gl, bl, inverse).backward(g)
+        torch.testing.assert_close(xl.grad, full[0], rtol=0, atol=0)
+        if needs[0]:
+            torch.testing.assert_close(gl.grad, full[1], rtol=0, atol=0)
+    assert asked == [False, True, True]
+
+
 def test_gdn_backward_bf16_keeps_dtypes():
     x, gamma, beta, g = _gdn_case(50, 16, seed=11)
     dx, dgamma, dbeta = gdn_kernel.gdn_backward(x.bfloat16(), gamma, beta, g.bfloat16())
@@ -452,6 +474,23 @@ def test_gdn_backward_kernel_matches_plain_on_card(cuda_device, dtype, inverse, 
     again = gdn_kernel.gdn_backward(x, gamma, beta, g, inverse)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c", [(98_304, 128), (1001, 10)])
+def test_gdn_backward_dx_only_on_card(cuda_device, dtype, n, c):
+    # without the dgamma/dbeta stage: the same dx bits, one launch, no stage
+    x, gamma, beta, g = (t.to(cuda_device) for t in _gdn_case(n, c, seed=4))
+    x, g = x.to(dtype), g.to(dtype)
+    full = gdn_kernel.gdn_backward(x, gamma, beta, g, True)
+    before = (gdn_kernel.gdn_backward.launches, gdn_kernel.gdn_backward.param_launches)
+    dx, dgamma, dbeta = gdn_kernel.gdn_backward(x, gamma, beta, g, True, param_grads=False)
+    torch.cuda.synchronize()
+    assert (gdn_kernel.gdn_backward.launches, gdn_kernel.gdn_backward.param_launches) == (
+        before[0] + 1, before[1])
+    assert dgamma is None and dbeta is None
+    assert torch.equal(dx, full[0])
 
 
 @pytest.mark.cuda

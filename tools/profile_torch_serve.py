@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where the device time goes in the PyTorch port's serving forward or its
-training step.
+"""Where the device time goes in the PyTorch port's serving forward, its
+training step or its latent refinement.
 
 Profiles, with torch.profiler on one CUDA card, the flagship
 (JointAutoregressiveHierarchical, M=128, K=3) in float32 and bfloat16
 transforms: by default the eval forward through make_serving_fn at 768x512,
 batch 48 and batch 1; with --train the training step through
-make_train_step (batch 16 of 256x256, rd_loss at lambda 0.005, Adam 1e-4).
+make_train_step (batch 16 of 256x256, rd_loss at lambda 0.005, Adam 1e-4);
+with --refine one call of coding.make_refiner (20 steps at lr 1e-2, lambda
+0.005) on one 768x512 image.
 Prints, per configuration, the device time by layer (cuDNN convolutions,
 the GDN kernels, the GDN backward split by launch: norm, mix, partials and
 reduce, the mixture-likelihood kernels, the optimizer, other) and
@@ -14,7 +16,7 @@ the device's busy share of the profiled window, then one JSON line with the
 same numbers. Imports only the port, never JAX; TF32 off as in
 chip_smoke.py.
 
-    python3 tools/profile_torch_serve.py [--train]
+    python3 tools/profile_torch_serve.py [--train | --refine]
 """
 
 import argparse
@@ -31,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from neural_image_compression_tpu_torch.coding import make_refiner  # noqa: E402
 from neural_image_compression_tpu_torch.models import JointAutoregressiveHierarchical  # noqa: E402
 from neural_image_compression_tpu_torch.ops.kernels import gdn_kernel  # noqa: E402
 from neural_image_compression_tpu_torch.parallel import make_train_step  # noqa: E402
@@ -143,10 +146,26 @@ def profile_train(card):
     return results
 
 
+def profile_refine(card):
+    x = torch.from_numpy(np.random.default_rng(12).uniform(
+        size=(1, 512, 768, 3)).astype(np.float32)).cuda()
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        refine = make_refiner(JointAutoregressiveHierarchical(128, 3, dtype=dtype, device="cuda"),
+                              0.005, steps=20, lr=1e-2)
+        tag = f"{str(dtype).replace('torch.', '')} refine, 20 steps, 1x768x512"
+        results[tag] = profile_config(refine, x)
+        report(tag, results[tag], card, "call")
+    return results
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--train", action="store_true",
-                        help="profile the training step instead of the serving forward")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="profile the training step instead of the serving forward")
+    mode.add_argument("--refine", action="store_true",
+                      help="profile latent refinement instead of the serving forward")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
@@ -156,7 +175,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}")
-    results = profile_train(card) if args.train else profile_serve(card)
+    results = (profile_train(card) if args.train else
+               profile_refine(card) if args.refine else profile_serve(card))
     print(json.dumps({"card": card, "profile": results}))
     return 0
 
