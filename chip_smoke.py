@@ -48,10 +48,11 @@ The last lines are the kernels' JSON record and
 
 TF32 is off throughout (convolutions and products in full float32), except
 where phase 6 turns it on to show that the codec's streams do not depend on
-it.
+it and phase 7 to show that MS-SSIM does not.
 """
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -68,13 +69,17 @@ from neural_image_compression_tpu_torch.coding import JointARCodec, PortableCard
 from neural_image_compression_tpu_torch.coding import portable
 from neural_image_compression_tpu_torch.coding import backend as rans_backend
 from neural_image_compression_tpu_torch.coding import codec as codec_module
+from neural_image_compression_tpu_torch.data import BatchLoader
+from neural_image_compression_tpu_torch.evaluation import (
+    CompressionEvaluator, ms_ssim, rgb_to_luma,
+)
 from neural_image_compression_tpu_torch.models import JointAutoregressiveHierarchical, joint_ar
 from neural_image_compression_tpu_torch.ops.kernels import (
     _build, gdn_kernel, gmm_kernel, launch_counts, reset_launch_counts,
 )
 from neural_image_compression_tpu_torch.parallel import make_train_step
 from neural_image_compression_tpu_torch.serving import make_serving_fn
-from neural_image_compression_tpu_torch.train import rd_loss
+from neural_image_compression_tpu_torch.train import Trainer, msssim_rd_loss, rd_loss
 from neural_image_compression_tpu_torch.utils import flops
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device memory, TF32
@@ -1167,6 +1172,292 @@ def codec_phase(dev, card):
     return launches, results
 
 
+# --- phase 7: the Trainer and the evaluator -----------------------------------
+
+TRAINER_SEED = 20
+TRAINER_IMAGES, TRAINER_STEPS, TRAINER_RESUME_STEPS = 64, 30, 10
+TRAINER_SETTINGS = dict(lambda_val=LAMBDA, scheduler="plateau", val_interval=10,
+                        checkpoint_interval=10, ema_decay=0.999, clip_grad_norm=1.0,
+                        log_interval=15, img_interval=15, scalar_interval=1)
+VAL_IMAGES, EVAL_IMAGES = 2, 4
+FORWARD = dict(NO_LAUNCHES, gdn=GDN_PER_FORWARD, gmm_logp=GMM_PER_FORWARD)
+MSSSIM_LAMBDA, MSSSIM_STEPS = 16.0, 5
+# card against CPU MS-SSIM with TF32 on: the blur runs in full float32 on
+# both, so only the order of float32 sums differs
+MSSSIM_CARD_TOL = 1e-5
+EVAL_STREAMS, EVAL_REFINE_STEPS = 8, 5
+
+
+def scaled(launches, n):
+    return {k: v * n for k, v in launches.items()}
+
+
+def added(*parts):
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+def refine_launches(steps):
+    """One refine call of ``steps`` steps (REFINE_PER_CALL's terms)."""
+    return dict(NO_LAUNCHES, gdn=6 + 3 * steps + 3, gdn_backward=3 * steps,
+                gmm_logp=1 + steps + 1, gmm_logp_backward=steps)
+
+
+def expecting(total, expect, fn, label, calls):
+    """fn with each call's kernel launches checked against ``expect(*args)``
+    and added to ``total``; ``calls`` counts the calls under ``label``."""
+    def wrapped(*args, **kwargs):
+        before = launch_counts()
+        out = fn(*args, **kwargs)
+        after = launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        want = expect(*args, **kwargs)
+        check(got == want, f"{label} launched {got}, not {want}")
+        for k, v in got.items():
+            total[k] += v
+        calls[label] = calls.get(label, 0) + 1
+        return out
+    return wrapped
+
+
+def instrument(trainer, total, calls):
+    """Check the launches of each step (6/6/1/1), each validation (6/0/1/0
+    a forward) and each diagnostic forward (6/0/1/0) of a Trainer."""
+    n_val = len(trainer.val_loader or [])
+    trainer._train_step = expecting(total, lambda *a: PER_STEP, trainer._train_step, "step",
+                                    calls)
+    trainer._validate = expecting(total, lambda: scaled(FORWARD, n_val), trainer._validate,
+                                  "validation", calls)
+    trainer._diagnostics = expecting(total, lambda *a: FORWARD, trainer._diagnostics,
+                                     "diagnostics", calls)
+    return trainer
+
+
+def trainer_data():
+    rng = np.random.default_rng(TRAINER_SEED)
+    patches = list(rng.integers(0, 256, size=(TRAINER_IMAGES, TRAIN_SIZE, TRAIN_SIZE, 3),
+                                dtype=np.uint8))
+    val = [rng.uniform(size=(1, HEIGHT, WIDTH, 3)).astype(np.float32) for _ in range(VAL_IMAGES)]
+    return patches, val
+
+
+def trainer_loader(patches):
+    return BatchLoader(patches, batch_size=TRAIN_BATCH, shuffle=True, seed=TRAINER_SEED,
+                       prefetch=2)
+
+
+def jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def trainer_run_case(dev, total, calls, patches, val, tmp):
+    """30 bf16 steps with every option, checkpoints at 10, 20 and 30, then a
+    resumed Trainer to step 40."""
+    log_dir, ckpt = os.path.join(tmp, "runs"), os.path.join(tmp, "ckpt.pt")
+    model = JointAutoregressiveHierarchical(M, K, dtype=torch.bfloat16, device=dev,
+                                            seed=TRAINER_SEED)
+    t0 = time.perf_counter()
+    first = instrument(Trainer(model, trainer_loader(patches), val_loader=val,
+                               max_steps=TRAINER_STEPS, log_dir=log_dir, checkpoint_path=ckpt,
+                               **TRAINER_SETTINGS), total, calls)
+    first.train()
+    check(os.path.isfile(ckpt), "no checkpoint written")
+    resumed_model = JointAutoregressiveHierarchical(M, K, dtype=torch.bfloat16, device=dev,
+                                                    seed=TRAINER_SEED + 1)
+    second = instrument(Trainer(resumed_model, trainer_loader(patches), val_loader=val,
+                                max_steps=TRAINER_RESUME_STEPS, resume=True, log_dir=log_dir,
+                                checkpoint_path=ckpt, **TRAINER_SETTINGS), total, calls)
+    check(second.step == TRAINER_STEPS and second.max_steps == TRAINER_STEPS + TRAINER_RESUME_STEPS,
+          f"resumed at step {second.step} of {second.max_steps}")
+    for name, p in resumed_model.named_parameters():
+        check(torch.equal(p, dict(model.named_parameters())[name]),
+              f"{name}: the resumed model does not hold the checkpoint's weights")
+    second.train()
+    seconds = time.perf_counter() - t0
+    end = TRAINER_STEPS + TRAINER_RESUME_STEPS
+    rows = jsonl(os.path.join(log_dir, "metrics.jsonl"))
+    losses = [r for r in rows if r["tag"] == "losses/loss"]
+    check([r["step"] for r in losses] == list(range(end)), "losses/loss steps")
+    check(all(isinstance(r["value"], float) and np.isfinite(r["value"]) for r in losses),
+          "a logged loss is not finite")
+    val_steps = [r["step"] for r in rows if r["tag"] == "validation/validation_loss"]
+    check(val_steps == list(range(0, end, TRAINER_SETTINGS["val_interval"])),
+          f"validation at steps {val_steps}")
+    diag_steps = [r["step"] for r in rows if r["tag"] == "activity/y_dead_channels_by_entropy"]
+    check(diag_steps == list(range(0, end, TRAINER_SETTINGS["log_interval"])),
+          f"diagnostics at steps {diag_steps}")
+    check(calls == {"step": end, "validation": len(val_steps), "diagnostics": len(diag_steps)},
+          f"calls {calls}")
+    files = sorted(os.listdir(log_dir))
+    r = dict(steps=end, seconds=seconds, loss_first=losses[0]["value"],
+             loss_last=losses[-1]["value"], validation_steps=val_steps,
+             validation_loss=[x["value"] for x in rows
+                              if x["tag"] == "validation/validation_loss"],
+             learning_rate_last=second.current_lr(), log_files=files)
+    print(f"  bf16 Trainer: {end} steps over a resume at {TRAINER_STEPS} in {seconds:.1f} s "
+          f"(validation at {val_steps}, diagnostics at {diag_steps}, checkpoints every "
+          f"{TRAINER_SETTINGS['checkpoint_interval']}); loss {r['loss_first']:.4f} -> "
+          f"{r['loss_last']:.4f}; launches a step {PER_STEP}, a validation forward and a "
+          f"diagnostic forward {FORWARD}; log files {files}", flush=True)
+    return r
+
+
+def trainer_throughput(dev, total, patches, dtype, scalar_interval, rd=rd_loss,
+                       lam=LAMBDA, timed=None):
+    """ms a step of a Trainer over TRAIN_WARMUP + ``timed`` steps, from the
+    host clock around the timed ones (validation, diagnostics and
+    checkpoints outside them), and its logged losses."""
+    timed = timed or TRAIN_TIMED
+    with tempfile.TemporaryDirectory() as tmp:
+        model = JointAutoregressiveHierarchical(M, K, dtype=dtype, device=dev, seed=TRAINER_SEED)
+        trainer = Trainer(model, trainer_loader(patches), rd_loss=rd, lambda_val=lam,
+                          max_steps=TRAIN_WARMUP, scalar_interval=scalar_interval,
+                          log_interval=10 ** 9, img_interval=10 ** 9, log_dir=tmp,
+                          checkpoint_path=None)
+        before = launch_counts()
+        trainer.train()  # step 0's diagnostics run here
+        torch.cuda.synchronize()
+        trainer.max_steps += timed
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / timed
+        after = launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        want = added(scaled(PER_STEP, TRAIN_WARMUP + timed), FORWARD)
+        check(got == want, f"Trainer launched {got}, not {want}")
+        for k, v in got.items():
+            total[k] += v
+        losses = [r["value"] for r in jsonl(os.path.join(tmp, "metrics.jsonl"))
+                  if r["tag"] == "losses/loss"]
+    return ms, losses
+
+
+def msssim_parity(dev):
+    """ms_ssim (RGB and Y) of one 768x512 pair on the card, with TF32 on,
+    against the CPU's."""
+    rng = np.random.default_rng(TRAINER_SEED + 2)
+    a = rng.uniform(size=(1, HEIGHT, WIDTH, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(scale=0.05, size=a.shape), 0, 1).astype(np.float32)
+    set_fast_numerics(True)
+    try:
+        xa, xb = torch.from_numpy(a), torch.from_numpy(b)
+        got = {"RGB": ms_ssim(xb.to(dev), xa.to(dev)).item(),
+               "Y": ms_ssim(rgb_to_luma(xb.to(dev)), rgb_to_luma(xa.to(dev))).item()}
+        check(torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32,
+              "ms_ssim did not restore the caller's TF32 settings")
+    finally:
+        set_fast_numerics(False)
+    want = {"RGB": ms_ssim(xb, xa).item(), "Y": ms_ssim(rgb_to_luma(xb), rgb_to_luma(xa)).item()}
+    for k in want:
+        diff = abs(got[k] - want[k])
+        check(diff <= MSSSIM_CARD_TOL, f"MS-SSIM({k}) card {got[k]} vs cpu {want[k]}")
+    print(f"  MS-SSIM with TF32 on: card RGB {got['RGB']:.8f} Y {got['Y']:.8f}, cpu RGB "
+          f"{want['RGB']:.8f} Y {want['Y']:.8f} (tolerance {MSSSIM_CARD_TOL:g})", flush=True)
+    return {"card": got, "cpu": want}
+
+
+def evaluator_case(dev, total, tmp, card):
+    """evaluate() and evaluate_codec(n_streams=8) on EVAL_IMAGES seeded
+    768x512 images, a refined codec evaluation of one, the results file."""
+    model = gained_model(dev)
+    rng = np.random.default_rng(TRAINER_SEED + 3)
+    imgs = [rng.uniform(size=(1, HEIGHT, WIDTH, 3)).astype(np.float32)
+            for _ in range(EVAL_IMAGES)]
+    ev = CompressionEvaluator(model, imgs, LAMBDA, tmp)
+    (avg, _, recons), eval_s = counted(total, scaled(FORWARD, EVAL_IMAGES), ev.evaluate)
+    check(all(np.isfinite(v) for v in avg.values()), f"evaluate: {avg}")
+    check(abs(avg["BPP"] - avg["BPP(y)"] - avg["BPP(z)"]) <= 1e-6 * avg["BPP"]
+          and avg["BPP(reference_reported)"] == avg["BPP(y)"], f"evaluate bpp fields {avg}")
+    codec = JointARCodec(model)
+    per_image = added(scaled(CODEC_PER_CALL, 2), FORWARD)  # compress, decompress, analytic
+    codec_avg, codec_s = counted(total, scaled(per_image, EVAL_IMAGES),
+                                 functools.partial(ev.evaluate_codec, n_streams=EVAL_STREAMS),
+                                 codec)
+    check(all(np.isfinite(v) for v in codec_avg.values()), f"evaluate_codec: {codec_avg}")
+    slack_bpp = 8 * CODEC_FIXED_BYTES / (HEIGHT * WIDTH)
+    check(codec_avg["BPP(bitstream)"] <= CODEC_RATE_SLACK * codec_avg["BPP(analytic)"] + slack_bpp,
+          f"bitstream {codec_avg['BPP(bitstream)']} bpp against {codec_avg['BPP(analytic)']}")
+    check(abs(codec_avg["BPP(analytic)"] - avg["BPP"]) <= 1e-5 * avg["BPP"],
+          f"analytic {codec_avg['BPP(analytic)']} against evaluate's {avg['BPP']}")
+    # decode against the eval forward's x_hat (phase 6's tolerance), and the
+    # PSNR that tolerance allows: |dMSE| <= 2 t sqrt(MSE) + t^2
+    data, _ = counted(total, CODEC_PER_CALL, codec.compress, imgs[0])
+    x_hat, _ = counted(total, CODEC_PER_CALL, codec.decompress, data)
+    xhat_err = float(np.abs(x_hat[0] - recons[0]).max())
+    check(xhat_err <= CODEC_F32_XHAT_TOL, f"decoded image differs by {xhat_err:.3e}")
+    mse = avg["MSE(255)"] / 255.0 ** 2
+    t = CODEC_F32_XHAT_TOL
+    psnr_tol = 10 / np.log(10) * (2 * t * np.sqrt(mse) + t * t) / mse
+    psnr_diff = abs(codec_avg["PSNR(RGB)"] - avg["PSNR(RGB)"])
+    check(psnr_diff <= psnr_tol, f"PSNR(RGB) decoded {codec_avg['PSNR(RGB)']} vs "
+                                 f"{avg['PSNR(RGB)']} (tolerance {psnr_tol:.3e})")
+    one = CompressionEvaluator(model, imgs[:1], LAMBDA, tmp)
+    refined, refine_s = counted(
+        total, added(refine_launches(EVAL_REFINE_STEPS), CODEC_PER_CALL, FORWARD),
+        one.evaluate_codec, codec, EVAL_REFINE_STEPS, LAMBDA)
+    check(all(np.isfinite(v) for v in refined.values()), f"refined: {refined}")
+    path = ev.save_results(dict(avg, **{"codec/" + k: v for k, v in codec_avg.items()}),
+                           TRAINER_STEPS + TRAINER_RESUME_STEPS, "GM-Capacity128_K3")
+    with open(path) as f:
+        lines = f.read().splitlines()
+    check(os.path.basename(path) == "eval_results_0.005_lambda_GM-Capacity128_K3.txt"
+          and lines[:2] == ["Lambda: 0.005", f"Trained for: {TRAINER_STEPS + TRAINER_RESUME_STEPS} "
+                                             f"steps"]
+          and lines[2].startswith("MSE(255): "), f"results file {path}: {lines[:3]}")
+    r = dict(evaluate=avg, evaluate_codec=codec_avg, refined=refined,
+             evaluate_s_per_image=eval_s / EVAL_IMAGES,
+             evaluate_codec_s_per_image=codec_s / EVAL_IMAGES, refined_codec_s=refine_s,
+             decoded_max_abs_diff=xhat_err, psnr_diff=psnr_diff, results_file=lines)
+    print(f"  evaluate: {EVAL_IMAGES} images {HEIGHT}x{WIDTH}, {r['evaluate_s_per_image']:.3f} "
+          f"s an image; BPP {avg['BPP']:.5f} (y {avg['BPP(y)']:.5f} + z {avg['BPP(z)']:.5f}), "
+          f"PSNR {avg['PSNR(RGB)']:.4f}, MS-SSIM {avg['MS-SSIM(RGB)']:.5f} [{card}]", flush=True)
+    print(f"  evaluate_codec n_streams={EVAL_STREAMS}: {r['evaluate_codec_s_per_image']:.3f} s an "
+          f"image; BPP(bitstream) {codec_avg['BPP(bitstream)']:.5f}, analytic "
+          f"{codec_avg['BPP(analytic)']:.5f} (overhead {codec_avg['bitstream_overhead']:.5f}); "
+          f"decoded within {xhat_err:.2e} of x_hat, PSNR within {psnr_diff:.2e} dB; refined "
+          f"({EVAL_REFINE_STEPS} steps) {refined['BPP(bitstream)']:.5f} bpp, PSNR "
+          f"{refined['PSNR(RGB)']:.4f} in {refine_s:.2f} s; results file {len(lines)} lines",
+          flush=True)
+    return r
+
+
+def trainer_phase(dev, card, bare):
+    """Returns (launches checked by the phase, results)."""
+    total = dict(NO_LAUNCHES)
+    patches, val = trainer_data()
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        results["run"] = trainer_run_case(dev, total, {}, patches, val, tmp)
+        for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+            r = {}
+            for interval in (1, 1000):
+                ms, losses = trainer_throughput(dev, total, patches, dtype, interval)
+                check(all(np.isfinite(losses)) and len(losses) == (
+                    TRAIN_WARMUP + TRAIN_TIMED if interval == 1 else 1),
+                      f"{name} Trainer at scalar_interval {interval}: losses {losses}")
+                r[f"scalar_interval_{interval}"] = dict(ms_per_step=ms, steps_per_s=1e3 / ms)
+            r["bare_make_train_step_steps_per_s"] = bare[name]["steps_per_s"]
+            results[name] = r
+            print(f"  {name} Trainer: {r['scalar_interval_1']['steps_per_s']:.3f} steps/s at "
+                  f"scalar_interval 1, {r['scalar_interval_1000']['steps_per_s']:.3f} at 1000; "
+                  f"bare make_train_step {r['bare_make_train_step_steps_per_s']:.3f} (phase 5) "
+                  f"[{card}]", flush=True)
+        ms_ms, ms_losses = trainer_throughput(dev, total, patches, torch.float32, 1,
+                                              rd=msssim_rd_loss, lam=MSSSIM_LAMBDA,
+                                              timed=MSSSIM_STEPS)
+        check(all(np.isfinite(ms_losses)), f"msssim_rd_loss losses {ms_losses}")
+        rd_ms = results["float32"]["scalar_interval_1"]["ms_per_step"]
+        results["msssim_rd_loss"] = dict(ms_per_step=ms_ms, rd_loss_ms_per_step=rd_ms,
+                                         losses=ms_losses)
+        print(f"  float32 Trainer with msssim_rd_loss (lambda {MSSSIM_LAMBDA}): {ms_ms:.3f} ms a "
+              f"step against rd_loss's {rd_ms:.3f}; losses {ms_losses[0]:.4f} -> "
+              f"{ms_losses[-1]:.4f} [{card}]", flush=True)
+        results["msssim_card_vs_cpu"] = msssim_parity(dev)
+        results["evaluator"] = evaluator_case(dev, total, tmp, card)
+    return total, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1228,9 +1519,20 @@ def main() -> int:
     print(f"main path (codec): launches {codec_launches}")
     print(json.dumps({"codec": codec_results, "card": card, "cpu_count": os.cpu_count()}))
 
+    print(f"== phase 7: Trainer and evaluator, M={M} K={K} [{card}]", flush=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer_total, trainer_results = trainer_phase(dev, card, train_results)
+    trainer_launches = launch_counts()
+    print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+    check(trainer_launches == trainer_total,
+          f"phase 7 launches {trainer_launches}, its calls counted {trainer_total}")
+    print(f"main path (Trainer and evaluator): launches {trainer_launches}")
+    print(json.dumps({"trainer": trainer_results, "card": card}))
+
     for r in records:
         r["launches"] = (serve_launches[r["name"]] + train_launches[r["name"]]
-                         + codec_launches[r["name"]])
+                         + codec_launches[r["name"]] + trainer_launches[r["name"]])
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,14 +16,20 @@ writes and reads real bitstreams (single images, batches, interleaved and
 tiled streams, portable integer streams), and ``coding.make_refiner``
 refines latents before coding: the transforms run on the model's device,
 the rANS, wavefront and portable coders on the host (C++, built with g++
-at first use).
+at first use). ``train.Trainer`` runs training (schedulers, checkpoints,
+resume, validation, TensorBoard/JSONL metrics) and
+``evaluation.CompressionEvaluator`` measures a model (PSNR, MS-SSIM, the
+analytic and the real bitstream rate) on the model's device.
 
 This package imports torch and numpy (and scipy's ``ndtr`` for a portable
-card's tables, where it is installed): never jax, flax or the JAX package.
+card's tables, where it is installed; tensorboard, PIL and matplotlib where
+metrics, images and figures are written): never jax, flax or the JAX
+package.
 """
 
 from neural_image_compression_tpu_torch import (
-    coding, entropy, models, ops, parallel, serving, train, utils,
+    coding, data, entropy, evaluation, models, ops, parallel, serving, train, utils,
 )
 
-__all__ = ["coding", "entropy", "models", "ops", "parallel", "serving", "train", "utils"]
+__all__ = ["coding", "data", "entropy", "evaluation", "models", "ops", "parallel", "serving",
+           "train", "utils"]

@@ -51,6 +51,7 @@ from neural_image_compression_tpu_torch.coding.cdf_tables import factorized_tabl
 from neural_image_compression_tpu_torch.coding.portable import (
     PortableCard, portable_ar_decode, portable_ar_encode,
 )
+from neural_image_compression_tpu_torch.data.datasets import pad_to_multiple
 from neural_image_compression_tpu_torch.models.joint_ar import _nchw, _nhwc
 from neural_image_compression_tpu_torch.ops.masked_conv import causal_positions
 from neural_image_compression_tpu_torch.utils.device import fixed_numerics
@@ -82,16 +83,6 @@ def _round_up(n: int, mult: int) -> int:
     return -(-n // mult) * mult
 
 
-def _pad_to_multiple(batch: np.ndarray, multiple: int) -> np.ndarray:
-    """Replicate-pad H and W of (B, H, W, C) up to the next multiple."""
-    _, h, w, _ = batch.shape
-    ph = (-h) % multiple
-    pw = (-w) % multiple
-    if ph == 0 and pw == 0:
-        return batch
-    return np.pad(batch, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="edge")
-
-
 def _pad_input(x, mult: int) -> np.ndarray:
     """Pad-code-crop: the image is edge-replicate-padded so H and W divide
     the model's downsampling, the latents of the padded grid are coded, the
@@ -100,7 +91,7 @@ def _pad_input(x, mult: int) -> np.ndarray:
     arr = np.asarray(x)
     if arr.dtype != np.uint8:
         arr = np.asarray(arr, np.float32)
-    return _pad_to_multiple(arr, mult)
+    return pad_to_multiple(arr, mult)
 
 
 def _analysis(model, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -9,22 +9,39 @@ metrics. The JAX step's ``mesh`` (data parallelism) and ``levels`` (the
 variable-rate family) have no counterpart here yet.
 """
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
 
 
-def _norm(batch, device: torch.device) -> torch.Tensor:
-    # uint8 batches normalize on the device (4x less host-to-device traffic)
+def batch_to_device(batch, device: torch.device) -> torch.Tensor:
+    """An image batch (array or tensor) on ``device``; uint8 becomes float
+    x / 255 there (4x less host-to-device traffic)."""
     batch = torch.as_tensor(batch, device=device)
     if batch.dtype == torch.uint8:
         return batch.float() / 255.0
     return batch
 
 
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """Scale ``grads`` in place to a global L2 norm of at most ``max_norm``,
+    as optax.clip_by_global_norm does: unchanged where the norm is below
+    max_norm, else g / norm * max_norm, with no epsilon
+    (torch.nn.utils.clip_grad_norm_ divides by norm + 1e-6). The norm stays
+    a tensor on the gradients' device, so the host does not wait for it.
+    Returns the norm before clipping."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    below = norm < max_norm
+    torch._foreach_div_(grads, torch.where(below, torch.ones_like(norm), norm))
+    torch._foreach_mul_(grads, torch.where(below, torch.ones_like(norm),
+                                           torch.full_like(norm, max_norm)))
+    return norm
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, rd_loss: Callable,
-                    lambda_val: float, ema_decay: Optional[float] = None):
+                    lambda_val: float, ema_decay: Optional[float] = None,
+                    clip_grad_norm: Optional[float] = None):
     """Build step(batch, generator=None) -> metrics.
 
     batch: (B, H, W, 3) float in [0, 1] or uint8, moved to the model's
@@ -34,6 +51,11 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, rd_loss:
     optimizer.zero_grad(set_to_none=True). The metrics are rd_loss's dict,
     detached, still on the device: the step never waits for the card.
 
+    With clip_grad_norm > 0 the gradients are clipped to that global norm
+    (``clip_by_global_norm``) between the backward and the optimizer's
+    step; the JAX package chains optax.clip_by_global_norm before its
+    optimizer, and torch has no optimizer chain.
+
     With ema_decay in (0, 1) the step also keeps an exponential moving
     average of the parameters, e <- e + (1 - d) * (p - e) after each update,
     starting from the parameters as they are now: ``step.ema_params``, a
@@ -41,6 +63,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, rd_loss:
     """
     if ema_decay is not None and not (0.0 < ema_decay < 1.0):
         raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
+    if clip_grad_norm is not None and clip_grad_norm <= 0.0:
+        raise ValueError(f"clip_grad_norm must be > 0, got {clip_grad_norm}")
     named = list(model.named_parameters())
     device = named[0][1].device
     ema: Optional[Dict[str, torch.Tensor]] = None
@@ -50,9 +74,12 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, rd_loss:
         params = [p for _, p in named]
 
     def step(batch, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        x = _norm(batch, device)
+        x = batch_to_device(batch, device)
         metrics = rd_loss(model(x, training=True, generator=generator), x, lambda_val)
         metrics["loss"].backward()
+        if clip_grad_norm is not None:
+            clip_by_global_norm([p.grad for _, p in named if p.grad is not None],
+                                clip_grad_norm)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         if ema is not None:

@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
 """Where the device time goes in the PyTorch port's serving forward, its
-training step or its latent refinement.
+training step, its Trainer or its latent refinement.
 
 Profiles, with torch.profiler on one CUDA card, the flagship
 (JointAutoregressiveHierarchical, M=128, K=3) in float32 and bfloat16
 transforms: by default the eval forward through make_serving_fn at 768x512,
 batch 48 and batch 1; with --train the training step through
 make_train_step (batch 16 of 256x256, rd_loss at lambda 0.005, Adam 1e-4);
-with --refine one call of coding.make_refiner (20 steps at lr 1e-2, lambda
-0.005) on one 768x512 image.
+with --trainer a step of train.Trainer (the same batch and loss, the
+default Adam) at scalar_interval 1 (TensorBoard and JSONL, or JSONL alone)
+and 1000 (a batch on the card, or uint8 batches from a BatchLoader) beside
+the bare make_train_step, each also timed without the profiler and with
+its scalar logging split into the fetch and the sinks' writes; with --refine
+one call of coding.make_refiner (20 steps at lr 1e-2, lambda 0.005) on one
+768x512 image.
 Prints, per configuration, the device time by layer (cuDNN convolutions,
 the GDN kernels, the GDN backward split by launch: norm, mix, partials and
 reduce, the mixture-likelihood kernels, the optimizer, other) and
-the device's busy share of the profiled window, then one JSON line with the
-same numbers. Imports only the port, never JAX; TF32 off as in
-chip_smoke.py.
+the device's busy share of the profiled window and its host gap (wall less
+device time), then one JSON line with the same numbers. Imports only the
+port, never JAX; TF32 off as in chip_smoke.py.
 
-    python3 tools/profile_torch_serve.py [--train | --refine]
+    python3 tools/profile_torch_serve.py [--train | --trainer | --refine]
 """
 
 import argparse
@@ -24,6 +29,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -38,7 +44,9 @@ from neural_image_compression_tpu_torch.models import JointAutoregressiveHierarc
 from neural_image_compression_tpu_torch.ops.kernels import gdn_kernel  # noqa: E402
 from neural_image_compression_tpu_torch.parallel import make_train_step  # noqa: E402
 from neural_image_compression_tpu_torch.serving import make_serving_fn  # noqa: E402
-from neural_image_compression_tpu_torch.train import rd_loss  # noqa: E402
+from neural_image_compression_tpu_torch.data import BatchLoader  # noqa: E402
+from neural_image_compression_tpu_torch.train import MetricsLogger, Trainer, rd_loss  # noqa: E402
+from neural_image_compression_tpu_torch.train import trainer as trainer_module  # noqa: E402
 
 ITERS = 3
 
@@ -87,13 +95,15 @@ def profile_config(run, x, warmup=1):
     device_ms = sum(by_layer.values())
     return {"wall_ms_per_call": wall_ms / ITERS, "device_ms_per_call": device_ms,
             "device_busy_share": device_ms / (wall_ms / ITERS),
+            "host_gap_ms_per_call": wall_ms / ITERS - device_ms,
             "by_layer_ms": dict(sorted(by_layer.items(), key=lambda kv: -kv[1])),
             "top_kernels_ms": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])}
 
 
 def report(tag, r, card, unit):
     print(f"== {tag}: wall {r['wall_ms_per_call']:.3f} ms/{unit}, device "
-          f"{r['device_ms_per_call']:.3f} ms, busy {100 * r['device_busy_share']:.1f}% [{card}]")
+          f"{r['device_ms_per_call']:.3f} ms, busy {100 * r['device_busy_share']:.1f}%, host gap "
+          f"{r['host_gap_ms_per_call']:.3f} ms [{card}]")
     for layer, ms in r["by_layer_ms"].items():
         print(f"   {layer:50s} {ms:9.3f} ms  {100 * ms / r['device_ms_per_call']:5.1f}%")
     for name, ms in r["top_kernels_ms"].items():
@@ -146,6 +156,123 @@ def profile_train(card):
     return results
 
 
+TRAINER_TIMED = 20
+
+
+def timed_ms(run, x, steps=TRAINER_TIMED):
+    """Host-clock ms a call over ``steps`` calls, no profiler, one sync at
+    the end (the profiler's own host work inflates a host-bound step)."""
+    run(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        run(x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+class ScalarLogTimer:
+    """Host ms a step in the Trainer's scalar logging: the fetch
+    (host_scalars, which waits for the step's last kernel) and the sinks'
+    writes (JSONL, TensorBoard)."""
+
+    def __init__(self, trainer):
+        self.fetch_s = self.sinks_s = 0.0
+        fetch, scalar = trainer_module.host_scalars, trainer.logger.scalar
+
+        def timed_fetch(metrics):
+            t0 = time.perf_counter()
+            out = fetch(metrics)
+            self.fetch_s += time.perf_counter() - t0
+            return out
+
+        def timed_scalar(*args):
+            t0 = time.perf_counter()
+            scalar(*args)
+            self.sinks_s += time.perf_counter() - t0
+
+        self._fetch = timed_fetch
+        trainer.logger.scalar = timed_scalar
+
+    def __enter__(self):
+        self._saved = trainer_module.host_scalars
+        trainer_module.host_scalars = self._fetch
+        return self
+
+    def __exit__(self, *exc):
+        trainer_module.host_scalars = self._saved
+
+
+def profile_trainer(card):
+    """A Trainer step (its loop body: the step, the scalars' fetch and
+    writes at scalar_interval 1, the learning rate) against the bare step:
+    on the same batch already on the card, with JSONL and TensorBoard sinks
+    or JSONL alone, and at scalar_interval 1000 also on uint8 batches from a
+    prefetching BatchLoader (the host-to-device copy each step). Each
+    configuration: host-clock ms a step over 20 steps without the profiler,
+    then the profiler's device time over 3."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.rand((16, 256, 256, 3), generator=gen, device="cuda")
+    patches = list(np.random.default_rng(7).integers(0, 256, size=(64, 256, 256, 3),
+                                                     dtype=np.uint8))
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+
+            def bare():
+                model = JointAutoregressiveHierarchical(128, 3, dtype=dtype, device="cuda")
+                opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
+                return make_train_step(model, opt, rd_loss, 0.005)
+
+            def trainer(interval, loader=None, tensorboard=True):
+                log_dir = os.path.join(tmp, f"{name}_{interval}_{len(results)}")
+                t = Trainer(JointAutoregressiveHierarchical(128, 3, dtype=dtype, device="cuda"),
+                            loader or [x], lambda_val=0.005, scalar_interval=interval,
+                            log_interval=10 ** 9, img_interval=10 ** 9, log_dir=log_dir,
+                            checkpoint_path=None)
+                if not tensorboard:
+                    t.logger.close()
+                    t.logger = MetricsLogger(log_dir, tensorboard=False)
+                t.max_steps = 3  # step 0's diagnostics run here
+                t.train()
+
+                def one_step(_):
+                    t.max_steps = t.step + 1
+                    t.train()
+
+                return one_step, t
+
+            configs = [("bare make_train_step", lambda: (bare(), None)),
+                       ("Trainer, scalar_interval 1", lambda: trainer(1)),
+                       ("Trainer, scalar_interval 1, JSONL only",
+                        lambda: trainer(1, tensorboard=False)),
+                       ("Trainer, scalar_interval 1000", lambda: trainer(1000)),
+                       ("Trainer, scalar_interval 1000, uint8 BatchLoader",
+                        lambda: trainer(1000, loader=BatchLoader(patches, batch_size=16,
+                                                                 shuffle=True, prefetch=2))),
+                       ("bare make_train_step, again", lambda: (bare(), None))]
+            for label, make in configs:
+                run, t = make()
+                tag = f"{name} {label}, batch 16 of 256x256"
+                if t is not None and t.scalar_interval == 1:
+                    with ScalarLogTimer(t) as log_timer:
+                        wall = timed_ms(run, x)
+                    per_step = TRAINER_TIMED + 1
+                    log_ms = {"fetch_ms": 1e3 * log_timer.fetch_s / per_step,
+                              "sinks_ms": 1e3 * log_timer.sinks_s / per_step}
+                else:
+                    wall, log_ms = timed_ms(run, x), {}
+                results[tag] = profile_config(run, x, warmup=1)
+                results[tag].update(unprofiled_ms_per_step=wall, **log_ms)
+                report(tag, results[tag], card, "step")
+                print(f"   without the profiler: {wall:.3f} ms a step"
+                      + (f"; scalar logging: fetch {log_ms['fetch_ms']:.3f} ms, sinks "
+                         f"{log_ms['sinks_ms']:.3f} ms a step" if log_ms else ""), flush=True)
+                del run, t
+    return results
+
+
 def profile_refine(card):
     x = torch.from_numpy(np.random.default_rng(12).uniform(
         size=(1, 512, 768, 3)).astype(np.float32)).cuda()
@@ -164,6 +291,8 @@ def main() -> int:
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--train", action="store_true",
                       help="profile the training step instead of the serving forward")
+    mode.add_argument("--trainer", action="store_true",
+                      help="profile a train.Trainer step against the bare training step")
     mode.add_argument("--refine", action="store_true",
                       help="profile latent refinement instead of the serving forward")
     args = parser.parse_args()
@@ -176,6 +305,7 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}")
     results = (profile_train(card) if args.train else
+               profile_trainer(card) if args.trainer else
                profile_refine(card) if args.refine else profile_serve(card))
     print(json.dumps({"card": card, "profile": results}))
     return 0
