@@ -41,14 +41,28 @@ Phases, in order; any failure exits non-zero:
      on the card machine, saved and loaded; exact latents, bpp against the
      float stream, latency; at 64x128 the native and numpy coders write the
      same bytes).
-Phases 4, 5 and 6 are the main paths: the kernels' launch counts are set to
-0 just before each and read just after it.
+  7. the Trainer and the evaluator (see trainer_phase).
+  8. the parallel-decode families, MeanScaleHyperprior and
+     CheckerboardHierarchical at M = 128, K = 3, each: card-vs-CPU parity
+     of the eval forward (2x256x256), then its main path: serve (as phase
+     4), train (as phase 5, its own FLOP count for the MFU), and its codec
+     on one 768x512 image (uint8 and float32, f32 and bf16 models,
+     n_streams 1 and 8: exact latents, decompress against the eval forward,
+     bits against the analytic rate with 8 bytes a lane, encode and decode
+     latency split into device stages (analysis, the parameter passes,
+     synthesis) and host stages (the z coder, the y rANS), TF32 and
+     autotuning on at encode against off at decode, a batch of 8 against
+     8 single calls, refinement, and portable streams from a card built
+     here).
+Phases 4, 5, 6, 7 and each family of phase 8 are the main paths: the
+kernels' launch counts are set to 0 just before each and read just after
+it, and the kernels' record adds them up.
 The last lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
 TF32 is off throughout (convolutions and products in full float32), except
-where phase 6 turns it on to show that the codec's streams do not depend on
-it and phase 7 to show that MS-SSIM does not.
+where phases 6 and 8 turn it on to show that the codecs' streams do not
+depend on it and phase 7 to show that MS-SSIM does not.
 """
 
 import contextlib
@@ -65,7 +79,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from neural_image_compression_tpu_torch.coding import JointARCodec, PortableCard, make_refiner
+from neural_image_compression_tpu_torch.coding import (
+    CheckerboardCodec, JointARCodec, MeanScaleHyperpriorCodec, PortableCard, make_refiner,
+)
 from neural_image_compression_tpu_torch.coding import portable
 from neural_image_compression_tpu_torch.coding import backend as rans_backend
 from neural_image_compression_tpu_torch.coding import codec as codec_module
@@ -73,7 +89,9 @@ from neural_image_compression_tpu_torch.data import BatchLoader
 from neural_image_compression_tpu_torch.evaluation import (
     CompressionEvaluator, ms_ssim, rgb_to_luma,
 )
-from neural_image_compression_tpu_torch.models import JointAutoregressiveHierarchical, joint_ar
+from neural_image_compression_tpu_torch.models import (
+    CheckerboardHierarchical, JointAutoregressiveHierarchical, MeanScaleHyperprior, joint_ar,
+)
 from neural_image_compression_tpu_torch.ops.kernels import (
     _build, gdn_kernel, gmm_kernel, launch_counts, reset_launch_counts,
 )
@@ -484,10 +502,11 @@ def rounding_margin(v: torch.Tensor) -> float:
     return (f - f.floor() - 0.5).abs().min().item()
 
 
-def gained_model(device, dtype=None):
-    """The flagship from PARITY_SEED with the parity gains on the last
-    analysis convs, so that y and z spread over several integers."""
-    model = JointAutoregressiveHierarchical(M, K, dtype=dtype, device=device, seed=PARITY_SEED)
+def gained_model(device, dtype=None, cls=JointAutoregressiveHierarchical):
+    """The flagship (or another family, ``cls``) from PARITY_SEED with the
+    parity gains on the last analysis convs, so that y and z spread over
+    several integers."""
+    model = cls(M, K, dtype=dtype, device=device, seed=PARITY_SEED)
     with torch.no_grad():
         for conv, gain in ((model.encoder.Conv2d_3, PARITY_GAIN_Y),
                            (model.hyper_encoder.Conv2d_2, PARITY_GAIN_Z)):
@@ -496,9 +515,9 @@ def gained_model(device, dtype=None):
     return model
 
 
-def parity(dev):
-    cpu_model = gained_model("cpu")
-    card_model = JointAutoregressiveHierarchical(M, K, device=dev, seed=PARITY_SEED)
+def parity(dev, cls=JointAutoregressiveHierarchical):
+    cpu_model = gained_model("cpu", cls=cls)
+    card_model = cls(M, K, device=dev, seed=PARITY_SEED)
     card_model.load_state_dict(cpu_model.state_dict())
     x = torch.from_numpy(np.random.default_rng(PARITY_SEED).uniform(
         size=(2, 256, 256, 3)).astype(np.float32))
@@ -581,14 +600,14 @@ def grad_parity(dev):
 
 # --- phase 4: the main path ---------------------------------------------------
 
-def serve_phase(dev, card: str):
+def serve_phase(dev, card: str, cls=JointAutoregressiveHierarchical):
     rng = np.random.default_rng(2)
     x48 = torch.from_numpy(rng.uniform(size=(BATCH, HEIGHT, WIDTH, 3)).astype(np.float32)).to(dev)
     x1 = x48[:1].contiguous()
     forwards = 0
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
-        model = JointAutoregressiveHierarchical(M, K, dtype=dtype, device=dev, seed=0)
+        model = cls(M, K, dtype=dtype, device=dev, seed=0)
         serve = make_serving_fn(model)
         torch.cuda.reset_peak_memory_stats(dev)
         before = (gdn_kernel.gdn.launches, gmm_kernel.gmm_logp.launches)
@@ -637,10 +656,10 @@ def serve_phase(dev, card: str):
 
 # --- phase 5: the training step -------------------------------------------------
 
-def train_run(dev, dtype, x, seed, steps, timed=False):
+def train_run(dev, dtype, x, seed, steps, timed=False, cls=JointAutoregressiveHierarchical):
     """``steps`` steps of a fresh model (weights from ``seed``) on batch x.
     Returns the losses (tensors), per-step host times and the peak memory."""
-    model = JointAutoregressiveHierarchical(M, K, dtype=dtype, device=dev, seed=seed)
+    model = cls(M, K, dtype=dtype, device=dev, seed=seed)
     opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
     step = make_train_step(model, opt, rd_loss, LAMBDA)
     gen = torch.Generator(device=dev).manual_seed(100 + seed)
@@ -664,19 +683,19 @@ def train_run(dev, dtype, x, seed, steps, timed=False):
     return torch.stack(losses).cpu(), times, peak
 
 
-def train_phase(dev, card: str):
+def train_phase(dev, card: str, cls=JointAutoregressiveHierarchical,
+                eval_flops=flops.joint_ar_eval_flops):
     x = torch.rand((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
                    generator=torch.Generator(device=dev).manual_seed(7), device=dev)
-    flops_img = flops.train_step_flops(
-        flops.joint_ar_eval_flops(M, K, TRAIN_SIZE, TRAIN_SIZE)["total"])
+    flops_img = flops.train_step_flops(eval_flops(M, K, TRAIN_SIZE, TRAIN_SIZE)["total"])
     steps = 0
     results = {}
     for dtype, peak_name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         name = str(dtype).replace("torch.", "")
         losses, times, peak_mem = train_run(dev, dtype, x, seed=0, steps=TRAIN_TIMED,
-                                            timed=True)
+                                            timed=True, cls=cls)
         check(bool(torch.isfinite(losses).all()), f"{name}: a loss is not finite: {losses}")
-        conv, _, _ = train_run(dev, dtype, x, seed=1, steps=TRAIN_CONVERGE)
+        conv, _, _ = train_run(dev, dtype, x, seed=1, steps=TRAIN_CONVERGE, cls=cls)
         check(bool(torch.isfinite(conv).all()), f"{name}: a loss is not finite: {conv}")
         first, last = conv[:10].mean().item(), conv[20:30].mean().item()
         check(last < first, f"{name}: mean loss of steps 21-30 {last} not below steps 1-10 {first}")
@@ -859,10 +878,16 @@ def codec_numerics_check(total, model, x, dname):
           f"equal bytes and psi", flush=True)
 
 
-def codec_case(total, codec, x, ref, dname, iname, card):
-    """One model on one image: correctness, then latency by stage."""
-    label = f"{dname} {iname}"
-    data, _ = counted(total, CODEC_PER_CALL, codec.compress, x)
+def codec_round_trip(total, codec, x, ref, dname, iname, n_streams=None):
+    """compress (with n_streams when given) and decode one image: exact
+    latents, decompress against the eval forward's x_hat (float32 within
+    CODEC_F32_XHAT_TOL, bfloat16 within one bf16 step), the uint8 output,
+    the stream's bits against the analytic bits (8 bytes more a lane).
+    Returns (stream, y_q, z_q, x_hat's max abs difference, its note, stream
+    bits over analytic)."""
+    label = f"{dname} {iname}" + ("" if n_streams is None else f" n_streams={n_streams}")
+    args = () if n_streams is None else (n_streams,)
+    data, _ = counted(total, CODEC_PER_CALL, codec.compress, x, *args)
     (y_q, z_q), _ = counted(total, NO_LAUNCHES, codec.decode_latents, data)
     check(np.array_equal(y_q, ref["y_in"]) and np.array_equal(z_q, ref["z_in"]),
           f"{label}: decoded latents differ from the eval forward's y_in/z_in "
@@ -885,9 +910,18 @@ def codec_case(total, codec, x, ref, dname, iname, card):
         check(x8.dtype == np.uint8 and np.abs(x8.astype(np.int32) - want8).max() <= 1,
               f"{label}: as_uint8 output beyond one level")
     bits = 8 * len(data)
-    ratio = bits / ref["bits"]
-    check(bits <= ref["bits"] * CODEC_RATE_SLACK + 8 * CODEC_FIXED_BYTES,
+    lanes = 0 if not n_streams or n_streams == 1 else n_streams
+    check(bits <= ref["bits"] * CODEC_RATE_SLACK + 8 * (CODEC_FIXED_BYTES + 8 * lanes),
           f"{label}: {bits} stream bits against {ref['bits']:.1f} analytic")
+    return data, y_q, z_q, xhat_err, xhat_note, bits / ref["bits"]
+
+
+def codec_case(total, codec, x, ref, dname, iname, card):
+    """One model on one image: correctness, then latency by stage."""
+    label = f"{dname} {iname}"
+    data, y_q, z_q, xhat_err, xhat_note, ratio = codec_round_trip(total, codec, x, ref, dname,
+                                                                  iname)
+    bits = 8 * len(data)
 
     encode_ms = median_call_ms(total, CODEC_PER_CALL, codec.compress, x)
     decode_ms = median_call_ms(total, CODEC_PER_CALL, codec.decompress, data)
@@ -1024,10 +1058,10 @@ def batch_references(model, xs, dev):
                            lambda o: torch.clamp(o["x_hat"], 0.0, 1.0)))
 
 
-def codec_batch_case(total, codec, xs, refs, dname):
+def codec_batch_case(total, codec, xs, refs, dname, iters=BATCH_ITERS):
     """compress_batch / decompress_batch of BATCH_IMAGES images: streams equal
     to compress's, exact latents, images against decompress's, and
-    images/s against one call per image (medians of BATCH_ITERS)."""
+    images/s against one call per image (medians of ``iters``)."""
     n = len(xs)
     enc_batch = dict(NO_LAUNCHES, gdn=3 * n)
     streams, _ = counted(total, enc_batch, codec.compress_batch, xs)
@@ -1058,7 +1092,7 @@ def codec_batch_case(total, codec, xs, refs, dname):
         return [codec.decompress(d) for d in streams]
 
     def median_s(expect, fn, *args):
-        return statistics.median(counted(total, expect, fn, *args)[1] for _ in range(BATCH_ITERS))
+        return statistics.median(counted(total, expect, fn, *args)[1] for _ in range(iters))
 
     r = dict(encode_batch_s=median_s(enc_batch, codec.compress_batch, xs),
              encode_single_s=median_s(dict(NO_LAUNCHES, gdn=3 * n), per_image_encode),
@@ -1104,10 +1138,13 @@ def refine_case(total, model, codec, x, dev, dname):
     return r
 
 
-def portable_case(total, model, x, ref, float_bytes, dname):
+def portable_case(total, model, x, ref, float_bytes, dname, codec_cls=JointARCodec,
+                  coder=(portable.portable_ar_encode, portable.portable_ar_decode)):
     """A card built here, saved and loaded (same hash); compress_portable's
     latents exact, its rate against the float stream's, encode and decode
-    latency; at 64x128 the native and numpy coders write the same bytes."""
+    latency; at 64x128 the native and numpy coders (``coder``: the card
+    family's encode and decode) write the same bytes."""
+    encode, decode = coder
     t0 = time.perf_counter()
     card, _ = counted(total, NO_LAUNCHES, PortableCard.build, model)
     build_s = time.perf_counter() - t0
@@ -1116,7 +1153,7 @@ def portable_case(total, model, x, ref, float_bytes, dname):
         card.save(path)
         loaded = PortableCard.load(path)
     check(loaded.hash == card.hash, f"{dname}: the loaded card's hash differs")
-    codec = JointARCodec(model, portable_card=loaded)
+    codec = codec_cls(model, portable_card=loaded)
     encode_only = dict(NO_LAUNCHES, gdn=3)
     data, _ = counted(total, encode_only, codec.compress_portable, x)
     check_latents(f"{dname} portable", counted(total, NO_LAUNCHES, codec.decode_latents, data)[0],
@@ -1131,12 +1168,12 @@ def portable_case(total, model, x, ref, float_bytes, dname):
     psi_fix = loaded.hyper_forward(z_s)
     check(np.array_equal(psi_fix, loaded.hyper_forward(z_s, native=False)),
           f"{dname}: native and numpy hyper_forward differ")
-    native = portable.portable_ar_encode(loaded, y_s, psi_fix)
-    check(native == portable.portable_ar_encode(loaded, y_s, psi_fix, native=False),
+    native = encode(loaded, y_s, psi_fix)
+    check(native == encode(loaded, y_s, psi_fix, native=False),
           f"{dname}: native and numpy portable streams differ at {PORTABLE_SMALL}")
     h, w = PORTABLE_SMALL[0] // 16, PORTABLE_SMALL[1] // 16
-    check(np.array_equal(portable.portable_ar_decode(loaded, native, psi_fix, h, w, native=False),
-                         y_s), f"{dname}: the numpy decoder misreads the native stream")
+    check(np.array_equal(decode(loaded, native, psi_fix, h, w, native=False), y_s),
+          f"{dname}: the numpy decoder misreads the native stream")
     print(f"  {dname} portable: card {r['card_hash']} built in {build_s:.2f} s, saved and loaded "
           f"(same hash); {r['bpp']:.5f} bpp, {r['over_float']:.5f}x the float stream; encode "
           f"{r['encode_ms']:.2f} ms, decode {r['decode_ms']:.2f} ms; latents exact; native = numpy "
@@ -1458,6 +1495,199 @@ def trainer_phase(dev, card, bare):
     return total, results
 
 
+# --- phase 8: the parallel-decode families -------------------------------------
+
+# family -> (model, codec, eval FLOPs, the portable card's encode and decode)
+FAMILIES = {
+    "hyperprior": (MeanScaleHyperprior, MeanScaleHyperpriorCodec, flops.hyperprior_eval_flops,
+                   (portable.portable_hp_encode, portable.portable_hp_decode)),
+    "checkerboard": (CheckerboardHierarchical, CheckerboardCodec, flops.joint_ar_eval_flops,
+                     (portable.portable_cb_encode, portable.portable_cb_decode)),
+}
+FAMILY_STREAMS = (1, 8)
+# phase 8's repeats, cut to keep it near 90 s: medians of 3 codec calls, the
+# device and z stages timed at n_streams 1 only (N lanes change the y rANS
+# alone), one timed batch call
+FAMILY_CODEC_ITERS, FAMILY_BATCH_ITERS = 3, 1
+
+
+def family_median_ms(total, expect, fn, *args):
+    """Median host-clock ms of FAMILY_CODEC_ITERS calls after one."""
+    counted(total, expect, fn, *args)
+    return 1e3 * statistics.median(counted(total, expect, fn, *args)[1]
+                                   for _ in range(FAMILY_CODEC_ITERS))
+
+
+def decode_y_host(payload, layout, args):
+    """The y rANS decode of one stream given its coder rows (the blocks in
+    stream order), as decode runs it between the parameter passes."""
+    _, mus, sigmas, weights, n_a = args
+    decs = codec_module._open_lanes(payload, layout)
+    for block in (slice(0, n_a), slice(n_a, len(mus))):
+        if block.stop > block.start:
+            codec_module._decode_block_lanes(decs, mus[block], sigmas[block],
+                                             None if weights is None else weights[block])
+    codec_module._finish(decs)
+
+
+def family_codec_case(total, codec, x, ref, dname, iname, n_streams, card, shared_stages=None):
+    """One model, one image, one stream count: correctness, then latency by
+    stage: device (analysis and its fetch; the parameter passes and their
+    fetch; synthesis) and host (the z coder; the y rANS). shared_stages:
+    the stages timed at n_streams 1, for n_streams > 1."""
+    label = f"{dname} {iname} n_streams={n_streams}"
+    data, y_q, z_q, xhat_err, xhat_note, ratio = codec_round_trip(total, codec, x, ref, dname,
+                                                                  iname, n_streams)
+    encode_ms = family_median_ms(total, CODEC_PER_CALL, codec.compress, x, n_streams)
+    decode_ms = family_median_ms(total, CODEC_PER_CALL, codec.decompress, data)
+    header = codec._header(data)
+    payload = data[codec_module._HEADER_SIZE + header[9]:]
+
+    def analysis():
+        return codec._fetch_latents(*codec._analyse_device(x)[2:])
+
+    def passes():
+        return codec._coder_args(y_q, codec._enqueue(z_q[None]))
+
+    args = passes()
+
+    def y_encode():
+        sym, mus, sigmas, weights, n_a = args
+        if n_streams == 1:
+            return rans_backend.encode_gaussian(sym, mus, sigmas, weights)
+        return codec_module._encode_lanes(sym, mus, sigmas, weights, n_a, n_streams)
+
+    stages = {
+        "encode_host_y": family_median_ms(total, NO_LAUNCHES, y_encode),
+        "decode_host_y": family_median_ms(total, NO_LAUNCHES, decode_y_host, payload, header[6],
+                                          args),
+    }
+    if n_streams == 1:
+        stages.update(
+            encode_analysis=family_median_ms(total, CODEC_PER_CALL, analysis),
+            parameter_passes=family_median_ms(total, NO_LAUNCHES, passes),
+            encode_host_z=family_median_ms(total, NO_LAUNCHES, codec._encode_z, z_q),
+            decode_host_z=family_median_ms(total, NO_LAUNCHES, codec._decode_z, data, header),
+            decode_synthesis=family_median_ms(total, CODEC_PER_CALL, codec._synthesize,
+                                              y_q[None], HEIGHT, WIDTH))
+    else:  # the stages N lanes do not change: this image's at n_streams 1
+        stages.update({k: v for k, v in shared_stages.items() if k not in stages})
+    r = dict(encode_ms=encode_ms, decode_ms=decode_ms,
+             encode_device_ms=stages["encode_analysis"] + stages["parameter_passes"],
+             encode_host_ms=stages["encode_host_z"] + stages["encode_host_y"],
+             decode_device_ms=stages["parameter_passes"] + stages["decode_synthesis"],
+             decode_host_ms=stages["decode_host_z"] + stages["decode_host_y"],
+             stages_ms=stages, stream_bytes=len(data), bpp=8 * len(data) / (HEIGHT * WIDTH),
+             analytic_bpp=ref["bits"] / (HEIGHT * WIDTH), stream_over_analytic=ratio,
+             x_hat_max_abs_diff=xhat_err)
+    print(f"  {label}: encode {encode_ms:.2f} ms (device {r['encode_device_ms']:.2f}: analysis "
+          f"{stages['encode_analysis']:.2f} + passes {stages['parameter_passes']:.2f}; host "
+          f"{r['encode_host_ms']:.2f}: z {stages['encode_host_z']:.2f} + y "
+          f"{stages['encode_host_y']:.2f}), decode {decode_ms:.2f} ms (device "
+          f"{r['decode_device_ms']:.2f}: passes + synthesis {stages['decode_synthesis']:.2f}; host "
+          f"{r['decode_host_ms']:.2f}: z {stages['decode_host_z']:.2f} + y "
+          f"{stages['decode_host_y']:.2f}); {r['bpp']:.5f} bpp, {ratio:.5f} of analytic; latents "
+          f"exact, x_hat {xhat_note} [{card}, {os.cpu_count()} host cores]", flush=True)
+    return r
+
+
+def family_numerics_check(total, codec_cls, model, x, dname):
+    """Compress with cuDNN autotuning and TF32 on, decode with both off: the
+    latents are exact, they re-encode to the same bytes, and the parameter
+    passes give the same rows; two fresh codecs write the same bytes."""
+    set_fast_numerics(True)
+    try:
+        fast = codec_cls(model)
+        data, _ = counted(total, CODEC_PER_CALL, fast.compress, x, FAMILY_STREAMS[-1])
+        check(torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.benchmark
+              and torch.backends.cuda.matmul.allow_tf32,
+              f"{dname}: the codec did not restore the caller's numerics settings")
+        (y_fast, z_fast), _ = counted(total, NO_LAUNCHES, fast.decode_latents, data)
+        rows_fast = fast._coder_args(y_fast, fast._enqueue(z_fast[None]))
+    finally:
+        set_fast_numerics(False)
+    plain = codec_cls(model)
+    (y_q, z_q), _ = counted(total, NO_LAUNCHES, plain.decode_latents, data)
+    check(np.array_equal(y_q, y_fast) and np.array_equal(z_q, z_fast),
+          f"{dname}: latents decoded with TF32 off differ from those decoded with it on")
+    again, _ = counted(total, NO_LAUNCHES, plain.compress_latents, y_q, z_q, HEIGHT, WIDTH,
+                       FAMILY_STREAMS[-1])
+    check(again == data, f"{dname}: the TF32-on stream's latents re-encode to other bytes")
+    rows = plain._coder_args(y_q, plain._enqueue(z_q[None]))
+    check(all(a is b or np.array_equal(a, b) for a, b in zip(rows, rows_fast)),
+          f"{dname}: the parameter passes depend on TF32")
+    d1, _ = counted(total, CODEC_PER_CALL, codec_cls(model).compress, x)
+    d2, _ = counted(total, CODEC_PER_CALL, codec_cls(model).compress, x)
+    check(d1 == d2, f"{dname}: two fresh codecs wrote different streams")
+    print(f"  {dname}: TF32 + autotuned compress (n_streams={FAMILY_STREAMS[-1]}) decodes exactly "
+          f"with both off (re-encodes to the same {len(data)} bytes, parameter rows bit-equal); "
+          f"two fresh codecs: equal bytes", flush=True)
+
+
+def family_codec_inputs(dev, cls):
+    """The codec's models (f32 and bf16, gained) and images, with the eval
+    forward's references, computed before the main path's counts start."""
+    images = codec_images()
+    models = {"float32": gained_model(dev, cls=cls),
+              "bfloat16": gained_model(dev, torch.bfloat16, cls=cls)}
+    xs = batch_images()
+    return (images, models, codec_references(dev, models, images), xs,
+            {dname: batch_references(model, xs, dev) for dname, model in models.items()})
+
+
+def family_codec(dev, total, card, family, inputs):
+    _, codec_cls, _, coder = FAMILIES[family]
+    images, models, refs, xs, batch_refs = inputs
+    results = {}
+    for dname, model in models.items():
+        codec = codec_cls(model)
+        results[dname] = {}
+        for iname, x in images.items():
+            one = None
+            for n in FAMILY_STREAMS:
+                r = family_codec_case(total, codec, x, refs[dname, iname], dname, iname, n, card,
+                                      one and one["stages_ms"])
+                one = one or r
+                results[dname][f"{iname} n_streams={n}"] = r
+        x, ref = images["float32"], refs[dname, "float32"]
+        family_numerics_check(total, codec_cls, model, x, dname)
+        results[dname]["batch"] = codec_batch_case(total, codec, xs, batch_refs[dname], dname,
+                                                   FAMILY_BATCH_ITERS)
+        results[dname]["refine"] = refine_case(total, model, codec, x, dev, dname)
+        results[dname]["portable"] = portable_case(
+            total, model, x, ref, results[dname]["float32 n_streams=1"]["stream_bytes"], dname,
+            codec_cls, coder)
+    return results
+
+
+def family_phase(dev, card, family):
+    """One parallel-decode family at M=128, K=3: card against CPU and the
+    codec's references, then the main path (serve, train, codec, refine)
+    with its launches counted from 0. Returns (the main path's launches,
+    results)."""
+    cls, _, eval_flops, _ = FAMILIES[family]
+    t0 = time.perf_counter()
+    print(f"  -- {family}: card against CPU, eval forward 2x256x256", flush=True)
+    parity(dev, cls)
+    inputs = family_codec_inputs(dev, cls)
+    reset_launch_counts()
+    print(f"  -- {family}: serve {HEIGHT}x{WIDTH}", flush=True)
+    forwards, serve = serve_phase(dev, card, cls)
+    print(f"  -- {family}: train, batch {TRAIN_BATCH} of {TRAIN_SIZE}x{TRAIN_SIZE}", flush=True)
+    steps, train = train_phase(dev, card, cls, eval_flops)
+    total = added(scaled(FORWARD, forwards), scaled(PER_STEP, steps))
+    check(launch_counts() == total, f"{family}: serve and train launched {launch_counts()}, "
+                                    f"not {total} ({forwards} forwards, {steps} steps)")
+    print(f"  -- {family}: codec and refine, one {HEIGHT}x{WIDTH} image", flush=True)
+    codec = family_codec(dev, total, card, family, inputs)
+    launches = launch_counts()
+    check(launches == total, f"{family}: launches {launches}, its calls counted {total}")
+    seconds = time.perf_counter() - t0
+    print(f"main path ({family}): {forwards} forwards, {steps} steps, the codec's and refine's "
+          f"calls: launches {launches}; phase 8 for {family} took {seconds:.1f} s")
+    return launches, dict(serve=serve, train=train, codec=codec, seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1530,9 +1760,19 @@ def main() -> int:
     print(f"main path (Trainer and evaluator): launches {trainer_launches}")
     print(json.dumps({"trainer": trainer_results, "card": card}))
 
+    print(f"== phase 8: the parallel-decode families, M={M} K={K} [{card}]", flush=True)
+    family_launches = {}
+    for family in FAMILIES:
+        family_launches[family], family_results = family_phase(dev, card, family)
+        print(json.dumps({family: family_results, "card": card, "cpu_count": os.cpu_count()}))
+
     for r in records:
         r["launches"] = (serve_launches[r["name"]] + train_launches[r["name"]]
-                         + codec_launches[r["name"]] + trainer_launches[r["name"]])
+                         + codec_launches[r["name"]] + trainer_launches[r["name"]]
+                         + sum(f[r["name"]] for f in family_launches.values()))
+        # every hierarchical family runs the kernels at these shapes
+        r["families"] = ["joint_ar"] + (list(FAMILIES) if r.get("path") in (
+            "serve", "train", "codec", "refine") else [])
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

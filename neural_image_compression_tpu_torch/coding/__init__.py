@@ -1,9 +1,12 @@
-"""Real bitstreams for the flagship, port of the JAX package's ``coding``:
-``JointARCodec`` (single images, batches, interleaved and tiled streams,
-portable streams), the native rANS, wavefront and portable coders it
-drives (``backend``, built from ``csrc/rans/`` with g++ at first use), the
-factorized z tables (``cdf_tables``), the integer spec of portable streams
-(``portable``) and encode-time latent refinement (``refine``)."""
+"""Real bitstreams for the hierarchical families, port of the JAX package's
+``coding``: ``JointARCodec`` (single images, batches, interleaved and tiled
+streams, portable streams), ``CheckerboardCodec`` and
+``MeanScaleHyperpriorCodec`` (the parallel-decode families: single images,
+batches, lanes, portable streams), the native rANS, wavefront and portable
+coders they drive (``backend``, built from ``csrc/rans/`` with g++ at first
+use), the factorized z tables (``cdf_tables``), the integer spec of
+portable streams (``portable``) and encode-time latent refinement
+(``refine``)."""
 
 from neural_image_compression_tpu_torch.coding.backend import (
     RansDecoder, encode_gaussian, encode_indexed,
@@ -12,11 +15,12 @@ from neural_image_compression_tpu_torch.coding.cdf_tables import (
     factorized_tables, quantize_pmf_rows,
 )
 from neural_image_compression_tpu_torch.coding.codec import (
-    JointARCodec, bitstream_bpp, stream_size,
+    CheckerboardCodec, JointARCodec, MeanScaleHyperpriorCodec, bitstream_bpp, stream_size,
 )
 from neural_image_compression_tpu_torch.coding.portable import PortableCard
 from neural_image_compression_tpu_torch.coding.refine import make_refiner, refine_latents
 
 __all__ = ["RansDecoder", "encode_gaussian", "encode_indexed", "factorized_tables",
-           "quantize_pmf_rows", "JointARCodec", "bitstream_bpp", "stream_size", "PortableCard",
+           "quantize_pmf_rows", "JointARCodec", "CheckerboardCodec",
+           "MeanScaleHyperpriorCodec", "bitstream_bpp", "stream_size", "PortableCard",
            "make_refiner", "refine_latents"]

@@ -1,8 +1,8 @@
 """Build and ctypes bindings of the native coders (``csrc/rans/``): the
 generic rANS stream coder, the autoregressive wavefront codec (one stream
-or N interleaved) and the portable integer wavefront codec, port of
-coding/backend.py (the subset the joint-AR codec calls; the portable
-coder's checkerboard and hyperprior entry points are not bound).
+or N interleaved) and the portable integer codec of the three hierarchical
+families (wavefront, checkerboard, hyperprior), port of coding/backend.py
+(the subset the port's codecs call).
 
 The library is compiled at first use with ``g++ -O3 -march=native`` into
 ``librans-<hash>.so`` under the package's ``_build/`` (a directory git
@@ -133,10 +133,13 @@ def get_lib() -> ctypes.CDLL:
             i64p, c_int]                               # exp LUT
         lib.arport_destroy.restype = None
         lib.arport_destroy.argtypes = [c_void_p]
-        lib.arport_encode.restype = c_int
-        lib.arport_encode.argtypes = [c_void_p, i32p, i64p, c_int, c_int, u8p, c_int]
-        lib.arport_decode.restype = c_int
-        lib.arport_decode.argtypes = [c_void_p, u8p, c_int, i64p, c_int, c_int, i32p]
+        for family in ("", "_cb", "_hp"):  # wavefront, checkerboard, hyperprior
+            encode = getattr(lib, "arport_encode" + family)
+            decode = getattr(lib, "arport_decode" + family)
+            encode.restype = c_int
+            encode.argtypes = [c_void_p, i32p, i64p, c_int, c_int, u8p, c_int]
+            decode.restype = c_int
+            decode.argtypes = [c_void_p, u8p, c_int, i64p, c_int, c_int, i32p]
         lib.arport_psi.restype = None
         lib.arport_psi.argtypes = [i16p, i64p, c_int, c_int, i64p, c_int, i64p]
         lib.arport_hyper_create.restype = c_void_p
@@ -399,9 +402,10 @@ def _check_streams(n_streams: int) -> None:
 
 
 class ArPortableCoder:
-    """Native integer wavefront codec over a ``portable.PortableCard``
+    """Native integer codec over a ``portable.PortableCard``
     (``csrc/rans/ar_portable.cc``): the hyper-decoder, the layer-1 psi
-    accumulators and the wavefront coder, bit-identical to the numpy spec in
+    accumulators and the coder of the card's family (wavefront,
+    checkerboard or hyperprior), bit-identical to the numpy spec in
     ``coding/portable.py`` (exact integer arithmetic on both)."""
 
     def __init__(self, card):
@@ -514,8 +518,7 @@ class ArPortableCoder:
             raise ValueError(f"p_acc {p_acc.shape} is not ({h * w}, {self.hidden})")
         return p_acc
 
-    def encode(self, y_q: np.ndarray, p_acc: np.ndarray) -> bytes:
-        """y_q: (H, W, M) integer-valued; p_acc: (H*W, hidden) int64."""
+    def _encode(self, entry, y_q: np.ndarray, p_acc: np.ndarray) -> bytes:
         y = np.ascontiguousarray(y_q, np.int32)
         if y.ndim != 3 or y.shape[2] != self.M:
             raise ValueError(f"y_q {y.shape} is not (H, W, {self.M})")
@@ -523,23 +526,45 @@ class ArPortableCoder:
         p_acc = self._p_acc(p_acc, h, w)
         cap = max(1024, h * w * self.M * 8 + 64)
         out = np.empty(cap, np.uint8)
-        ln = self._lib.arport_encode(self._handle, _ptr(y, ctypes.c_int32),
-                                     _ptr(p_acc, ctypes.c_int64), h, w,
-                                     _ptr(out, ctypes.c_uint8), cap)
+        ln = entry(self._handle, _ptr(y, ctypes.c_int32), _ptr(p_acc, ctypes.c_int64), h, w,
+                   _ptr(out, ctypes.c_uint8), cap)
         _checked_length(ln)
         return out[:ln].tobytes()
 
-    def decode(self, data: bytes, p_acc: np.ndarray, h: int, w: int) -> np.ndarray:
-        """(h, w, M) float32 latents from one portable stream."""
+    def _decode(self, entry, data: bytes, p_acc: np.ndarray, h: int, w: int) -> np.ndarray:
         p_acc = self._p_acc(p_acc, h, w)
         buf = np.frombuffer(data, np.uint8)
         y_out = np.empty((h, w, self.M), np.int32)
-        rc = self._lib.arport_decode(self._handle, _ptr(buf, ctypes.c_uint8), len(data),
-                                     _ptr(p_acc, ctypes.c_int64), h, w,
-                                     _ptr(y_out, ctypes.c_int32))
+        rc = entry(self._handle, _ptr(buf, ctypes.c_uint8), len(data),
+                   _ptr(p_acc, ctypes.c_int64), h, w, _ptr(y_out, ctypes.c_int32))
         if rc != 0:
             raise ValueError("corrupt or truncated portable AR stream")
         return y_out.astype(np.float32)
+
+    def encode(self, y_q: np.ndarray, p_acc: np.ndarray) -> bytes:
+        """Wavefront encode (family-0 cards). y_q: (H, W, M) integer-valued;
+        p_acc: (H*W, hidden) int64."""
+        return self._encode(self._lib.arport_encode, y_q, p_acc)
+
+    def decode(self, data: bytes, p_acc: np.ndarray, h: int, w: int) -> np.ndarray:
+        """(h, w, M) float32 latents from one wavefront stream."""
+        return self._decode(self._lib.arport_decode, data, p_acc, h, w)
+
+    def encode_cb(self, y_q: np.ndarray, p_acc: np.ndarray) -> bytes:
+        """Checkerboard two-pass encode (family-1 cards): anchors, then
+        non-anchors, each row-major. Arguments as ``encode``'s."""
+        return self._encode(self._lib.arport_encode_cb, y_q, p_acc)
+
+    def decode_cb(self, data: bytes, p_acc: np.ndarray, h: int, w: int) -> np.ndarray:
+        return self._decode(self._lib.arport_decode_cb, data, p_acc, h, w)
+
+    def encode_hp(self, y_q: np.ndarray, p_acc: np.ndarray) -> bytes:
+        """Hyperprior one-pass encode (family-2 cards): every position from
+        psi alone, row-major. Arguments as ``encode``'s."""
+        return self._encode(self._lib.arport_encode_hp, y_q, p_acc)
+
+    def decode_hp(self, data: bytes, p_acc: np.ndarray, h: int, w: int) -> np.ndarray:
+        return self._decode(self._lib.arport_decode_hp, data, p_acc, h, w)
 
     def __del__(self):
         if getattr(self, "_handle", None):

@@ -1,41 +1,64 @@
-"""Real bitstream codec for the joint autoregressive hierarchical model, port
-of coding/codec.py's ``JointARCodec``.
+"""Real bitstream codecs of the hierarchical families, port of
+coding/codec.py's ``JointARCodec``, ``CheckerboardCodec`` and
+``MeanScaleHyperpriorCodec``.
 
-  * z (hyper-latents): per-channel quantized CDF tables from the factorized
-    bottleneck (``cdf_tables.factorized_tables``), one indexed rANS stream.
-  * y (latents): coded under the per-symbol Gaussian (K=1) or Gaussian
-    mixture that the hyper-synthesis psi and the masked 5x5 context
-    predict, by the native wavefront codec (``csrc/rans/ar_wavefront.cc``):
-    for the mask-A context, waves t = 3i + j are dependency-safe, so decode
-    runs 3(h-1) + w waves of about w/3 pixels each. One stream, N streams
-    interleaved symbol by symbol (``n_streams``: the exact context, each
-    wave's streams decoded on threads), or independent tiles (``tiles``).
-  * portable streams (kind 4): the integer path of ``coding.portable``, for
-    streams that must decode on another machine or in the JAX package.
+  * z (hyper-latents), every family: per-channel quantized CDF tables from
+    the factorized bottleneck (``cdf_tables.factorized_tables``), one
+    indexed rANS stream.
+  * y (latents), joint-AR (``JointARCodec``): coded under the per-symbol
+    Gaussian (K=1) or Gaussian mixture that the hyper-synthesis psi and the
+    masked 5x5 context predict, by the native wavefront codec
+    (``csrc/rans/ar_wavefront.cc``): for the mask-A context, waves
+    t = 3i + j are dependency-safe, so decode runs 3(h-1) + w waves of about
+    w/3 pixels each. One stream, N streams interleaved symbol by symbol
+    (``n_streams``: the exact context, each wave's streams decoded on
+    threads), or independent tiles (``tiles``).
+  * y, checkerboard (``CheckerboardCodec``): two device passes give every
+    entropy parameter (the anchors' from the hyperprior alone, then the
+    non-anchors' from the context conv over the decoded anchors), and one
+    rANS stream holds the anchors, then the non-anchors, each row-major,
+    channel fastest.
+  * y, hyperprior (``MeanScaleHyperpriorCodec``): one device pass gives
+    every entropy parameter from z, and one rANS stream holds y row-major,
+    channel fastest.
+  * For the two parallel families, ``n_streams=N`` splits each block of
+    symbols over N lanes (symbol s of a block to lane s % N): a partition,
+    the entropy parameters unchanged, decoded on N threads.
+  * portable streams (kinds 4, 8, 10): the integer path of
+    ``coding.portable``, for streams that must decode on another machine or
+    in the JAX package.
 
-The analysis, hyper-synthesis and synthesis transforms run on the model's
-device; the z tables' quantization, the rANS coder and the wavefront run on
-the host, in C++. ``compress_batch`` / ``decompress_batch`` code images in
-parallel host threads, with every device program on the calling thread.
+The analysis, hyper-synthesis, parameter passes and synthesis run on the
+model's device; the z tables' quantization, the rANS coder and the
+wavefront run on the host, in C++. ``compress_batch`` /
+``decompress_batch`` code images in parallel host threads, with every
+device program on the calling thread.
 
 Determinism contract: the coding parameters must be bit-identical at encode
-and decode time. Both sides derive them in the same native host loop from
-the same psi, and psi comes from one device program on the integer z, run
-under fixed numerics (``utils.device.fixed_numerics``: deterministic cuDNN
-algorithms, no TF32) and fetched as float16. The analysis and synthesis
-results are the coded symbols and the reconstruction, not inputs to the
-coder, so they run under the caller's settings. Float streams are
-self-consistent per build and device: a stream of this package is not
-expected to decode in the JAX package, or the reverse. Portable streams
-are: with the same card, both packages write and read the same bytes.
+and decode time. The joint-AR codec derives them in the same native host
+loop from the same psi; the parallel families derive them on the device.
+Either way every program that feeds the coder (psi, the parameter passes,
+the z tables) runs batch-1, on a fresh contiguous float32 input built the
+same way on both sides (z_q; the anchor-filled grid), under fixed numerics
+(``utils.device.fixed_numerics``: deterministic cuDNN algorithms, no
+autotuning, no TF32), and crosses to the host as float16 (exactly upcast).
+The analysis and synthesis results are the coded symbols and the
+reconstruction, not inputs to the coder, so they run under the caller's
+settings. Float streams are self-consistent per build and device: a stream
+of this package is not expected to decode in the JAX package, or the
+reverse. Portable streams are: with the same card, both packages write and
+read the same bytes.
 
 Bitstream layout (version 1), the JAX package's:
-  header ``<4sBBHHHHhhII``: magic 'NIC1', kind (1 float, 4 portable), K, M,
-  H, W (the true image size), layout, zmin, zmax, len_z, len_y; for kind 4
-  the card's 8-byte hash; then the z stream, then the y payload. Layout:
-  (ta << 8) | tb for ta x tb tiles (1 x 1: one stream; more: a ``<nI``
-  length table, then the tiles' streams in raster order), or 0x8000 | N
-  for N interleaved streams.
+  header ``<4sBBHHHHhhII``: magic 'NIC1', kind (1 joint-AR, 7 checkerboard,
+  9 hyperprior; 4, 8 and 10 their portable streams), K, M, H, W (the true
+  image size), layout, zmin, zmax, len_z, len_y; for a portable kind the
+  card's 8-byte hash; then the z stream, then the y payload. Layout,
+  joint-AR: (ta << 8) | tb for ta x tb tiles (1 x 1: one stream, also of a
+  portable stream; more: a ``<nI`` length table, then the tiles' streams in
+  raster order), or 0x8000 | N for N interleaved streams. Checkerboard and
+  hyperprior: 0 for one stream (also portable), or 0x8000 | N for N lanes (a
+  ``<NI`` length table, then the lanes).
 """
 
 import os
@@ -49,9 +72,13 @@ import torch
 from neural_image_compression_tpu_torch.coding import backend
 from neural_image_compression_tpu_torch.coding.cdf_tables import factorized_tables
 from neural_image_compression_tpu_torch.coding.portable import (
-    PortableCard, portable_ar_decode, portable_ar_encode,
+    PortableCard, portable_ar_decode, portable_ar_encode, portable_cb_decode, portable_cb_encode,
+    portable_hp_decode, portable_hp_encode,
 )
 from neural_image_compression_tpu_torch.data.datasets import pad_to_multiple
+from neural_image_compression_tpu_torch.models.checkerboard import (
+    CB_CTX_POSITIONS, checkerboard_mask,
+)
 from neural_image_compression_tpu_torch.models.joint_ar import _nchw, _nhwc
 from neural_image_compression_tpu_torch.ops.masked_conv import causal_positions
 from neural_image_compression_tpu_torch.utils.device import fixed_numerics
@@ -61,14 +88,22 @@ _HEADER = "<4sBBHHHHhhII"
 _HEADER_SIZE = struct.calcsize(_HEADER)
 _KIND_JOINT = 1
 _KIND_JOINT_PORTABLE = 4
+_KIND_CHECKERBOARD = 7
+_KIND_CHECKERBOARD_PORTABLE = 8
+_KIND_HYPERPRIOR = 9
+_KIND_HYPERPRIOR_PORTABLE = 10
+_PORTABLE_KINDS = (_KIND_JOINT_PORTABLE, _KIND_CHECKERBOARD_PORTABLE, _KIND_HYPERPRIOR_PORTABLE)
 _LAYOUT_ONE_TILE = (1 << 8) | 1
+_LAYOUT_ONE_STREAM = 0  # the parallel families' single stream
 _LAYOUT_INTERLEAVED = 0x8000
 _CARD_HASH_SIZE = 8
 # x16 analysis and x4 hyper-analysis downsampling
 _MULTIPLE = 64
-# psi crosses to the host in float16 (half the (h, w, 2M) download); encode
-# and decode run the same program and upcast identically (exactly)
+# psi and the parallel families' entropy parameters cross to the host in
+# float16 (half the download); encode and decode run the same program and
+# upcast identically (exactly)
 _PSI_FETCH = torch.float16
+_PARAM_FETCH = torch.float16
 
 # Causal context of the 5x5 mask-A conv, derived from the model's own mask
 # (raster order): the host weights below and the hard-coded gather offsets
@@ -169,22 +204,31 @@ def bitstream_bpp(data: bytes, img_h: int, img_w: int) -> float:
 
 
 class _HostParamNets:
-    """The masked context conv and the entropy-parameter net in the native
-    coder's layout, float32, from the model's parameters: ctx_w (12M, 2M)
-    stacks the (M, 2M) input-by-output taps in ``CTX_POSITIONS`` order;
-    each 1x1 layer is (in, out); for K > 1 the last layer's columns go from
-    the model's (kind, k, m) order to (kind, m, k), so the mixture
-    parameters come out (n, M, K)-contiguous."""
+    """A family's context conv and entropy-parameter net in the native
+    coders' layout, float32, from the model's parameters: ctx_w (12M, 2M)
+    stacks the (M, 2M) input-by-output taps of the context's 12 live
+    positions (``CTX_POSITIONS`` for the joint-AR wavefront,
+    ``CB_CTX_POSITIONS`` for the checkerboard; empty (0, 0) for the
+    context-free hyperprior); each 1x1 layer is (in, out); for K > 1 the
+    last layer's columns go from the model's (kind, k, m) order to
+    (kind, m, k), so the mixture parameters come out (n, M, K)-contiguous.
+    The wavefront codec codes with these; the portable cards quantize them."""
 
-    def __init__(self, model):
+    def __init__(self, model, family: str = "wavefront"):
         def host(t: torch.Tensor) -> np.ndarray:
             return t.detach().to("cpu", torch.float32).numpy()
 
         M, K = model.latent_channels, model.K
-        ctx = model.context_model.MaskedConv2d_0
-        kernel = host(ctx.weight)  # (2M, M, 5, 5)
-        self.ctx_w = np.concatenate([kernel[:, :, r, c].T for (r, c) in CTX_POSITIONS], axis=0)
-        self.ctx_bias = np.ascontiguousarray(host(ctx.bias))
+        if family == "hyperprior":
+            self.ctx_w = np.zeros((0, 0), np.float32)
+            self.ctx_bias = np.zeros((0,), np.float32)
+        else:
+            ctx, positions = ((model.context_model.MaskedConv2d_0, CTX_POSITIONS)
+                              if family == "wavefront"
+                              else (model.context_model.Conv2d_0, CB_CTX_POSITIONS))
+            kernel = host(ctx.weight)  # (2M, M, 5, 5)
+            self.ctx_w = np.concatenate([kernel[:, :, r, c].T for (r, c) in positions], axis=0)
+            self.ctx_bias = np.ascontiguousarray(host(ctx.bias))
         self.ep = []
         for name in ("Conv2d_0", "Conv2d_1", "Conv2d_2"):
             conv = getattr(model.entropy_parameters, name)
@@ -230,22 +274,22 @@ def _ar_decode_latents(nets: _HostParamNets, data: bytes, psi: np.ndarray,
     return nets.native_coder().decode(data, psi, h, w)
 
 
-def _read_header(data: bytes):
-    """Parse and check a stream's header: kind 1 (float) or 4 (portable,
-    one tile), the layout word, and a length that matches the header's
-    (a portable stream carries its card's 8-byte hash after the header)."""
+def _read_header(data: bytes, kinds=(_KIND_JOINT, _KIND_JOINT_PORTABLE), name: str = "joint-AR"):
+    """Parse and check a stream's header: its kind (one of ``kinds``: the
+    family's float and portable kinds), the layout word's stream count, the
+    image size, z's range and a length that matches the header's (a portable
+    stream carries its card's 8-byte hash after the header)."""
     if len(data) < _HEADER_SIZE:
         raise ValueError(f"truncated stream: {len(data)} bytes, header needs {_HEADER_SIZE}")
     header = struct.unpack(_HEADER, data[:_HEADER_SIZE])
     magic, kind, _, _, img_h, img_w, layout, zmin, zmax, len_z, len_y = header
     if magic != _MAGIC:
         raise ValueError(f"not a NIC1 stream (magic {magic!r})")
-    if kind not in (_KIND_JOINT, _KIND_JOINT_PORTABLE):
-        raise ValueError(f"stream kind {kind} is not a joint-AR stream (kind 1, or 4 portable)")
+    if kind not in kinds:
+        raise ValueError(f"stream kind {kind} is not a {name} stream (kind {kinds[0]}, or "
+                         f"{kinds[1]} portable)")
     if layout & _LAYOUT_INTERLEAVED and layout & 0xFF == 0:
         raise ValueError("corrupt header: interleaved stream count 0")
-    if kind == _KIND_JOINT_PORTABLE and layout != _LAYOUT_ONE_TILE:
-        raise ValueError(f"corrupt header: portable stream with layout {layout:#06x}")
     if img_h == 0 or img_w == 0:
         raise ValueError(f"corrupt header: image size {img_h}x{img_w}")
     if zmin > zmax:
@@ -260,14 +304,13 @@ def _read_header(data: bytes):
 def _body_start(header) -> int:
     """Offset of the z stream: after the header, and the card hash of a
     portable stream."""
-    return _HEADER_SIZE + (_CARD_HASH_SIZE if header[1] == _KIND_JOINT_PORTABLE else 0)
+    return _HEADER_SIZE + (_CARD_HASH_SIZE if header[1] in _PORTABLE_KINDS else 0)
 
 
 def _check_layout(tiles, n_streams: int) -> None:
     if tiles is not None and n_streams != 1:
         raise ValueError("n_streams and tiles are exclusive")
-    if not 1 <= n_streams <= 255:
-        raise ValueError(f"n_streams must be in 1..255, got {n_streams}")
+    backend._check_streams(n_streams)
     # the layout word packs (ta << 8) | tb; bit 15 flags interleaved streams
     if tiles is not None and not (1 <= tiles[0] <= 127 and 1 <= tiles[1] <= 255):
         raise ValueError(f"tiles are limited to 127 x 255, got {tiles}")
@@ -278,15 +321,15 @@ def _tile_bounds(n: int, parts: int):
     return list(zip(edges[:-1], edges[1:]))
 
 
-def _split_tiles(payload: bytes, n: int):
-    """A tiled y payload's n streams: a ``<nI`` length table, then the
-    streams back to back, which must fill the payload exactly."""
+def _split_streams(payload: bytes, n: int, what: str = "tiled"):
+    """A y payload's n streams (tiles or lanes): a ``<nI`` length table,
+    then the streams back to back, which must fill the payload exactly."""
     if len(payload) < 4 * n:
-        raise ValueError(f"corrupt tiled stream: {len(payload)} bytes hold no {n}-entry "
+        raise ValueError(f"corrupt {what} stream: {len(payload)} bytes hold no {n}-entry "
                          f"length table")
     lens = struct.unpack(f"<{n}I", payload[:4 * n])
     if 4 * n + sum(lens) != len(payload):
-        raise ValueError(f"corrupt tiled stream: the length table covers {4 * n + sum(lens)} "
+        raise ValueError(f"corrupt {what} stream: the length table covers {4 * n + sum(lens)} "
                          f"bytes of a {len(payload)}-byte payload")
     offs = np.cumsum([4 * n, *lens])
     return [payload[offs[i]:offs[i + 1]] for i in range(n)]
@@ -296,18 +339,41 @@ def _pool_size(jobs: int, workers=None) -> int:
     return workers or max(1, min(jobs, os.cpu_count() or 1))
 
 
-class JointARCodec:
-    """Real encode/decode for ``models.JointAutoregressiveHierarchical``. The
-    device programs run where the model's parameters are (the card unless
-    the model was built with ``device="cpu"``); the coders run on the host.
-    portable_card: the ``portable.PortableCard`` for portable streams
-    (built from the model at first use when none is given)."""
+def _pool_map(fn, jobs, workers=None) -> list:
+    """fn over jobs on host threads (the native coders release the GIL)."""
+    jobs = list(jobs)
+    if _pool_size(len(jobs), workers) == 1:
+        return [fn(j) for j in jobs]
+    with ThreadPoolExecutor(_pool_size(len(jobs), workers)) as pool:
+        return list(pool.map(fn, jobs))
+
+
+def _fresh_f32(a, device) -> torch.Tensor:
+    """A new contiguous float32 tensor on the device holding ``a`` (a numpy
+    array or a tensor on any device). The programs that feed the coder
+    take their inputs through this on both sides, so encode and decode
+    give them one memory layout (a view with other strides could select
+    another cuDNN algorithm)."""
+    src = torch.as_tensor(a)
+    out = torch.empty(tuple(src.shape), dtype=torch.float32, device=device)
+    return out.copy_(src)
+
+
+class _Codec:
+    """What the three families' codecs share: the analysis and synthesis
+    programs, the z stream and its tables, the header and the portable
+    streams. A family sets its kinds, its name, the layout word of its
+    portable streams, its card's coder functions, and ``decode_latents``'s
+    float half (``_decode_float``)."""
+
+    KINDS: Tuple[int, int]
+    NAME: str
+    PORTABLE_LAYOUT: int
 
     def __init__(self, model, portable_card=None):
         self.model = model
         self.M, self.K = model.latent_channels, model.K
         self.device = next(model.parameters()).device
-        self._host_nets = _HostParamNets(model)
         self._z_cache = {}
         self._portable_card = portable_card
 
@@ -330,17 +396,6 @@ class JointARCodec:
             y_c, z_q = _analysis(self.model, x)
             return torch.round(y_c), z_q
 
-    def _psi_device(self, z_q) -> torch.Tensor:
-        """Hyper-synthesis of integer z (1, hz, wz, M) -> psi (1, h, w, 2M)
-        float16 on the device, under fixed numerics."""
-        z = torch.as_tensor(z_q, dtype=torch.float32, device=self.device).contiguous()
-        with torch.inference_mode(), fixed_numerics():
-            return _nhwc(self.model.hyper_decoder(_nchw(z))).to(_PSI_FETCH)
-
-    def _psi(self, z_q) -> np.ndarray:
-        """psi (h, w, 2M) float32 on the host for z_q (1, hz, wz, M)."""
-        return _psi_to_host(self._psi_device(z_q))
-
     def _synthesize(self, y_hat: np.ndarray, img_h: int, img_w: int,
                     as_uint8: bool = False) -> np.ndarray:
         """(B, h, w, M) integer latents -> (B, img_h, img_w, 3), clipped to
@@ -360,17 +415,6 @@ class JointARCodec:
             self._z_cache[key] = factorized_tables(self.model, zmin, zmax)
         return self._z_cache[key]
 
-    # -- encode ----------------------------------------------------------
-    def _analyse_image(self, x):
-        """The device half of compress: (img_h, img_w, y_q (h, w, M),
-        z_q (hz, wz, M), psi (h, w, 2M)) on the host."""
-        img_h, img_w, x_dev, y16, z_dev = self._analyse_device(x)
-        # psi is enqueued on the device's z before any fetch: the integer z
-        # values are the ones decode uploads, and the fetches overlap it
-        psi_dev = self._psi_device(z_dev)
-        y_q, z_q = self._fetch_latents(x_dev, y16, z_dev)
-        return img_h, img_w, y_q, z_q, _psi_to_host(psi_dev)
-
     def _analyse_device(self, x):
         """Upload one padded image and enqueue the analysis: (img_h, img_w,
         x on the device, y16, z_q on the device)."""
@@ -385,37 +429,7 @@ class JointARCodec:
         y_q = _fetch_y16(y16, lambda: self._analysis_f32(x_dev)[0].cpu().numpy())[0]
         return y_q, z_dev.cpu().numpy()[0]
 
-    def compress(self, x, tiles=None, n_streams: int = 1) -> bytes:
-        """x: (1, H, W, 3) float32 in [0, 1] or uint8, any size (padded to
-        multiples of 64 here, cropped back by decompress). uint8 goes to the
-        device as is and is divided by 255 there.
-
-        n_streams=N (1..255): N-way interleaved rANS. Symbol s goes to stream
-        s % N with the same entropy parameters and context, for at most 8
-        more bytes a stream (its length-table entry and rANS flush), and
-        decode pulls the N streams of each wave on N threads.
-
-        tiles=(a, b) (at most 127 x 255): a x b independent AR tiles (the
-        context resets at tile borders), each its own stream, decoded
-        concurrently, with spatial random access; border pixels lose their
-        causal context, so the rate grows. Exclusive with n_streams. For
-        many images, compress_batch codes images in parallel at no rate
-        cost."""
-        _check_layout(tiles, n_streams)
-        img_h, img_w, y_q, z_q, psi = self._analyse_image(x)
-        return self._encode_from(y_q, z_q, psi, img_h, img_w, tiles, n_streams)
-
-    def compress_latents(self, y_q, z_q, img_h: int, img_w: int, tiles=None,
-                         n_streams: int = 1) -> bytes:
-        """Encode given integer latent grids (numpy arrays or tensors, e.g.
-        from ``coding.refine``) for an img_h x img_w image. The stream is
-        compress()'s for the same latents: the coding parameters derive only
-        from z_q (through the same psi program) and the coded y context."""
-        _check_layout(tiles, n_streams)
-        y_q, z_q = _as_latent_grids(y_q, z_q, img_h, img_w, self.M)
-        return self._encode_from(y_q, z_q, self._psi(z_q[None]), img_h, img_w, tiles,
-                                 n_streams)
-
+    # -- the z stream and the header -----------------------------------------
     def _encode_z(self, z_q: np.ndarray, tables=None):
         """z_q (hz, wz, M) -> (zmin, zmax, bytes): one indexed rANS stream
         under the factorized tables for [zmin, zmax] (or the given ones)."""
@@ -425,26 +439,47 @@ class JointARCodec:
         z_index = np.tile(np.arange(self.M, dtype=np.int32), z_sym.shape[0] // self.M)
         return zmin, zmax, backend.encode_indexed(z_sym, z_index, cdfs, offsets, sizes)
 
-    def _encode_from(self, y_q: np.ndarray, z_q: np.ndarray, psi: np.ndarray,
-                     img_h: int, img_w: int, tiles=None, n_streams: int = 1) -> bytes:
-        """The host half of compress: the z stream, then the wavefront-
-        ordered y stream (one, N interleaved, or one a tile). Calls no
-        device program once the z tables for z_q's range are cached."""
-        zmin, zmax, z_bytes = self._encode_z(z_q)
-        if n_streams > 1:
-            layout = _LAYOUT_INTERLEAVED | n_streams
-            y_payload = self._host_nets.native_coder().encode_n(y_q, psi, n_streams)
+    def _pack(self, kind: int, img_h: int, img_w: int, layout: int, zmin: int, zmax: int,
+              z_bytes: bytes, y_payload: bytes, card_hash: bytes = b"") -> bytes:
+        return struct.pack(_HEADER, _MAGIC, kind, self.K, self.M, img_h, img_w, layout, zmin,
+                           zmax, len(z_bytes), len(y_payload)) + card_hash + z_bytes + y_payload
+
+    def _header(self, data: bytes):
+        """The stream's header, checked against this codec's family and
+        model (and a portable stream's hash against its card)."""
+        header = _read_header(data, self.KINDS, self.NAME)
+        K, M = header[2], header[3]
+        if (K, M) != (self.K, self.M):
+            raise ValueError(f"stream is for K={K}, M={M}; this codec's model has "
+                             f"K={self.K}, M={self.M}")
+        self._check_layout_word(header[1], header[6])
+        if header[1] == self.KINDS[1] and \
+                data[_HEADER_SIZE:_HEADER_SIZE + _CARD_HASH_SIZE] != self.portable_card().hash:
+            raise ValueError(f"portable stream was encoded with a different card — load the "
+                             f"encoder's card file (PortableCard.load) and pass it via "
+                             f"{type(self).__name__}(portable_card=...)")
+        return header
+
+    def _check_layout_word(self, kind: int, layout: int) -> None:
+        if kind == self.KINDS[1] and layout != self.PORTABLE_LAYOUT:
+            raise ValueError(f"corrupt header: portable stream with layout {layout:#06x}")
+
+    def _decode_z(self, data: bytes, header) -> np.ndarray:
+        """The host half of decode's first step: z_q (hz, wz, M) float32."""
+        img_h, img_w, zmin, zmax, len_z = header[4], header[5], header[7], header[8], header[9]
+        hz, wz = _round_up(img_h, _MULTIPLE) // 64, _round_up(img_w, _MULTIPLE) // 64
+        if header[1] == self.KINDS[1]:
+            card = self.portable_card()
+            cdfs, offsets, sizes = card.z_cdfs, card.z_offsets, card.z_sizes
         else:
-            ta, tb = tiles or (1, 1)
-            layout = (ta << 8) | tb
-            h, w = y_q.shape[:2]
-            streams = [_ar_encode_latents(self._host_nets, y_q[r0:r1, c0:c1], psi[r0:r1, c0:c1])
-                       for r0, r1 in _tile_bounds(h, ta) for c0, c1 in _tile_bounds(w, tb)]
-            y_payload = streams[0] if len(streams) == 1 else (
-                struct.pack(f"<{len(streams)}I", *map(len, streams)) + b"".join(streams))
-        header = struct.pack(_HEADER, _MAGIC, _KIND_JOINT, self.K, self.M, img_h, img_w,
-                             layout, zmin, zmax, len(z_bytes), len(y_payload))
-        return header + z_bytes + y_payload
+            cdfs, offsets, sizes = self._z_tables(zmin, zmax)
+        start = _body_start(header)
+        z_index = np.tile(np.arange(self.M, dtype=np.int32), hz * wz)
+        z_sym = _decode_indexed_checked(data[start:start + len_z], z_index, cdfs, offsets, sizes)
+        return z_sym.reshape(hz, wz, self.M).astype(np.float32)
+
+    def _payload(self, data: bytes, header) -> bytes:
+        return data[_body_start(header) + header[9]:]
 
     # -- portable streams ---------------------------------------------------
     def portable_card(self) -> PortableCard:
@@ -477,42 +512,134 @@ class JointARCodec:
                               img_w: int) -> bytes:
         card = self.portable_card()
         _, _, z_bytes = self._encode_z(z_q, (card.z_cdfs, card.z_offsets, card.z_sizes))
-        y_payload = portable_ar_encode(card, y_q, card.hyper_forward(z_q))
-        header = struct.pack(_HEADER, _MAGIC, _KIND_JOINT_PORTABLE, self.K, self.M, img_h,
-                             img_w, _LAYOUT_ONE_TILE, card.zmin, card.zmax, len(z_bytes),
-                             len(y_payload))
-        return header + card.hash + z_bytes + y_payload
+        y_payload = self._portable_encode(card, y_q, card.hyper_forward(z_q))
+        return self._pack(self.KINDS[1], img_h, img_w, self.PORTABLE_LAYOUT, card.zmin,
+                          card.zmax, z_bytes, y_payload, card.hash)
 
     # -- decode ----------------------------------------------------------
-    def _header(self, data: bytes):
-        """The stream's header, checked against this codec's model (and a
-        portable stream's hash against its card)."""
-        header = _read_header(data)
-        K, M = header[2], header[3]
-        if (K, M) != (self.K, self.M):
-            raise ValueError(f"stream is for K={K}, M={M}; this codec's model has "
-                             f"K={self.K}, M={self.M}")
-        if header[1] == _KIND_JOINT_PORTABLE and \
-                data[_HEADER_SIZE:_HEADER_SIZE + _CARD_HASH_SIZE] != self.portable_card().hash:
-            raise ValueError("portable stream was encoded with a different card — load the "
-                             "encoder's card file (PortableCard.load) and pass it via "
-                             "JointARCodec(portable_card=...)")
-        return header
-
-    def _decode_z(self, data: bytes, header) -> np.ndarray:
-        """The host half of decode's first step: z_q (hz, wz, M) float32."""
-        img_h, img_w, zmin, zmax, len_z = header[4], header[5], header[7], header[8], header[9]
-        hz, wz = _round_up(img_h, _MULTIPLE) // 64, _round_up(img_w, _MULTIPLE) // 64
-        if header[1] == _KIND_JOINT_PORTABLE:
+    def decode_latents(self, data: bytes) -> Tuple[np.ndarray, np.ndarray]:
+        """(y_q (h, w, M), z_q (hz, wz, M)) float32 from a stream of any
+        layout, float or portable."""
+        header = self._header(data)
+        img_h, img_w = header[4], header[5]
+        z_q = self._decode_z(data, header)
+        h, w = _round_up(img_h, _MULTIPLE) // 16, _round_up(img_w, _MULTIPLE) // 16
+        payload = self._payload(data, header)
+        if header[1] == self.KINDS[1]:
             card = self.portable_card()
-            cdfs, offsets, sizes = card.z_cdfs, card.z_offsets, card.z_sizes
-        else:
-            cdfs, offsets, sizes = self._z_tables(zmin, zmax)
-        start = _body_start(header)
-        z_index = np.tile(np.arange(self.M, dtype=np.int32), hz * wz)
-        z_sym = _decode_indexed_checked(data[start:start + len_z], z_index, cdfs, offsets, sizes)
-        return z_sym.reshape(hz, wz, self.M).astype(np.float32)
+            return self._portable_decode(card, payload, card.hyper_forward(z_q), h, w), z_q
+        return self._decode_float(payload, header, z_q, h, w), z_q
 
+    def decompress(self, data: bytes, as_uint8: bool = False) -> np.ndarray:
+        """(1, H, W, 3) at the stream's true size: float32 clipped to
+        [0, 1], or uint8 with as_uint8=True (clipped, scaled and rounded on
+        the device, so only uint8 pixels cross to the host)."""
+        y_hat, _ = self.decode_latents(data)
+        img_h, img_w = stream_size(data)
+        return self._synthesize(y_hat[None], img_h, img_w, as_uint8)
+
+    def _batch_headers(self, datas):
+        """The checked headers of B float streams of one image size."""
+        heads = [self._header(d) for d in datas]
+        if not heads:
+            raise ValueError("decompress_batch needs at least one stream")
+        img_h, img_w = heads[0][4], heads[0][5]
+        if any((hd[4], hd[5]) != (img_h, img_w) for hd in heads):
+            raise ValueError("decompress_batch needs streams of one image size")
+        return heads
+
+
+class JointARCodec(_Codec):
+    """Real encode/decode for ``models.JointAutoregressiveHierarchical``. The
+    device programs run where the model's parameters are (the card unless
+    the model was built with ``device="cpu"``); the coders run on the host.
+    portable_card: the ``portable.PortableCard`` for portable streams
+    (built from the model at first use when none is given)."""
+
+    KINDS = (_KIND_JOINT, _KIND_JOINT_PORTABLE)
+    NAME = "joint-AR"
+    PORTABLE_LAYOUT = _LAYOUT_ONE_TILE
+    _portable_encode = staticmethod(portable_ar_encode)
+    _portable_decode = staticmethod(portable_ar_decode)
+
+    def __init__(self, model, portable_card=None):
+        super().__init__(model, portable_card)
+        self._host_nets = _HostParamNets(model)
+
+    # -- device programs -------------------------------------------------
+    def _psi_device(self, z_q) -> torch.Tensor:
+        """Hyper-synthesis of integer z (1, hz, wz, M) -> psi (1, h, w, 2M)
+        float16 on the device, under fixed numerics."""
+        z = _fresh_f32(z_q, self.device)
+        with torch.inference_mode(), fixed_numerics():
+            return _nhwc(self.model.hyper_decoder(_nchw(z))).to(_PSI_FETCH)
+
+    def _psi(self, z_q) -> np.ndarray:
+        """psi (h, w, 2M) float32 on the host for z_q (1, hz, wz, M)."""
+        return _psi_to_host(self._psi_device(z_q))
+
+    # -- encode ----------------------------------------------------------
+    def _analyse_image(self, x):
+        """The device half of compress: (img_h, img_w, y_q (h, w, M),
+        z_q (hz, wz, M), psi (h, w, 2M)) on the host."""
+        img_h, img_w, x_dev, y16, z_dev = self._analyse_device(x)
+        # psi is enqueued on the device's z before any fetch: the integer z
+        # values are the ones decode uploads, and the fetches overlap it
+        psi_dev = self._psi_device(z_dev)
+        y_q, z_q = self._fetch_latents(x_dev, y16, z_dev)
+        return img_h, img_w, y_q, z_q, _psi_to_host(psi_dev)
+
+    def compress(self, x, tiles=None, n_streams: int = 1) -> bytes:
+        """x: (1, H, W, 3) float32 in [0, 1] or uint8, any size (padded to
+        multiples of 64 here, cropped back by decompress). uint8 goes to the
+        device as is and is divided by 255 there.
+
+        n_streams=N (1..255): N-way interleaved rANS. Symbol s goes to stream
+        s % N with the same entropy parameters and context, for at most 8
+        more bytes a stream (its length-table entry and rANS flush), and
+        decode pulls the N streams of each wave on N threads.
+
+        tiles=(a, b) (at most 127 x 255): a x b independent AR tiles (the
+        context resets at tile borders), each its own stream, decoded
+        concurrently, with spatial random access; border pixels lose their
+        causal context, so the rate grows. Exclusive with n_streams. For
+        many images, compress_batch codes images in parallel at no rate
+        cost."""
+        _check_layout(tiles, n_streams)
+        img_h, img_w, y_q, z_q, psi = self._analyse_image(x)
+        return self._encode_from(y_q, z_q, psi, img_h, img_w, tiles, n_streams)
+
+    def compress_latents(self, y_q, z_q, img_h: int, img_w: int, tiles=None,
+                         n_streams: int = 1) -> bytes:
+        """Encode given integer latent grids (numpy arrays or tensors, e.g.
+        from ``coding.refine``) for an img_h x img_w image. The stream is
+        compress()'s for the same latents: the coding parameters derive only
+        from z_q (through the same psi program) and the coded y context."""
+        _check_layout(tiles, n_streams)
+        y_q, z_q = _as_latent_grids(y_q, z_q, img_h, img_w, self.M)
+        return self._encode_from(y_q, z_q, self._psi(z_q[None]), img_h, img_w, tiles,
+                                 n_streams)
+
+    def _encode_from(self, y_q: np.ndarray, z_q: np.ndarray, psi: np.ndarray,
+                     img_h: int, img_w: int, tiles=None, n_streams: int = 1) -> bytes:
+        """The host half of compress: the z stream, then the wavefront-
+        ordered y stream (one, N interleaved, or one a tile). Calls no
+        device program once the z tables for z_q's range are cached."""
+        zmin, zmax, z_bytes = self._encode_z(z_q)
+        if n_streams > 1:
+            layout = _LAYOUT_INTERLEAVED | n_streams
+            y_payload = self._host_nets.native_coder().encode_n(y_q, psi, n_streams)
+        else:
+            ta, tb = tiles or (1, 1)
+            layout = (ta << 8) | tb
+            h, w = y_q.shape[:2]
+            streams = [_ar_encode_latents(self._host_nets, y_q[r0:r1, c0:c1], psi[r0:r1, c0:c1])
+                       for r0, r1 in _tile_bounds(h, ta) for c0, c1 in _tile_bounds(w, tb)]
+            y_payload = streams[0] if len(streams) == 1 else (
+                struct.pack(f"<{len(streams)}I", *map(len, streams)) + b"".join(streams))
+        return self._pack(_KIND_JOINT, img_h, img_w, layout, zmin, zmax, z_bytes, y_payload)
+
+    # -- decode ----------------------------------------------------------
     def _decode_y(self, payload: bytes, psi: np.ndarray, h: int, w: int,
                   layout: int) -> np.ndarray:
         """A float stream's y payload -> (h, w, M) float32, by its layout:
@@ -526,38 +653,19 @@ class JointARCodec:
             return coder.decode(payload, psi, h, w)
         bounds = [(r0, r1, c0, c1) for r0, r1 in _tile_bounds(h, ta)
                   for c0, c1 in _tile_bounds(w, tb)]
-        tiles = _split_tiles(payload, len(bounds))
+        tiles = _split_streams(payload, len(bounds))
 
         def one(job):
             (r0, r1, c0, c1), tile = job
             return coder.decode(tile, np.ascontiguousarray(psi[r0:r1, c0:c1]), r1 - r0, c1 - c0)
 
         y_hat = np.empty((h, w, self.M), np.float32)
-        with ThreadPoolExecutor(_pool_size(len(bounds))) as pool:
-            for (r0, r1, c0, c1), block in zip(bounds, pool.map(one, zip(bounds, tiles))):
-                y_hat[r0:r1, c0:c1] = block
+        for (r0, r1, c0, c1), block in zip(bounds, _pool_map(one, zip(bounds, tiles))):
+            y_hat[r0:r1, c0:c1] = block
         return y_hat
 
-    def decode_latents(self, data: bytes) -> Tuple[np.ndarray, np.ndarray]:
-        """(y_q (h, w, M), z_q (hz, wz, M)) float32 from a stream of any
-        layout, float or portable."""
-        header = self._header(data)
-        img_h, img_w, layout, len_z = header[4], header[5], header[6], header[9]
-        z_q = self._decode_z(data, header)
-        h, w = _round_up(img_h, _MULTIPLE) // 16, _round_up(img_w, _MULTIPLE) // 16
-        payload = data[_body_start(header) + len_z:]
-        if header[1] == _KIND_JOINT_PORTABLE:
-            card = self.portable_card()
-            return portable_ar_decode(card, payload, card.hyper_forward(z_q), h, w), z_q
-        return self._decode_y(payload, self._psi(z_q[None]), h, w, layout), z_q
-
-    def decompress(self, data: bytes, as_uint8: bool = False) -> np.ndarray:
-        """(1, H, W, 3) at the stream's true size: float32 clipped to
-        [0, 1], or uint8 with as_uint8=True (clipped, scaled and rounded on
-        the device, so only uint8 pixels cross to the host)."""
-        y_hat, _ = self.decode_latents(data)
-        img_h, img_w = stream_size(data)
-        return self._synthesize(y_hat[None], img_h, img_w, as_uint8)
+    def _decode_float(self, payload: bytes, header, z_q: np.ndarray, h: int, w: int):
+        return self._decode_y(payload, self._psi(z_q[None]), h, w, header[6])
 
     # -- batches -----------------------------------------------------------
     def compress_batch(self, xs, workers=None) -> list:
@@ -568,9 +676,7 @@ class JointARCodec:
         host coders run on ``workers`` threads (default: one per image, at
         most one per core). The device programs run there because
         ``utils.device.fixed_numerics`` flips process-wide flags."""
-        xs = np.asarray(xs)
-        if xs.ndim != 4 or xs.shape[3] != 3:
-            raise ValueError(f"xs must be (B, H, W, 3) images, got shape {xs.shape}")
+        xs = _image_batch(xs)
         analysed = [self._analyse_image(xs[b:b + 1]) for b in range(xs.shape[0])]
         for _, _, _, z_q, _ in analysed:  # the z tables are device programs too
             self._z_tables(int(z_q.min()), int(z_q.max()))
@@ -580,8 +686,7 @@ class JointARCodec:
             img_h, img_w, y_q, z_q, psi = a
             return self._encode_from(y_q, z_q, psi, img_h, img_w)
 
-        with ThreadPoolExecutor(_pool_size(len(analysed), workers)) as pool:
-            return list(pool.map(one, analysed))
+        return _pool_map(one, analysed, workers)
 
     def decompress_batch(self, datas, workers=None, as_uint8: bool = False) -> np.ndarray:
         """(B, H, W, 3) from B float streams of one image size, untiled or
@@ -589,9 +694,7 @@ class JointARCodec:
         runs them) on the calling thread, the wavefronts on ``workers``
         threads, then one batched synthesis. Tiled and portable streams
         decode with decompress."""
-        heads = [self._header(d) for d in datas]
-        if not heads:
-            raise ValueError("decompress_batch needs at least one stream")
+        heads = self._batch_headers(datas)
         for head in heads:
             if head[1] != _KIND_JOINT:
                 raise ValueError("decompress_batch decodes float (kind 1) streams; decode "
@@ -600,17 +703,309 @@ class JointARCodec:
                 raise ValueError("decompress_batch decodes untiled and interleaved streams; "
                                  "decode tiled streams with decompress")
         img_h, img_w = heads[0][4], heads[0][5]
-        if any((hd[4], hd[5]) != (img_h, img_w) for hd in heads):
-            raise ValueError("decompress_batch needs streams of one image size")
         h, w = _round_up(img_h, _MULTIPLE) // 16, _round_up(img_w, _MULTIPLE) // 16
         psis = [self._psi(self._decode_z(d, hd)[None]) for d, hd in zip(datas, heads)]
         self._host_nets.native_coder()
 
         def one(b):
             hd = heads[b]
-            payload = datas[b][_HEADER_SIZE + hd[9]:]
-            return self._decode_y(payload, psis[b], h, w, hd[6])
+            return self._decode_y(self._payload(datas[b], hd), psis[b], h, w, hd[6])
 
-        with ThreadPoolExecutor(_pool_size(len(datas), workers)) as pool:
-            y_all = np.stack(list(pool.map(one, range(len(datas)))))
+        y_all = np.stack(_pool_map(one, range(len(datas)), workers))
         return self._synthesize(y_all, img_h, img_w, as_uint8)
+
+
+def _image_batch(xs) -> np.ndarray:
+    xs = np.asarray(xs)
+    if xs.ndim != 4 or xs.shape[3] != 3:
+        raise ValueError(f"xs must be (B, H, W, 3) images, got shape {xs.shape}")
+    return xs
+
+
+# --- the parallel-decode families ---------------------------------------------------
+
+def _coder_rows(params, K: int, index=None) -> Tuple[torch.Tensor, ...]:
+    """Entropy parameters (1, h, w, [K,] M) float32 on the device -> the
+    coder's rows, float16 on the device, in (mus, sigmas, weights) order
+    (weights None at K=1): (n*M,) at K=1, (n*M, K) at K>1 (each symbol's K
+    components contiguous). index: the flat positions to keep (a pass's
+    half of the grid), in order; every position when None."""
+    def rows(p):
+        flat = p.reshape((-1,) + tuple(p.shape[3:]))
+        if index is not None:
+            flat = flat.index_select(0, index)
+        if K == 1:
+            return flat.reshape(-1).to(_PARAM_FETCH)
+        return flat.transpose(1, 2).reshape(-1, K).to(_PARAM_FETCH)
+
+    if K == 1:
+        mu, sigma = params
+        return rows(mu), rows(sigma), None
+    weights, mus, sigmas = params
+    return rows(mus), rows(sigmas), rows(weights)
+
+
+def _rows_to_host(rows) -> Tuple[np.ndarray, ...]:
+    """Fetch coder rows (the float16 upcast to float32 is exact)."""
+    return tuple(None if r is None else r.cpu().numpy().astype(np.float32) for r in rows)
+
+
+def _encode_lanes(sym, mus, sigmas, weights, n_a: int, n: int, workers=None) -> bytes:
+    """N-way lanes over the two-block symbol sequence (the first n_a symbols,
+    then the rest): within each block, symbol s goes to lane s % N, so the
+    first block's decode needs each lane's prefix only. Payload: N uint32
+    lane lengths, then the lanes."""
+    def one(i):
+        pick = np.concatenate([np.arange(i, n_a, n), np.arange(n_a + i, len(sym), n)])
+        return backend.encode_gaussian(sym[pick], mus[pick], sigmas[pick],
+                                       None if weights is None else weights[pick])
+
+    lanes = _pool_map(one, range(n), workers or min(n, os.cpu_count() or 1))
+    return struct.pack(f"<{n}I", *map(len, lanes)) + b"".join(lanes)
+
+
+def _open_lanes(payload: bytes, layout: int) -> list:
+    """One RansDecoder a lane of a y payload (one stream: one lane)."""
+    if layout & _LAYOUT_INTERLEAVED:
+        return [backend.RansDecoder(s)
+                for s in _split_streams(payload, layout & 0xFF, "interleaved")]
+    return [backend.RansDecoder(payload)]
+
+
+def _decode_block_lanes(decs, mus, sigmas, weights, workers=None) -> np.ndarray:
+    """One block's symbols across the lanes: lane i holds symbols i, i+N, ...
+    of the block; the lanes decode concurrently."""
+    n = len(decs)
+    out = np.empty(mus.shape[0], np.int32)
+
+    def one(i):
+        out[i::n] = decs[i].decode_gaussian(mus[i::n], sigmas[i::n],
+                                            None if weights is None else weights[i::n])
+
+    _pool_map(one, range(n), workers or min(n, os.cpu_count() or 1))
+    return out
+
+
+def _finish(decs) -> None:
+    for dec in decs:
+        dec.finish()  # a truncated or corrupt stream raises, not wrong symbols
+
+
+class _ParallelCodec(_Codec):
+    """The codec of a family whose entropy parameters come from device
+    passes (checkerboard: two; hyperprior: one). A family sets
+    ``_enqueue(z_dev)`` (the passes that need z alone, enqueued before the
+    latents' fetch), ``_coder_args(y_q, pending)`` (the rest of the passes
+    and the fetch: the symbols in stream order, their rows and the first
+    block's length) and ``_decode_ys``."""
+
+    PORTABLE_LAYOUT = _LAYOUT_ONE_STREAM
+
+    def _check_layout_word(self, kind: int, layout: int) -> None:
+        super()._check_layout_word(kind, layout)
+        if not layout & _LAYOUT_INTERLEAVED and layout != _LAYOUT_ONE_STREAM:
+            raise ValueError(f"corrupt header: {self.NAME} stream with layout {layout:#06x}")
+
+    # -- encode ----------------------------------------------------------
+    def compress(self, x, n_streams: int = 1) -> bytes:
+        """x: (1, H, W, 3) float32 in [0, 1] or uint8, any size (padded to
+        multiples of 64 here, cropped back by decompress).
+
+        n_streams=N (1..255): N lanes, a partition of each block of symbols
+        with the entropy parameters unchanged, for at most 8 more bytes a
+        lane (its length-table entry and rANS flush); decode pulls the lanes
+        on N threads."""
+        backend._check_streams(n_streams)
+        img_h, img_w, x_dev, y16, z_dev = self._analyse_device(x)
+        # the passes that need z alone are enqueued before any fetch
+        pending = self._enqueue(z_dev)
+        y_q, z_q = self._fetch_latents(x_dev, y16, z_dev)
+        return self._write(z_q, self._coder_args(y_q, pending), img_h, img_w, n_streams)
+
+    def compress_latents(self, y_q, z_q, img_h: int, img_w: int, n_streams: int = 1) -> bytes:
+        """Encode given integer latent grids (numpy arrays or tensors, e.g.
+        from ``coding.refine``) for an img_h x img_w image: compress()'s
+        stream for the same latents (the entropy parameters derive from z_q
+        and the coded latents through the same passes)."""
+        backend._check_streams(n_streams)
+        y_q, z_q = _as_latent_grids(y_q, z_q, img_h, img_w, self.M)
+        pending = self._enqueue(z_q[None])
+        return self._write(z_q, self._coder_args(y_q, pending), img_h, img_w, n_streams)
+
+    def _write(self, z_q: np.ndarray, args, img_h: int, img_w: int, n_streams: int,
+               lane_workers=None) -> bytes:
+        """The host half: the z stream, the y stream or lanes, the header."""
+        sym, mus, sigmas, weights, n_a = args
+        zmin, zmax, z_bytes = self._encode_z(z_q)
+        if n_streams == 1:
+            layout = _LAYOUT_ONE_STREAM
+            y_payload = backend.encode_gaussian(sym, mus, sigmas, weights)
+        else:
+            layout = _LAYOUT_INTERLEAVED | n_streams
+            y_payload = _encode_lanes(sym, mus, sigmas, weights, n_a, n_streams, lane_workers)
+        return self._pack(self.KINDS[0], img_h, img_w, layout, zmin, zmax, z_bytes, y_payload)
+
+    def compress_batch(self, xs, workers=None, n_streams: int = 1) -> list:
+        """B streams for xs (B, H, W, 3) (any size, padded here), each
+        byte-identical to compress() of that image: every device program
+        (analysis, the parameter passes, the z tables) runs batch-1 per image
+        on the calling thread, as compress() runs it (a batched program need
+        not give batch-1's bits), then the host coders run on ``workers``
+        threads (default: one per image, at most one per core), each image's
+        lanes on its own thread."""
+        backend._check_streams(n_streams)
+        xs = _image_batch(xs)
+        jobs = []
+        for b in range(xs.shape[0]):
+            img_h, img_w, x_dev, y16, z_dev = self._analyse_device(xs[b:b + 1])
+            pending = self._enqueue(z_dev)
+            y_q, z_q = self._fetch_latents(x_dev, y16, z_dev)
+            self._z_tables(int(z_q.min()), int(z_q.max()))  # a device program too
+            jobs.append((z_q, self._coder_args(y_q, pending), img_h, img_w))
+
+        def one(job):
+            z_q, args, img_h, img_w = job
+            return self._write(z_q, args, img_h, img_w, n_streams, lane_workers=1)
+
+        return _pool_map(one, jobs, workers)
+
+    # -- decode ----------------------------------------------------------
+    def _decode_float(self, payload: bytes, header, z_q: np.ndarray, h: int, w: int):
+        return self._decode_ys([(payload, header[6], z_q)], h, w)[0]
+
+    def decompress_batch(self, datas, workers=None, as_uint8: bool = False) -> np.ndarray:
+        """(B, H, W, 3) from B streams of one image size: the z streams and
+        the parameter passes (batch-1 per image, as decompress runs them) on
+        the calling thread, the rANS decodes on ``workers`` threads (one an
+        image), then one batched synthesis. Portable streams decode one by
+        one with decompress."""
+        heads = self._batch_headers(datas)
+        img_h, img_w = heads[0][4], heads[0][5]
+        if any(hd[1] == self.KINDS[1] for hd in heads):
+            return np.concatenate([self.decompress(d, as_uint8) for d in datas])
+        h, w = _round_up(img_h, _MULTIPLE) // 16, _round_up(img_w, _MULTIPLE) // 16
+        jobs = [(self._payload(d, hd), hd[6], self._decode_z(d, hd)) for d, hd in zip(datas, heads)]
+        y_all = np.stack(self._decode_ys(jobs, h, w, workers, lane_workers=1))
+        return self._synthesize(y_all, img_h, img_w, as_uint8)
+
+
+class MeanScaleHyperpriorCodec(_ParallelCodec):
+    """Real encode/decode for ``models.MeanScaleHyperprior``: one device
+    pass (the hyper-decoder and the entropy-parameter net on z_q) gives
+    every entropy parameter, then one rANS call codes the whole grid (or N
+    lanes). Devices and the portable card as ``JointARCodec``'s."""
+
+    KINDS = (_KIND_HYPERPRIOR, _KIND_HYPERPRIOR_PORTABLE)
+    NAME = "hyperprior"
+    _portable_encode = staticmethod(portable_hp_encode)
+    _portable_decode = staticmethod(portable_hp_decode)
+
+    def _params_device(self, z_q):
+        """The coder's rows (float16, on the device) for z_q (1, hz, wz, M):
+        the one pass, batch-1, on a fresh float32 z under fixed numerics."""
+        z = _fresh_f32(z_q, self.device)
+        with torch.inference_mode(), fixed_numerics():
+            return _coder_rows(self.model.entropy_params_from_hyper(z), self.K)
+
+    _enqueue = _params_device
+
+    def _coder_args(self, y_q: np.ndarray, pending):
+        sym = y_q.astype(np.int32).reshape(-1)  # row-major, channel fastest
+        return (sym,) + _rows_to_host(pending) + (sym.shape[0],)
+
+    def _decode_ys(self, jobs, h: int, w: int, workers=None, lane_workers=None) -> list:
+        """(h, w, M) float32 latents of each (payload, layout, z_q) job: the
+        passes on the calling thread, the rANS decodes on ``workers``
+        threads."""
+        rows = [_rows_to_host(self._params_device(z_q[None])) for _, _, z_q in jobs]
+
+        def one(b):
+            payload, layout, _ = jobs[b]
+            decs = _open_lanes(payload, layout)
+            vals = _decode_block_lanes(decs, *rows[b], lane_workers)
+            _finish(decs)
+            return vals.reshape(h, w, self.M).astype(np.float32)
+
+        return _pool_map(one, range(len(jobs)), workers)
+
+
+class CheckerboardCodec(_ParallelCodec):
+    """Real encode/decode for ``models.CheckerboardHierarchical``: two device
+    passes give every entropy parameter (``anchor_pass`` on z_q, psi kept
+    on the device; ``nonanchor_pass`` over the anchor-filled grid), and one
+    rANS stream (or N lanes) holds the anchors, then the non-anchors.
+    Devices and the portable card as ``JointARCodec``'s."""
+
+    KINDS = (_KIND_CHECKERBOARD, _KIND_CHECKERBOARD_PORTABLE)
+    NAME = "checkerboard"
+    _portable_encode = staticmethod(portable_cb_encode)
+    _portable_decode = staticmethod(portable_cb_decode)
+
+    def __init__(self, model, portable_card=None):
+        super().__init__(model, portable_card)
+        self._plans = {}
+
+    def _plan(self, h: int, w: int):
+        """(anchor mask, anchor and non-anchor flat positions on the device)
+        of an h x w grid."""
+        if (h, w) not in self._plans:
+            am = checkerboard_mask(h, w)
+            self._plans[h, w] = (am,) + tuple(
+                torch.from_numpy(np.flatnonzero(m.ravel())).to(self.device) for m in (am, ~am))
+        return self._plans[h, w]
+
+    def _anchor_device(self, z_q):
+        """Pass 1 for z_q (1, hz, wz, M): (psi on the device, the anchors'
+        coder rows, float16 on the device)."""
+        z = _fresh_f32(z_q, self.device)
+        with torch.inference_mode(), fixed_numerics():
+            psi, *params = self.model.anchor_pass(z)
+            return psi, _coder_rows(params, self.K, self._plan(psi.shape[1], psi.shape[2])[1])
+
+    _enqueue = _anchor_device
+
+    def _nonanchor_device(self, psi: torch.Tensor, y_anchor: np.ndarray):
+        """Pass 2: the non-anchors' coder rows (float16, on the device) from
+        psi and y_anchor (h, w, M), the anchors' values with zeros at the
+        non-anchors, uploaded as a fresh float32 grid."""
+        y = _fresh_f32(y_anchor[None], self.device)
+        with torch.inference_mode(), fixed_numerics():
+            params = self.model.nonanchor_pass(psi, y)
+            return _coder_rows(params, self.K, self._plan(*y_anchor.shape[:2])[2])
+
+    def _coder_args(self, y_q: np.ndarray, pending):
+        psi, rows_a = pending
+        am = self._plan(*y_q.shape[:2])[0]
+        rows_n = self._nonanchor_device(psi, np.where(am[..., None], y_q, 0.0).astype(np.float32))
+        (mu_a, sig_a, w_a), (mu_n, sig_n, w_n) = _rows_to_host(rows_a), _rows_to_host(rows_n)
+        sym = np.concatenate([y_q[am], y_q[~am]]).astype(np.int32).reshape(-1)
+        weights = None if self.K == 1 else np.concatenate([w_a, w_n])
+        return (sym, np.concatenate([mu_a, mu_n]), np.concatenate([sig_a, sig_n]), weights,
+                mu_a.shape[0])
+
+    def _decode_ys(self, jobs, h: int, w: int, workers=None, lane_workers=None) -> list:
+        """(h, w, M) float32 latents of each (payload, layout, z_q) job:
+        every pass 1, then the anchors' decodes on ``workers`` threads, every
+        pass 2, then the non-anchors' decodes."""
+        am = self._plan(h, w)[0]
+        n = len(jobs)
+        firsts = [self._anchor_device(z_q[None]) for _, _, z_q in jobs]
+        rows_a = [_rows_to_host(rows) for _, rows in firsts]
+        decs = [_open_lanes(payload, layout) for payload, layout, _ in jobs]
+        y_hats = [np.zeros((h, w, self.M), np.float32) for _ in range(n)]
+
+        def anchors(b):
+            y_hats[b][am] = _decode_block_lanes(decs[b], *rows_a[b], lane_workers).reshape(
+                -1, self.M)
+
+        _pool_map(anchors, range(n), workers)
+        rows_n = [_rows_to_host(self._nonanchor_device(firsts[b][0], y_hats[b]))
+                  for b in range(n)]
+
+        def nonanchors(b):
+            vals = _decode_block_lanes(decs[b], *rows_n[b], lane_workers)
+            _finish(decs[b])
+            y_hats[b][~am] = vals.reshape(-1, self.M)
+
+        _pool_map(nonanchors, range(n), workers)
+        return y_hats

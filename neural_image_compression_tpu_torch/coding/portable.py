@@ -1,5 +1,6 @@
-"""Portable (cross-machine) bitstreams for the joint-AR codec, port of the
-JAX package's coding/portable.py (the wavefront family).
+"""Portable (cross-machine) bitstreams for the hierarchical families' codecs,
+port of the JAX package's coding/portable.py (the wavefront, checkerboard
+and hyperprior card families).
 
 The float codec derives its entropy parameters through float GEMMs whose
 results are bit-stable per build only. Here every operation between the
@@ -15,7 +16,11 @@ masked-context conv and the entropy-parameter net; per-sigma-bin integer
 Gaussian CDF tables on a 1/64 sub-grid with raw (pre-softplus) bin
 thresholds; an integer exp LUT for the K > 1 mixture softmax; frozen z CDF
 tables; and a content hash that every portable stream carries, so a stream
-checked against another card fails at once.
+checked against another card fails at once. A card's family says which
+coder it drives: 0 the joint-AR wavefront (the 12 causal taps of the masked
+context), 1 the checkerboard's two passes (the plain 5x5 context conv's 12
+odd-parity taps, ``models.checkerboard.CB_CTX_POSITIONS``), 2 the
+hyperprior's one pass (no context: empty ``ctx`` and ``ep1_phi``).
 
 Fixed-point conventions (the cross-implementation spec):
   * activations: F=12 fractional bits, int64 math;
@@ -33,7 +38,6 @@ this package from weights carried over from the JAX package equals the JAX
 card, except where the z tables' float PMF rounds a count the other way.
 The native coder (``backend.ArPortableCoder``) is the main path; the numpy
 functions are its plain version (``native=False``) and write the same bytes.
-Only wavefront-family cards (family 0) are built and coded here.
 """
 
 import hashlib
@@ -43,6 +47,10 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from neural_image_compression_tpu_torch.coding import backend
+from neural_image_compression_tpu_torch.models import (
+    CB_CTX_POSITIONS, CheckerboardHierarchical, JointAutoregressiveHierarchical,
+    MeanScaleHyperprior, checkerboard_mask,
+)
 
 F_BITS = 12                 # activation fractional bits
 SUB_BITS = 6                # mu sub-grid: 1/64
@@ -69,7 +77,18 @@ M_MAX = 330                 # with Y_ABS_MAX: 12*M*2^51 < 2^63 requires M <= 341
 PORT_R_MIN = 32
 
 _CARD_VERSION = 2           # v2: the PORT_R_MIN window floor (v1 cards raise)
-_FAMILY_WAVEFRONT = 0
+FAMILIES = {"wavefront": 0, "checkerboard": 1, "hyperprior": 2}
+
+
+def model_family(model) -> str:
+    """The card family of a hierarchical model: "wavefront" (joint-AR),
+    "checkerboard" or "hyperprior"."""
+    for cls, family in ((JointAutoregressiveHierarchical, "wavefront"),
+                        (CheckerboardHierarchical, "checkerboard"),
+                        (MeanScaleHyperprior, "hyperprior")):
+        if isinstance(model, cls):
+            return family
+    raise ValueError(f"no portable card family for {type(model).__name__}")
 
 
 def rshift_round(v, s: int):
@@ -268,7 +287,7 @@ class PortableCard:
                  tables: List[np.ndarray], exp_lut: np.ndarray,
                  z_cdfs: np.ndarray, z_offsets: np.ndarray,
                  z_sizes: np.ndarray, zmin: int, zmax: int,
-                 family: int = _FAMILY_WAVEFRONT):
+                 family: int = FAMILIES["wavefront"]):
         # checked here so build, load and the native coder's fixed buffers
         # (K <= 16 mixture scratch, 2*254+2 symbol edges) all agree
         if not (1 <= K <= 16):
@@ -278,9 +297,8 @@ class PortableCard:
                              f"context-GEMM exactness bound), got {M}")
         if sigma_R.size and not (0 <= int(sigma_R.min()) and int(sigma_R.max()) <= 254):
             raise ValueError("corrupt card: sigma_R outside [0, 254]")
-        if family != _FAMILY_WAVEFRONT:
-            raise ValueError(f"card family {family}: this package codes wavefront-family "
-                             f"(0) cards only")
+        if family not in FAMILIES.values():
+            raise ValueError(f"unknown card family {family}")
         self.M = M
         self.K = K
         self.family = family
@@ -348,7 +366,7 @@ class PortableCard:
         """Rebuild from a mapping (``in`` and ``[]``) over the _arrays() keys."""
         meta = d["meta"]
         version, M, K, zmin, zmax = (int(v) for v in meta[:5])
-        family = int(meta[5]) if len(meta) > 5 else _FAMILY_WAVEFRONT
+        family = int(meta[5]) if len(meta) > 5 else FAMILIES["wavefront"]
         if version != _CARD_VERSION:
             raise ValueError(f"unsupported card version {version}")
         hyper = []
@@ -373,18 +391,21 @@ class PortableCard:
 
     # -- build -----------------------------------------------------------------
     @classmethod
-    def build(cls, model, zmin: int = -64, zmax: int = 64) -> "PortableCard":
-        """Quantize a ``models.JointAutoregressiveHierarchical``'s coding-path
-        weights and precompute every integer table: the only float
-        computation of portable mode. The hyper-decoder's kernels are
-        quantized in the flax layout, the context and entropy nets in the
-        native coder's layout (``codec._HostParamNets``), and the z tables
-        come from ``cdf_tables.factorized_tables`` on the model's device."""
+    def build(cls, model, zmin: int = -64, zmax: int = 64, family: str = None) -> "PortableCard":
+        """Quantize a hierarchical model's coding-path weights and
+        precompute every integer table: the only float computation of
+        portable mode. family: "wavefront", "checkerboard" or "hyperprior"
+        (default: the model's own, ``model_family``). The hyper-decoder's
+        kernels are quantized in the flax layout, the context (its 12 live
+        taps) and entropy nets in the native coder's layout
+        (``codec._HostParamNets``), and the z tables come from
+        ``cdf_tables.factorized_tables`` on the model's device."""
         from neural_image_compression_tpu_torch.coding.cdf_tables import factorized_tables
         from neural_image_compression_tpu_torch.coding.codec import _HostParamNets
         from neural_image_compression_tpu_torch.utils.weights import joint_ar_params_to_jax
 
-        nets = _HostParamNets(model)
+        family = family or model_family(model)
+        nets = _HostParamNets(model, family)
         hyper = _hyper_layers(joint_ar_params_to_jax(model))
         ctx = QuantLayer.quantize(nets.ctx_w, nets.ctx_bias)
         (w1, b1), (w2, b2), (w3, b3) = nets.ep
@@ -396,7 +417,7 @@ class PortableCard:
         return cls(model.latent_channels, model.K, hyper, ctx, ep1_phi, ep1_psi, ep2, ep3,
                    sigma_thr, sigma_fix, sigma2_fix, sigma_R, tables, exp_lut,
                    z_cdfs.astype(np.uint32), np.asarray(z_offsets, np.int32),
-                   np.asarray(z_sizes, np.int32), zmin, zmax)
+                   np.asarray(z_sizes, np.int32), zmin, zmax, FAMILIES[family])
 
     def native_coder(self) -> backend.ArPortableCoder:
         """The C++ coder over this card (built at first use)."""
@@ -590,57 +611,57 @@ def wavefront_order(h: int, w: int) -> Tuple[np.ndarray, np.ndarray]:
     return np.asarray(order, np.int32), np.asarray(sizes, np.int32)
 
 
-def _gather_context(y_pad: np.ndarray, pix: np.ndarray) -> np.ndarray:
-    """y_pad: (h+4, w+4, M) int64 F_BITS; pix (n, 2) -> (n, 12M) in the
-    mask-A gather order (``codec.CTX_POSITIONS``)."""
-    from neural_image_compression_tpu_torch.coding.codec import CTX_POSITIONS
-
+def _gather(y_pad: np.ndarray, pix: np.ndarray, positions) -> np.ndarray:
+    """y_pad: (h+4, w+4, M) int64 F_BITS; pix (n, 2) -> (n, 12M), the taps
+    at ``positions`` (kernel coordinates, center (2, 2)) in that order."""
     n = pix.shape[0]
     m = y_pad.shape[-1]
     out = np.empty((n, 12 * m), np.int64)
-    for idx, (r, c) in enumerate(CTX_POSITIONS):
+    for idx, (r, c) in enumerate(positions):
         out[:, idx * m:(idx + 1) * m] = y_pad[pix[:, 0] + r, pix[:, 1] + c]
     return out
 
 
-def portable_ar_encode(card: PortableCard, y_q: np.ndarray, psi_fix: np.ndarray,
-                       native: bool = True) -> bytes:
-    """Encode one latent layer on the integer parameter path. y_q: (h, w, M)
-    integer-valued; psi_fix: (h, w, 2M) int64 at F_BITS. native selects the
-    C++ coder (True) or the numpy version (False): both write the same
-    bytes."""
+def _gather_context(y_pad: np.ndarray, pix: np.ndarray) -> np.ndarray:
+    """The mask-A gather (``codec.CTX_POSITIONS``)."""
+    from neural_image_compression_tpu_torch.coding.codec import CTX_POSITIONS
+
+    return _gather(y_pad, pix, CTX_POSITIONS)
+
+
+def _cb_gather(y_pad: np.ndarray, pix: np.ndarray) -> np.ndarray:
+    """y_pad holding the anchors only (zeros at the non-anchors); pix the
+    non-anchors -> their 12 anchor taps in ``CB_CTX_POSITIONS`` order."""
+    return _gather(y_pad, pix, CB_CTX_POSITIONS)
+
+
+def _check_family(card: PortableCard, family: str) -> None:
+    if card.family != FAMILIES[family]:
+        raise ValueError(f"card is not a {family}-family card (family {FAMILIES[family]}); "
+                         f"it has family {card.family}")
+
+
+def _check_magnitude(y_q: np.ndarray) -> None:
     if not (np.abs(np.asarray(y_q)).max(initial=0) <= Y_ABS_MAX):
         # `not (.. <= ..)` so NaN fails too
         raise ValueError(f"latent magnitude exceeds the portable-spec bound "
                          f"(|y| <= {Y_ABS_MAX}) or is non-finite")
-    if native:
-        p_acc = card.psi_precompute(psi_fix, native=True)
-        return card.native_coder().encode(np.asarray(y_q).astype(np.int32), p_acc)
-    return _py_ar_encode(card, y_q, psi_fix)
 
 
-def _py_ar_encode(card: PortableCard, y_q: np.ndarray, psi_fix: np.ndarray) -> bytes:
-    h, w = y_q.shape[:2]
-    M = card.M
-    y_int = np.asarray(y_q).astype(np.int64)
-    pix, wave_sizes = wavefront_order(h, w)
-    p_acc = card.psi_precompute(psi_fix, native=False).reshape(h * w, -1)
-    y_pad = np.zeros((h + 4, w + 4, M), np.int64)
-    y_pad[2:-2, 2:-2] = y_int << F_BITS
+def _symbol_models(card: PortableCard, h3: np.ndarray, y_rows: np.ndarray, syms: list,
+                   models: list) -> None:
+    """Append each pixel's M symbols and their (mu, bin, weight) models, in
+    channel order, for the pixels' raw h3 rows and latent rows."""
+    for p in range(h3.shape[0]):
+        mu, bins, wfix = card.channel_models(h3[p])
+        for m in range(card.M):
+            syms.append(int(y_rows[p, m]))
+            models.append((mu[m], bins[m], wfix[m]))
 
-    syms: List[int] = []
-    models: List[Tuple] = []
-    start = 0
-    for ws in wave_sizes:
-        wp = pix[start:start + ws]
-        start += ws
-        h3 = card.wave_params(_gather_context(y_pad, wp), p_acc[wp[:, 0] * w + wp[:, 1]])
-        for p in range(ws):
-            mu, bins, wfix = card.channel_models(h3[p])
-            yrow = y_int[wp[p, 0], wp[p, 1]]
-            for m in range(M):
-                syms.append(int(yrow[m]))
-                models.append((mu[m], bins[m], wfix[m]))
+
+def _py_rans_encode(card: PortableCard, syms: list, models: list) -> bytes:
+    """The numpy spec's rANS encode of symbols under their models (in
+    reverse, escapes as two raw 16-bit halves)."""
     enc = PyEncoder()
     for i in range(len(syms) - 1, -1, -1):
         c, R, cum = build_symbol_model(card, *models[i])
@@ -656,9 +677,70 @@ def _py_ar_encode(card: PortableCard, y_q: np.ndarray, psi_fix: np.ndarray) -> b
     return enc.flush()
 
 
+def _py_decode_pixel(card: PortableCard, dec: "PyDecoder", h3_row: np.ndarray) -> np.ndarray:
+    """One pixel's M symbols (int64) from the decoder, under its h3 row."""
+    mu, bins, wfix = card.channel_models(h3_row)
+    out = np.empty(card.M, np.int64)
+    for m in range(card.M):
+        c, R, cum = build_symbol_model(card, mu[m], bins[m], wfix[m])
+        jj = _cdf_find(cum, dec.peek())
+        dec.advance(int(cum[jj]), int(cum[jj + 1] - cum[jj]))
+        if jj == 2 * R + 1:
+            hi = dec.get_raw16()
+            lo = dec.get_raw16()
+            v = ((hi << 16) | lo) - 0x80000000
+            if abs(v) > Y_ABS_MAX:  # as kYAbsMax in C++
+                raise ValueError("corrupt portable AR stream (escape out of spec)")
+        else:
+            v = c + (jj - R)
+        out[m] = v
+    return out
+
+
+def _py_finish(dec: "PyDecoder") -> None:
+    if not dec.ok():
+        raise ValueError("corrupt or truncated portable AR stream")
+
+
+# --- wavefront (family 0) --------------------------------------------------------
+
+def portable_ar_encode(card: PortableCard, y_q: np.ndarray, psi_fix: np.ndarray,
+                       native: bool = True) -> bytes:
+    """Encode one latent layer on the integer parameter path (a
+    wavefront-family card). y_q: (h, w, M) integer-valued; psi_fix: (h, w,
+    2M) int64 at F_BITS. native selects the C++ coder (True) or the numpy
+    version (False): both write the same bytes."""
+    _check_family(card, "wavefront")
+    _check_magnitude(y_q)
+    if native:
+        p_acc = card.psi_precompute(psi_fix, native=True)
+        return card.native_coder().encode(np.asarray(y_q).astype(np.int32), p_acc)
+    return _py_ar_encode(card, y_q, psi_fix)
+
+
+def _py_ar_encode(card: PortableCard, y_q: np.ndarray, psi_fix: np.ndarray) -> bytes:
+    h, w = y_q.shape[:2]
+    y_int = np.asarray(y_q).astype(np.int64)
+    pix, wave_sizes = wavefront_order(h, w)
+    p_acc = card.psi_precompute(psi_fix, native=False).reshape(h * w, -1)
+    y_pad = np.zeros((h + 4, w + 4, card.M), np.int64)
+    y_pad[2:-2, 2:-2] = y_int << F_BITS
+
+    syms: List[int] = []
+    models: List[Tuple] = []
+    start = 0
+    for ws in wave_sizes:
+        wp = pix[start:start + ws]
+        start += ws
+        h3 = card.wave_params(_gather_context(y_pad, wp), p_acc[wp[:, 0] * w + wp[:, 1]])
+        _symbol_models(card, h3, y_int[wp[:, 0], wp[:, 1]], syms, models)
+    return _py_rans_encode(card, syms, models)
+
+
 def portable_ar_decode(card: PortableCard, data: bytes, psi_fix: np.ndarray,
                        h: int, w: int, native: bool = True) -> np.ndarray:
     """Decode one latent layer -> (h, w, M) float32 integers."""
+    _check_family(card, "wavefront")
     if native:
         p_acc = card.psi_precompute(psi_fix, native=True)
         return card.native_coder().decode(data, p_acc, h, w)
@@ -667,11 +749,10 @@ def portable_ar_decode(card: PortableCard, data: bytes, psi_fix: np.ndarray,
 
 def _py_ar_decode(card: PortableCard, data: bytes, psi_fix: np.ndarray,
                   h: int, w: int) -> np.ndarray:
-    M = card.M
     pix, wave_sizes = wavefront_order(h, w)
     p_acc = card.psi_precompute(psi_fix, native=False).reshape(h * w, -1)
-    y_pad = np.zeros((h + 4, w + 4, M), np.int64)
-    y_out = np.zeros((h, w, M), np.int64)
+    y_pad = np.zeros((h + 4, w + 4, card.M), np.int64)
+    y_out = np.zeros((h, w, card.M), np.int64)
     dec = PyDecoder(data)
     start = 0
     for ws in wave_sizes:
@@ -679,22 +760,131 @@ def _py_ar_decode(card: PortableCard, data: bytes, psi_fix: np.ndarray,
         start += ws
         h3 = card.wave_params(_gather_context(y_pad, wp), p_acc[wp[:, 0] * w + wp[:, 1]])
         for p in range(ws):
-            mu, bins, wfix = card.channel_models(h3[p])
             i, j = int(wp[p, 0]), int(wp[p, 1])
-            for m in range(M):
-                c, R, cum = build_symbol_model(card, mu[m], bins[m], wfix[m])
-                jj = _cdf_find(cum, dec.peek())
-                dec.advance(int(cum[jj]), int(cum[jj + 1] - cum[jj]))
-                if jj == 2 * R + 1:
-                    hi = dec.get_raw16()
-                    lo = dec.get_raw16()
-                    v = ((hi << 16) | lo) - 0x80000000
-                    if abs(v) > Y_ABS_MAX:  # as kYAbsMax in C++
-                        raise ValueError("corrupt portable AR stream (escape out of spec)")
-                else:
-                    v = c + (jj - R)
-                y_out[i, j, m] = v
+            y_out[i, j] = _py_decode_pixel(card, dec, h3[p])
             y_pad[i + 2, j + 2] = y_out[i, j] << F_BITS
-    if not dec.ok():
-        raise ValueError("corrupt or truncated portable AR stream")
+    _py_finish(dec)
     return y_out.astype(np.float32)
+
+
+# --- checkerboard (family 1): anchors from psi alone, then non-anchors --------------
+
+def _cb_plan(h: int, w: int):
+    """(anchor mask, anchor pix, non-anchor pix), row-major within each
+    block: the stream's symbol order (the float CheckerboardCodec's
+    y_q[am] then y_q[~am])."""
+    am = checkerboard_mask(h, w)
+    return am, np.argwhere(am).astype(np.int64), np.argwhere(~am).astype(np.int64)
+
+
+def _cb_pass_params(card: PortableCard, p_acc: np.ndarray, w: int, pix: np.ndarray,
+                    y_pad=None) -> np.ndarray:
+    """h3 rows of one pass: the anchors (y_pad None: the context is exactly
+    zero) or the non-anchors (the context GEMM over their anchor taps)."""
+    rows = p_acc[pix[:, 0] * w + pix[:, 1]]
+    if y_pad is None:
+        return card.params_from_acc(rows)
+    return card.wave_params(_cb_gather(y_pad, pix), rows)
+
+
+def portable_cb_encode(card: PortableCard, y_q: np.ndarray, psi_fix: np.ndarray,
+                       native: bool = True) -> bytes:
+    """Encode one checkerboard latent grid on the integer parameter path (a
+    checkerboard-family card): the anchors from the hyperprior alone, then
+    the non-anchors from the 12-tap context over the anchors. Arguments as
+    ``portable_ar_encode``'s; both paths write the same bytes."""
+    _check_family(card, "checkerboard")
+    _check_magnitude(y_q)
+    if native:
+        p_acc = card.psi_precompute(psi_fix, native=True)
+        return card.native_coder().encode_cb(np.asarray(y_q).astype(np.int32), p_acc)
+    return _py_cb_encode(card, y_q, psi_fix)
+
+
+def _py_cb_encode(card: PortableCard, y_q: np.ndarray, psi_fix: np.ndarray) -> bytes:
+    h, w = y_q.shape[:2]
+    y_int = np.asarray(y_q).astype(np.int64)
+    am, pix_a, pix_n = _cb_plan(h, w)
+    p_acc = card.psi_precompute(psi_fix, native=False).reshape(h * w, -1)
+    y_pad = np.zeros((h + 4, w + 4, card.M), np.int64)
+    y_pad[2:-2, 2:-2][am] = y_int[am] << F_BITS  # the anchors only, as decode sees them
+    syms: List[int] = []
+    models: List[Tuple] = []
+    for pix, pad in ((pix_a, None), (pix_n, y_pad)):
+        _symbol_models(card, _cb_pass_params(card, p_acc, w, pix, pad),
+                       y_int[pix[:, 0], pix[:, 1]], syms, models)
+    return _py_rans_encode(card, syms, models)
+
+
+def portable_cb_decode(card: PortableCard, data: bytes, psi_fix: np.ndarray,
+                       h: int, w: int, native: bool = True) -> np.ndarray:
+    """Decode one checkerboard latent grid -> (h, w, M) float32 integers."""
+    _check_family(card, "checkerboard")
+    if native:
+        p_acc = card.psi_precompute(psi_fix, native=True)
+        return card.native_coder().decode_cb(data, p_acc, h, w)
+    return _py_cb_decode(card, data, psi_fix, h, w)
+
+
+def _py_cb_decode(card: PortableCard, data: bytes, psi_fix: np.ndarray,
+                  h: int, w: int) -> np.ndarray:
+    _, pix_a, pix_n = _cb_plan(h, w)
+    p_acc = card.psi_precompute(psi_fix, native=False).reshape(h * w, -1)
+    y_out = np.zeros((h, w, card.M), np.int64)
+    y_pad = np.zeros((h + 4, w + 4, card.M), np.int64)
+    dec = PyDecoder(data)
+    h3 = _cb_pass_params(card, p_acc, w, pix_a)
+    for p, (i, j) in enumerate(pix_a):
+        y_out[i, j] = _py_decode_pixel(card, dec, h3[p])
+        y_pad[i + 2, j + 2] = y_out[i, j] << F_BITS
+    h3 = _cb_pass_params(card, p_acc, w, pix_n, y_pad)
+    for p, (i, j) in enumerate(pix_n):
+        y_out[i, j] = _py_decode_pixel(card, dec, h3[p])
+    _py_finish(dec)
+    return y_out.astype(np.float32)
+
+
+# --- hyperprior (family 2): every position from psi alone ---------------------------
+
+def portable_hp_encode(card: PortableCard, y_q: np.ndarray, psi_fix: np.ndarray,
+                       native: bool = True) -> bytes:
+    """Encode one hyperprior latent grid on the integer parameter path (a
+    hyperprior-family card): every position's parameters from psi alone,
+    row-major, channel fastest (the float MeanScaleHyperpriorCodec's symbol
+    order). Arguments as ``portable_ar_encode``'s."""
+    _check_family(card, "hyperprior")
+    _check_magnitude(y_q)
+    if native:
+        p_acc = card.psi_precompute(psi_fix, native=True)
+        return card.native_coder().encode_hp(np.asarray(y_q).astype(np.int32), p_acc)
+    return _py_hp_encode(card, y_q, psi_fix)
+
+
+def _py_hp_encode(card: PortableCard, y_q: np.ndarray, psi_fix: np.ndarray) -> bytes:
+    h, w = y_q.shape[:2]
+    p_acc = card.psi_precompute(psi_fix, native=False).reshape(h * w, -1)
+    syms: List[int] = []
+    models: List[Tuple] = []
+    _symbol_models(card, card.params_from_acc(p_acc),
+                   np.asarray(y_q).astype(np.int64).reshape(h * w, card.M), syms, models)
+    return _py_rans_encode(card, syms, models)
+
+
+def portable_hp_decode(card: PortableCard, data: bytes, psi_fix: np.ndarray,
+                       h: int, w: int, native: bool = True) -> np.ndarray:
+    """Decode one hyperprior latent grid -> (h, w, M) float32 integers."""
+    _check_family(card, "hyperprior")
+    if native:
+        p_acc = card.psi_precompute(psi_fix, native=True)
+        return card.native_coder().decode_hp(data, p_acc, h, w)
+    return _py_hp_decode(card, data, psi_fix, h, w)
+
+
+def _py_hp_decode(card: PortableCard, data: bytes, psi_fix: np.ndarray,
+                  h: int, w: int) -> np.ndarray:
+    p_acc = card.psi_precompute(psi_fix, native=False).reshape(h * w, -1)
+    h3 = card.params_from_acc(p_acc)
+    dec = PyDecoder(data)
+    y_out = np.stack([_py_decode_pixel(card, dec, h3[p]) for p in range(h * w)])
+    _py_finish(dec)
+    return y_out.reshape(h, w, card.M).astype(np.float32)

@@ -1,5 +1,5 @@
-"""Encode-time latent refinement, port of coding/refine.py (the joint-AR
-family).
+"""Encode-time latent refinement, port of coding/refine.py (the joint-AR,
+checkerboard and hyperprior families).
 
 The encoder gives one amortized guess of the latents. At encode time the
 true objective R(round(y), round(z)) + lambda * D(decoder(round(y)), x) is
@@ -7,11 +7,13 @@ differentiable through straight-through rounding, so Adam steps on the
 latents themselves, the weights frozen, close part of the amortization gap
 (Yang, Bamler & Mandt, NeurIPS 2020). Decode does not change: the entropy
 parameters derive only from z_q and the coded y context, so a refined
-stream is an ordinary one; pair with ``JointARCodec.compress_latents``.
+stream is an ordinary one; pair with the codecs' ``compress_latents``.
 
-Each step runs the decoder, the hyper-decoder, the context model, the
-entropy parameters and the rate forward and backward on the model's
-device. With the weights frozen, autograd asks the GDN backward for dx
+The entropy parameters follow the JAX package's modes: "ctx" (the joint-AR
+and checkerboard families, ``entropy_params_from_latents``) and "hyper"
+(the hyperprior, ``entropy_params_from_hyper``). Each step runs the
+decoder, the hyper-decoder, the context model (if any), the entropy
+parameters and the rate forward and backward on the model's device. With the weights frozen, autograd asks the GDN backward for dx
 alone, so its dgamma/dbeta stage does not run. Kernel launches per refine
 call, for ``steps`` steps: GDN forward 6 + 3 steps + 3 (the eval forward,
 three IGDN a step, the final forward), GDN backward 3 steps, mixture
@@ -23,7 +25,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from neural_image_compression_tpu_torch.models.joint_ar import (
-    JointAutoregressiveHierarchical, _nchw, _nhwc,
+    _nchw, _nhwc, conditional_likelihood,
 )
 from neural_image_compression_tpu_torch.train.loss import rd_loss
 
@@ -37,11 +39,24 @@ def _ste_round(v: torch.Tensor) -> torch.Tensor:
     return v + (torch.round(v) - v).detach()
 
 
+def _mode(model) -> str:
+    """How the model's entropy parameters see the latents: "ctx" (from y and
+    z) or "hyper" (from z alone)."""
+    if hasattr(type(model), "entropy_params_from_latents"):
+        return "ctx"
+    if hasattr(type(model), "entropy_params_from_hyper"):
+        return "hyper"
+    raise NotImplementedError(
+        f"latent refinement of {type(model).__name__} is not ported: this package has the "
+        f"joint-AR, checkerboard and hyperprior families")
+
+
 def _rd_out(model, y: torch.Tensor, z: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The eval output rd_loss reads, for latents rounded straight-through."""
     y_in, z_in = _ste_round(y), _ste_round(z)
-    _, _, logp_y = model.conditional_likelihood(
-        y_in, model.entropy_params_from_latents(y_in, z_in))
+    params_t = (model.entropy_params_from_latents(y_in, z_in) if _mode(model) == "ctx"
+                else model.entropy_params_from_hyper(z_in))
+    _, _, logp_y = conditional_likelihood(model.K, y_in, params_t)
     return {"x_hat": _nhwc(model.decoder(_nchw(y_in))).float(),
             "logp_y": logp_y,
             "logp_z": torch.log(model.factorized_entropy_model(z_in))}
@@ -82,7 +97,8 @@ def _refine(model, x, lambda_rd: float, steps: int, lr: float):
 def make_refiner(model, lambda_rd: float, steps: int = 100,
                  lr: float = 1e-3) -> Callable[[torch.Tensor], Tuple]:
     """``refine(x) -> (y_q, z_q, metrics)`` for a
-    ``models.JointAutoregressiveHierarchical``.
+    ``models.JointAutoregressiveHierarchical``, ``CheckerboardHierarchical``
+    or ``MeanScaleHyperprior``.
 
     x: (B, H, W, 3) float32 in [0, 1] (a tensor or an array), H and W
     multiples of 64: pad first, as the codec does. y_q (B, h, w, M) and z_q
@@ -94,10 +110,7 @@ def make_refiner(model, lambda_rd: float, steps: int = 100,
     runs over the latents; the model's parameters are frozen for the call
     and their requires_grad flags restored afterwards.
     """
-    if not isinstance(model, JointAutoregressiveHierarchical):
-        raise NotImplementedError(
-            f"latent refinement of {type(model).__name__} is not ported: this package has "
-            f"the joint autoregressive family only")
+    _mode(model)  # raises for a family that is not ported
 
     def refine(x):
         y, z, metrics = _refine(model, x, lambda_rd, steps, lr)

@@ -1,7 +1,11 @@
 """Joint autoregressive + hierarchical-prior model (Minnen et al. 2018), port
 of models/joint_ar.py: the 5x5 conv/GDN transforms, factorized hyper-
 bottleneck, masked-conv context and entropy parameters, with a mean-scale
-Gaussian (K=1) or K-component Gaussian mixture conditional.
+Gaussian (K=1) or K-component Gaussian mixture conditional. The part every
+hierarchical family shares (transforms, quantization, the conditional
+likelihood, the forward's contract) is ``HierarchicalModel`` here; the
+hyperprior and checkerboard families (``models/hyperprior.py``,
+``models/checkerboard.py``) differ only in their entropy parameters.
 
 Quantization as in the JAX model: training adds U(-0.5, 0.5) noise to both
 z and y (float32, drawn on the model's device from the caller's
@@ -56,56 +60,65 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
-class JointAutoregressiveHierarchical(nn.Module):
-    """latent_channels: M (hyper channels H == M). K: 1 -> mean-scale
-    Gaussian; K > 1 -> Gaussian mixture. dtype: transform compute dtype
+def conditional_likelihood(K: int, y_in: torch.Tensor, params_t):
+    """(params, p_y, logp_y) of y_in (B, h, w, M) under the entropy
+    parameters params_t: {mu, sigma} and the Gaussian likelihood (K=1), or
+    {weights, mus, sigmas} and the mixture kernel's log-likelihood (K>1,
+    p_y = exp(logp_y))."""
+    if K == 1:
+        mu, sigma = params_t
+        p_y = gaussian_likelihood(y_in, mu, sigma)
+        return {"mu": mu, "sigma": sigma}, p_y, torch.log(p_y)
+    weights, mus, sigmas = (t.contiguous() for t in params_t)
+    b, h, w, k, m = weights.shape
+    logp_y = gmm_logp(y_in.reshape(-1, m), weights.view(-1, k, m),
+                      mus.view(-1, k, m), sigmas.view(-1, k, m)).view(b, h, w, m)
+    return {"weights": weights, "mus": mus, "sigmas": sigmas}, torch.exp(logp_y), logp_y
+
+
+class HierarchicalModel(nn.Module):
+    """What the hierarchical families share: the 5x5 conv/GDN transforms,
+    the factorized hyper-bottleneck, quantization and the forward. A family
+    adds its entropy-parameter modules and ``_entropy_params(y_in, z_in)``.
+
+    latent_channels: M (hyper channels H == M). K: 1 -> mean-scale
+    Gaussian; K > 1 -> Gaussian mixture. transform: "conv5x5" (the 3x3
+    residual transforms are not ported). dtype: transform compute dtype
     (e.g. torch.bfloat16); entropy math stays float32. seed: the weights'
     init, drawn on the CPU so one seed gives one model on every device."""
 
-    def __init__(self, latent_channels: int = 192, K: int = 1,
-                 dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
-                 seed: int = 0):
-        super().__init__()
+    def _build_transforms(self, latent_channels: int, K: int, transform: str,
+                          dtype: Optional[torch.dtype], device: DeviceLike, seed: int) -> dict:
+        """Check the arguments and build the shared modules; returns the
+        keyword arguments (dtype, device, the init generator) for the
+        family's own modules, to be built after these."""
         if latent_channels < 1:
             raise ValueError(f"latent_channels must be >= 1, got {latent_channels}")
         if K < 1:
             raise ValueError(f"K must be >= 1, got {K}")
+        if transform != "conv5x5":
+            raise NotImplementedError(
+                f"transform {transform!r} is not ported: this package has the 5x5 conv/GDN "
+                f"transforms ('conv5x5') only")
         device = resolve_device(device)
         self.latent_channels, self.K, self.dtype = latent_channels, K, dtype
+        self.transform = transform
         m = latent_channels
-        kw = dict(dtype=dtype, device=device,
-                  generator=torch.Generator().manual_seed(seed))
+        kw = dict(dtype=dtype, device=device, generator=torch.Generator().manual_seed(seed))
         self.encoder = Encoder5x5(m, **kw)
         self.decoder = Decoder5x5(m, **kw)
         self.hyper_encoder = HyperEncoder5x5(m, **kw)
         self.hyper_decoder = HyperDecoder5x5(m, **kw)
         self.factorized_entropy_model = FactorizedEntropyBottleneck(
             m, device=device, generator=kw["generator"])
-        self.context_model = ContextModel(m, **kw)
-        self.entropy_parameters = EntropyParameters(m, m, K, **kw)
+        return kw
 
-    def entropy_params_from_latents(self, y_in: torch.Tensor, z_in: torch.Tensor):
-        """psi = hyperdec(z_in), phi = context(y_in) -> conditional params.
-        y_in (B, h, w, M) and z_in (B, h/4, w/4, M), NHWC."""
-        psi = self.hyper_decoder(_nchw(z_in))
-        phi = self.context_model(_nchw(y_in))
-        combined = torch.cat([phi, psi], dim=1)
-        return self.entropy_parameters(combined)
+    @property
+    def distribution(self) -> str:
+        return "Mean-Scale Gaussian" if self.K == 1 else "Mixture of Gaussians"
 
-    def conditional_likelihood(self, y_in: torch.Tensor, params_t):
-        """(params, p_y, logp_y) of y_in (B, h, w, M) under the entropy
-        parameters params_t: {mu, sigma} and the Gaussian likelihood (K=1),
-        or {weights, mus, sigmas} and the mixture kernel's log-likelihood
-        (K>1, p_y = exp(logp_y))."""
-        if self.K == 1:
-            mu, sigma = params_t
-            p_y = gaussian_likelihood(y_in, mu, sigma)
-            return {"mu": mu, "sigma": sigma}, p_y, torch.log(p_y)
-        weights, mus, sigmas = (t.contiguous() for t in params_t)
-        b, h, w, k, m = weights.shape
-        logp_y = gmm_logp(y_in.reshape(-1, m), weights.view(-1, k, m),
-                          mus.view(-1, k, m), sigmas.view(-1, k, m)).view(b, h, w, m)
-        return {"weights": weights, "mus": mus, "sigmas": sigmas}, torch.exp(logp_y), logp_y
+    def _entropy_params(self, y_in: torch.Tensor, z_in: torch.Tensor):
+        raise NotImplementedError
 
     def forward(self, x: torch.Tensor, training: bool = True,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -130,8 +143,8 @@ class JointAutoregressiveHierarchical(nn.Module):
         z_in = quantize(z.float(), training, generator)
         y_in = quantize(y.float(), training, generator)
 
-        params, p_y, logp_y = self.conditional_likelihood(
-            y_in, self.entropy_params_from_latents(y_in, z_in))
+        params, p_y, logp_y = conditional_likelihood(self.K, y_in,
+                                                     self._entropy_params(y_in, z_in))
         p_z = self.factorized_entropy_model(z_in)
         logp_z = torch.log(p_z)
 
@@ -151,3 +164,27 @@ class JointAutoregressiveHierarchical(nn.Module):
         }
         out.update(params)
         return out
+
+
+class JointAutoregressiveHierarchical(HierarchicalModel):
+    """The hierarchical prior with the masked 5x5 context (serial decode:
+    the codec's host wavefront). Arguments as ``HierarchicalModel``'s."""
+
+    def __init__(self, latent_channels: int = 192, K: int = 1,
+                 dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
+                 seed: int = 0):
+        super().__init__()
+        kw = self._build_transforms(latent_channels, K, "conv5x5", dtype, device, seed)
+        m = latent_channels
+        self.context_model = ContextModel(m, **kw)
+        self.entropy_parameters = EntropyParameters(m, m, K, **kw)
+
+    def entropy_params_from_latents(self, y_in: torch.Tensor, z_in: torch.Tensor):
+        """psi = hyperdec(z_in), phi = context(y_in) -> conditional params.
+        y_in (B, h, w, M) and z_in (B, h/4, w/4, M), NHWC."""
+        psi = self.hyper_decoder(_nchw(z_in))
+        phi = self.context_model(_nchw(y_in))
+        combined = torch.cat([phi, psi], dim=1)
+        return self.entropy_parameters(combined)
+
+    _entropy_params = entropy_params_from_latents

@@ -29,7 +29,9 @@ def make_serving_fn(model):
             def bpp(logp):
                 return -torch.sum(logp.float(), dim=tuple(range(1, logp.dim()))) / LOG2 / npix
 
-            bpp_y = bpp(out["logp_y"])
+            # the y rate: every logp_* stream but z (a two-layer model splits
+            # y into logp_y1 and logp_y2)
+            bpp_y = sum(bpp(v) for k, v in out.items() if k.startswith("logp_") and k != "logp_z")
             bpp_z = bpp(out["logp_z"])
             return {"x_hat": torch.clamp(out["x_hat"].float(), 0.0, 1.0),
                     "bpp_y": bpp_y, "bpp_z": bpp_z, "bpp_total": bpp_y + bpp_z}

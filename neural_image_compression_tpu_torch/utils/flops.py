@@ -1,7 +1,9 @@
-"""Analytic FLOP counts of the flagship's networks, the port's own copy of
-the JAX package's utils/flops.py (``joint_ar_eval_flops`` for the 5x5
-transforms, ``train_step_flops``, ``mfu``), with the card's peaks in place
-of the TPU's.
+"""Analytic FLOP counts of the hierarchical families' networks, the port's
+own copy of the JAX package's utils/flops.py (``joint_ar_eval_flops`` and
+``hyperprior_eval_flops`` for the 5x5 transforms, ``train_step_flops``,
+``mfu``), with the card's peaks in place of the TPU's. The checkerboard
+model's count is ``joint_ar_eval_flops``: its context conv has the masked
+conv's shape.
 
 Multiply-accumulates count 2 for every conv, deconv and GDN product on the
 eval forward, per image; deconvs count input_pixels * k^2 * Cin * Cout * 2,
@@ -60,6 +62,21 @@ def joint_ar_eval_flops(M: int, K: int, H: int, W: int) -> Dict[str, int]:
     # likelihoods, quantization and the rest: ~100 FLOPs per latent and component
     out["elementwise"] = 100 * (h16 * w16 * M * K + h64 * w64 * M)
     out["total"] = sum(out.values())
+    return out
+
+
+def hyperprior_eval_flops(M: int, K: int, H: int, W: int) -> Dict[str, int]:
+    """Per-image eval-forward FLOPs of MeanScaleHyperprior: the joint-AR
+    count without the context conv, the entropy-parameter net contracting
+    over psi's 2M channels instead of 4M."""
+    out = dict(joint_ar_eval_flops(M, K, H, W))
+    h16, w16 = H // 16, W // 16
+    del out["context"]
+    ep_out = 2 * M if K == 1 else 3 * K * M
+    out["entropy_parameters"] = (
+        _conv(h16, w16, 1, 2 * M, 640) + _conv(h16, w16, 1, 640, 640)
+        + _conv(h16, w16, 1, 640, ep_out))
+    out["total"] = sum(v for k, v in out.items() if k != "total")
     return out
 
 

@@ -1,9 +1,11 @@
 """Carry the JAX package's flax parameters into the port.
 
 The port's modules are named after the JAX parameter tree (``encoder.
-Conv2d_0``, ``decoder.GDN_1``, ``context_model.MaskedConv2d_0``, ...), so a
-tree leaf at path ``a/b/leaf`` becomes the ``state_dict`` entry ``a.b.<name>``
-with a layout change where the two frameworks differ:
+Conv2d_0``, ``decoder.GDN_1``, ``context_model.MaskedConv2d_0``, the
+checkerboard's ``context_model.Conv2d_0``, ...), so a tree leaf at path
+``a/b/leaf`` becomes the ``state_dict`` entry ``a.b.<name>`` with a layout
+change where the two frameworks differ. The walk goes by names alone, so it
+serves every hierarchical family (joint-AR, checkerboard, hyperprior):
 
 * conv kernel (HWIO, under ``Conv2d_*`` / ``MaskedConv2d_*``) -> ``weight``
   OIHW;
@@ -41,8 +43,9 @@ def _convert(path: str, module: str, leaf: str, value: np.ndarray):
 
 
 def joint_ar_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax param tree of models.joint_ar.JointAutoregressiveHierarchical
-    (the ``params`` collection) -> the port's state_dict (CPU tensors)."""
+    """Flax param tree of a hierarchical model (the ``params`` collection of
+    the JAX package's JointAutoregressiveHierarchical, CheckerboardHierarchical
+    or MeanScaleHyperprior) -> the port's state_dict (CPU tensors)."""
     state: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: tuple):
@@ -78,10 +81,9 @@ def _to_jax(key: str, value: np.ndarray):
 
 
 def joint_ar_params_to_jax(model: nn.Module) -> Dict:
-    """The model's parameters as the flax ``params`` tree of
-    models.joint_ar.JointAutoregressiveHierarchical: float32 numpy copies
-    (whatever the model's dtype) in the JAX layouts, the inverse of
-    ``joint_ar_state_from_jax``."""
+    """The model's parameters as the flax ``params`` tree of the same family
+    in the JAX package: float32 numpy copies (whatever the model's dtype) in
+    the JAX layouts, the inverse of ``joint_ar_state_from_jax``."""
     params: Dict = {}
     for key, tensor in model.state_dict().items():
         leaf, value = _to_jax(key, tensor.detach().to("cpu", torch.float32).numpy())

@@ -97,9 +97,14 @@ def test_out_of_spec_cards_raise(rig):
     card = rig[6]
     arrays = dict(card._arrays())
     arrays["meta"] = arrays["meta"].copy()
-    arrays["meta"][5] = 1  # a checkerboard-family card
-    with pytest.raises(ValueError, match="family 1"):
+    arrays["meta"][5] = 3  # no such family (0 wavefront, 1 checkerboard, 2 hyperprior)
+    with pytest.raises(ValueError, match="unknown card family 3"):
         PortableCard._from_mapping(arrays)
+    # a checkerboard-family card loads, and the wavefront coder refuses it
+    arrays["meta"][5] = 1
+    y_q, psi_fix, _, _ = _latents(card, "plain", seed=5)
+    with pytest.raises(ValueError, match="not a wavefront-family card"):
+        portable_ar_encode(PortableCard._from_mapping(arrays), y_q, psi_fix)
     arrays["meta"][0] = 1
     with pytest.raises(ValueError, match="card version 1"):
         PortableCard._from_mapping(arrays)

@@ -14,10 +14,14 @@ import torch
 
 from neural_image_compression_tpu import serving as jserving
 from neural_image_compression_tpu.models import JointAutoregressiveHierarchical as JModel
+from neural_image_compression_tpu.models.checkerboard import CheckerboardHierarchical as JCheckerboard
+from neural_image_compression_tpu.models.hyperprior import MeanScaleHyperprior as JHyperprior
 from neural_image_compression_tpu.train import rd_loss as jrd_loss
 from neural_image_compression_tpu.utils import flops as jflops
 from neural_image_compression_tpu_torch import serving
-from neural_image_compression_tpu_torch.models import JointAutoregressiveHierarchical
+from neural_image_compression_tpu_torch.models import (
+    CheckerboardHierarchical, JointAutoregressiveHierarchical, MeanScaleHyperprior,
+)
 from neural_image_compression_tpu_torch.train import rd_loss
 from neural_image_compression_tpu_torch.utils import flops
 from neural_image_compression_tpu_torch.utils.weights import load_jax_params
@@ -73,6 +77,56 @@ def test_serving_fn_matches_jax(K):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5, err_msg=k)
     np.testing.assert_allclose(got["x_hat"].numpy(), np.asarray(want["x_hat"]), atol=1e-5)
     assert float(got["x_hat"].min()) >= 0.0 and float(got["x_hat"].max()) <= 1.0
+
+
+@pytest.mark.parametrize("jcls,cls", [(JHyperprior, MeanScaleHyperprior),
+                                      (JCheckerboard, CheckerboardHierarchical)],
+                         ids=["hyperprior", "checkerboard"])
+def test_serving_fn_of_the_parallel_families_matches_jax(jcls, cls):
+    x = np.random.default_rng(4).uniform(size=(2, 64, 64, 3)).astype(np.float32)
+    jmodel = jcls(latent_channels=8, K=3)
+    key = jax.random.PRNGKey(4)
+    params = jmodel.init({"params": key, "noise": key}, jnp.asarray(x), training=False)["params"]
+    want = jserving.make_serving_fn(jmodel, params)(jnp.asarray(x))
+    got = serving.make_serving_fn(load_jax_params(cls(8, 3, device="cpu"),
+                                                  jax.tree.map(np.asarray, params)))(x)
+    for k in ("bpp_y", "bpp_z", "bpp_total"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(got["x_hat"].numpy(), np.asarray(want["x_hat"]), atol=1e-5)
+
+
+class _TwoLayerStub(torch.nn.Module):
+    """A model whose y rate comes in two streams, as the scalable family's."""
+
+    def __init__(self, logp):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.zeros(()))
+        self.logp = logp
+
+    def forward(self, x, training=True):
+        return dict(self.logp, x_hat=x + self.w)
+
+
+def test_serving_bpp_y_sums_every_y_stream():
+    """bpp_y is the sum over every logp_* but logp_z, as JAX serving.py
+    does for a two-layer model (logp_y1, logp_y2)."""
+    rng = np.random.default_rng(9)
+    logp = {k: np.log(rng.uniform(1e-3, 1, size=(2, 4, 4, c))).astype(np.float32)
+            for k, c in (("logp_y1", 5), ("logp_y2", 3), ("logp_z", 4))}
+    x = rng.uniform(size=(2, 64, 64, 3)).astype(np.float32)
+
+    class JStub:
+        def apply(self, variables, xx, training):
+            return dict({k: jnp.asarray(v) for k, v in logp.items()}, x_hat=xx)
+
+    want = jserving.make_serving_fn(JStub(), {})(jnp.asarray(x))
+    got = serving.make_serving_fn(_TwoLayerStub({k: torch.from_numpy(v)
+                                                 for k, v in logp.items()}))(x)
+    npix = 64.0 * 64.0
+    bits_y = -(logp["logp_y1"].sum(axis=(1, 2, 3)) + logp["logp_y2"].sum(axis=(1, 2, 3)))
+    np.testing.assert_allclose(got["bpp_y"].numpy(), bits_y / np.log(2) / npix, rtol=1e-5)
+    for k in ("bpp_y", "bpp_z", "bpp_total"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5, err_msg=k)
 
 
 def test_serving_bpp_matches_rd_loss():

@@ -3,8 +3,9 @@
 training step, its Trainer or its latent refinement.
 
 Profiles, with torch.profiler on one CUDA card, the flagship
-(JointAutoregressiveHierarchical, M=128, K=3) in float32 and bfloat16
-transforms: by default the eval forward through make_serving_fn at 768x512,
+(JointAutoregressiveHierarchical, M=128, K=3), or with --family another
+hierarchical family at the same widths (MeanScaleHyperprior,
+CheckerboardHierarchical), in float32 and bfloat16 transforms: by default the eval forward through make_serving_fn at 768x512,
 batch 48 and batch 1; with --train the training step through
 make_train_step (batch 16 of 256x256, rd_loss at lambda 0.005, Adam 1e-4);
 with --trainer a step of train.Trainer (the same batch and loss, the
@@ -22,6 +23,7 @@ device time), then one JSON line with the same numbers. Imports only the
 port, never JAX; TF32 off as in chip_smoke.py.
 
     python3 tools/profile_torch_serve.py [--train | --trainer | --refine]
+        [--family joint_ar|hyperprior|checkerboard]
 """
 
 import argparse
@@ -40,7 +42,9 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from neural_image_compression_tpu_torch.coding import make_refiner  # noqa: E402
-from neural_image_compression_tpu_torch.models import JointAutoregressiveHierarchical  # noqa: E402
+from neural_image_compression_tpu_torch.models import (  # noqa: E402
+    CheckerboardHierarchical, JointAutoregressiveHierarchical, MeanScaleHyperprior,
+)
 from neural_image_compression_tpu_torch.ops.kernels import gdn_kernel  # noqa: E402
 from neural_image_compression_tpu_torch.parallel import make_train_step  # noqa: E402
 from neural_image_compression_tpu_torch.serving import make_serving_fn  # noqa: E402
@@ -49,6 +53,10 @@ from neural_image_compression_tpu_torch.train import MetricsLogger, Trainer, rd_
 from neural_image_compression_tpu_torch.train import trainer as trainer_module  # noqa: E402
 
 ITERS = 3
+FAMILIES = {"joint_ar": JointAutoregressiveHierarchical, "hyperprior": MeanScaleHyperprior,
+            "checkerboard": CheckerboardHierarchical}
+# the profiled family's model class (--family)
+MODEL = JointAutoregressiveHierarchical
 
 
 def layer_of(kernel_name: str) -> str:
@@ -115,7 +123,7 @@ def profile_serve(card):
         size=(48, 512, 768, 3)).astype(np.float32)).cuda()
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
-        serve = make_serving_fn(JointAutoregressiveHierarchical(128, 3, dtype=dtype, device="cuda"))
+        serve = make_serving_fn(MODEL(128, 3, dtype=dtype, device="cuda"))
         for batch in (48, 1):
             tag = f"{str(dtype).replace('torch.', '')} batch {batch}"
             results[tag] = profile_config(serve, x48[:batch].contiguous())
@@ -141,7 +149,7 @@ def profile_train(card):
     gdn_kernel._GDN.backward = staticmethod(tallied)
     try:
         for dtype in (torch.bfloat16, torch.float32):
-            model = JointAutoregressiveHierarchical(128, 3, dtype=dtype, device="cuda")
+            model = MODEL(128, 3, dtype=dtype, device="cuda")
             opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
             step = make_train_step(model, opt, rd_loss, 0.005)
             tag = f"{str(dtype).replace('torch.', '')} train step, batch 16 of 256x256"
@@ -221,13 +229,13 @@ def profile_trainer(card):
             name = str(dtype).replace("torch.", "")
 
             def bare():
-                model = JointAutoregressiveHierarchical(128, 3, dtype=dtype, device="cuda")
+                model = MODEL(128, 3, dtype=dtype, device="cuda")
                 opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
                 return make_train_step(model, opt, rd_loss, 0.005)
 
             def trainer(interval, loader=None, tensorboard=True):
                 log_dir = os.path.join(tmp, f"{name}_{interval}_{len(results)}")
-                t = Trainer(JointAutoregressiveHierarchical(128, 3, dtype=dtype, device="cuda"),
+                t = Trainer(MODEL(128, 3, dtype=dtype, device="cuda"),
                             loader or [x], lambda_val=0.005, scalar_interval=interval,
                             log_interval=10 ** 9, img_interval=10 ** 9, log_dir=log_dir,
                             checkpoint_path=None)
@@ -278,7 +286,7 @@ def profile_refine(card):
         size=(1, 512, 768, 3)).astype(np.float32)).cuda()
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
-        refine = make_refiner(JointAutoregressiveHierarchical(128, 3, dtype=dtype, device="cuda"),
+        refine = make_refiner(MODEL(128, 3, dtype=dtype, device="cuda"),
                               0.005, steps=20, lr=1e-2)
         tag = f"{str(dtype).replace('torch.', '')} refine, 20 steps, 1x768x512"
         results[tag] = profile_config(refine, x)
@@ -295,7 +303,11 @@ def main() -> int:
                       help="profile a train.Trainer step against the bare training step")
     mode.add_argument("--refine", action="store_true",
                       help="profile latent refinement instead of the serving forward")
+    parser.add_argument("--family", choices=sorted(FAMILIES), default="joint_ar",
+                        help="the model family to profile (M=128, K=3 each)")
     args = parser.parse_args()
+    global MODEL
+    MODEL = FAMILIES[args.family]
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
@@ -303,11 +315,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {card}")
+    print(f"card: {card}, family {args.family} ({MODEL.__name__})")
     results = (profile_train(card) if args.train else
                profile_trainer(card) if args.trainer else
                profile_refine(card) if args.refine else profile_serve(card))
-    print(json.dumps({"card": card, "profile": results}))
+    print(json.dumps({"card": card, "family": args.family, "profile": results}))
     return 0
 
 
