@@ -42,18 +42,21 @@ Phases, in order; any failure exits non-zero:
      float stream, latency; at 64x128 the native and numpy coders write the
      same bytes).
   7. the Trainer and the evaluator (see trainer_phase).
-  8. the parallel-decode families, MeanScaleHyperprior and
-     CheckerboardHierarchical at M = 128, K = 3, each: card-vs-CPU parity
-     of the eval forward (2x256x256), then its main path: serve (as phase
-     4), train (as phase 5, its own FLOP count for the MFU), and its codec
-     on one 768x512 image (uint8 and float32, f32 and bf16 models,
-     n_streams 1 and 8: exact latents, decompress against the eval forward,
-     bits against the analytic rate with 8 bytes a lane, encode and decode
-     latency split into device stages (analysis, the parameter passes,
-     synthesis) and host stages (the z coder, the y rANS), TF32 and
-     autotuning on at encode against off at decode, a batch of 8 against
-     8 single calls, refinement, and portable streams from a card built
-     here).
+  8. the other families at M = 128: MeanScaleHyperprior,
+     CheckerboardHierarchical and ChannelCheckerboardHierarchical (K = 3,
+     groups (16, 16, 32, 64)), and FactorizedPrior, each: card-vs-CPU
+     parity of the eval forward (2x256x256), then its main path: serve (as
+     phase 4), train (as phase 5, its own FLOP count for the MFU), and its
+     codec on one 768x512 image (uint8 and float32, f32 and bf16 models:
+     exact latents, decompress against the eval forward, bits against the
+     analytic rate, encode and decode latency split into device stages
+     (analysis, the parameter passes, synthesis) and host stages (the z
+     coder, the y rANS)); for the three parallel-decode families also
+     n_streams 1 and 8 (8 bytes a lane), TF32 and autotuning on at encode
+     against off at decode and a batch of 8 against 8 single calls; then
+     refinement, and portable streams from a card (set) built here. The
+     factorized prior launches no mixture kernel: 6/0/0/0 a forward and
+     6/6/0/0 a step.
 Phases 4, 5, 6, 7 and each family of phase 8 are the main paths: the
 kernels' launch counts are set to 0 just before each and read just after
 it, and the kernels' record adds them up.
@@ -80,7 +83,9 @@ import numpy as np
 import torch
 
 from neural_image_compression_tpu_torch.coding import (
-    CheckerboardCodec, JointARCodec, MeanScaleHyperpriorCodec, PortableCard, make_refiner,
+    ChannelCBCards, ChannelCheckerboardCodec, CheckerboardCodec, FactorizedCard,
+    FactorizedPriorCodec, JointARCodec, MeanScaleHyperpriorCodec, PortableCard,
+    build_channel_cb_cards, make_refiner,
 )
 from neural_image_compression_tpu_torch.coding import portable
 from neural_image_compression_tpu_torch.coding import backend as rans_backend
@@ -90,7 +95,8 @@ from neural_image_compression_tpu_torch.evaluation import (
     CompressionEvaluator, ms_ssim, rgb_to_luma,
 )
 from neural_image_compression_tpu_torch.models import (
-    CheckerboardHierarchical, JointAutoregressiveHierarchical, MeanScaleHyperprior, joint_ar,
+    ChannelCheckerboardHierarchical, CheckerboardHierarchical, FactorizedPrior,
+    JointAutoregressiveHierarchical, MeanScaleHyperprior, joint_ar,
 )
 from neural_image_compression_tpu_torch.ops.kernels import (
     _build, gdn_kernel, gmm_kernel, launch_counts, reset_launch_counts,
@@ -507,11 +513,13 @@ def gained_model(device, dtype=None, cls=JointAutoregressiveHierarchical):
     parity gains on the last analysis convs, so that y and z spread over
     several integers."""
     model = cls(M, K, dtype=dtype, device=device, seed=PARITY_SEED)
+    hyper = getattr(model, "hyper_encoder", None)  # the factorized prior has none
     with torch.no_grad():
         for conv, gain in ((model.encoder.Conv2d_3, PARITY_GAIN_Y),
-                           (model.hyper_encoder.Conv2d_2, PARITY_GAIN_Z)):
-            conv.weight.mul_(gain)
-            conv.bias.mul_(gain)
+                           (None if hyper is None else hyper.Conv2d_2, PARITY_GAIN_Z)):
+            if conv is not None:
+                conv.weight.mul_(gain)
+                conv.bias.mul_(gain)
     return model
 
 
@@ -535,6 +543,8 @@ def parity(dev, cls=JointAutoregressiveHierarchical):
     tolerances = {"x_hat": 1e-4, "logp_y": 1e-4, "logp_z": 1e-4, "weights": 1e-5,
                   "mus": 1e-4, "sigmas": 1e-4}
     for key, tol in tolerances.items():
+        if key not in ref:  # the factorized prior has no mixture
+            continue
         err = (got[key] - ref[key]).abs().max().item()
         print(f"  {key}: max abs diff {err:.3e} (tolerance {tol:g})")
         check(torch.allclose(got[key], ref[key], rtol=tol, atol=tol), f"{key} max diff {err:.3e}")
@@ -600,7 +610,11 @@ def grad_parity(dev):
 
 # --- phase 4: the main path ---------------------------------------------------
 
-def serve_phase(dev, card: str, cls=JointAutoregressiveHierarchical):
+def serve_phase(dev, card: str, cls=JointAutoregressiveHierarchical,
+                gmm_per_forward=GMM_PER_FORWARD, z_rate=True):
+    """serve() at batch 48 and 1 in f32 and bf16. gmm_per_forward: the
+    family's mixture launches a forward; z_rate False: the family has no z,
+    so bpp_z must be 0 (else positive)."""
     rng = np.random.default_rng(2)
     x48 = torch.from_numpy(rng.uniform(size=(BATCH, HEIGHT, WIDTH, 3)).astype(np.float32)).to(dev)
     x1 = x48[:1].contiguous()
@@ -615,12 +629,15 @@ def serve_phase(dev, card: str, cls=JointAutoregressiveHierarchical):
         torch.cuda.synchronize()
         forwards += 1
         after = (gdn_kernel.gdn.launches, gmm_kernel.gmm_logp.launches)
-        check(after[0] - before[0] == GDN_PER_FORWARD and after[1] - before[1] == GMM_PER_FORWARD,
+        check(after[0] - before[0] == GDN_PER_FORWARD and after[1] - before[1] == gmm_per_forward,
               f"one forward launched {after[0] - before[0]} gdn and {after[1] - before[1]} gmm")
         check(out["x_hat"].shape == (BATCH, HEIGHT, WIDTH, 3), "x_hat shape")
         check(bool(torch.isfinite(out["x_hat"]).all()), "x_hat not finite")
         for key in ("bpp_y", "bpp_z", "bpp_total"):
             check(out[key].shape == (BATCH,), f"{key} shape")
+            if key == "bpp_z" and not z_rate:
+                check(bool((out[key] == 0).all()), "bpp_z of a family without z is not 0")
+                continue
             check(bool(torch.isfinite(out[key]).all() and (out[key] > 0).all()),
                   f"{key} not finite and positive")
         times = []
@@ -656,9 +673,11 @@ def serve_phase(dev, card: str, cls=JointAutoregressiveHierarchical):
 
 # --- phase 5: the training step -------------------------------------------------
 
-def train_run(dev, dtype, x, seed, steps, timed=False, cls=JointAutoregressiveHierarchical):
-    """``steps`` steps of a fresh model (weights from ``seed``) on batch x.
-    Returns the losses (tensors), per-step host times and the peak memory."""
+def train_run(dev, dtype, x, seed, steps, timed=False, cls=JointAutoregressiveHierarchical,
+              per_step=PER_STEP):
+    """``steps`` steps of a fresh model (weights from ``seed``) on batch x,
+    each launching ``per_step``. Returns the losses (tensors), per-step host
+    times and the peak memory."""
     model = cls(M, K, dtype=dtype, device=dev, seed=seed)
     opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
     step = make_train_step(model, opt, rd_loss, LAMBDA)
@@ -677,14 +696,14 @@ def train_run(dev, dtype, x, seed, steps, timed=False, cls=JointAutoregressiveHi
         times.append(time.perf_counter() - t0)
         after = launch_counts()
         launched = {k: after[k] - before[k] for k in after}
-        check(launched == PER_STEP, f"one step launched {launched}, not {PER_STEP}")
+        check(launched == per_step, f"one step launched {launched}, not {per_step}")
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     del model, opt, step
     return torch.stack(losses).cpu(), times, peak
 
 
 def train_phase(dev, card: str, cls=JointAutoregressiveHierarchical,
-                eval_flops=flops.joint_ar_eval_flops):
+                eval_flops=flops.joint_ar_eval_flops, per_step=PER_STEP):
     x = torch.rand((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
                    generator=torch.Generator(device=dev).manual_seed(7), device=dev)
     flops_img = flops.train_step_flops(eval_flops(M, K, TRAIN_SIZE, TRAIN_SIZE)["total"])
@@ -693,9 +712,10 @@ def train_phase(dev, card: str, cls=JointAutoregressiveHierarchical,
     for dtype, peak_name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         name = str(dtype).replace("torch.", "")
         losses, times, peak_mem = train_run(dev, dtype, x, seed=0, steps=TRAIN_TIMED,
-                                            timed=True, cls=cls)
+                                            timed=True, cls=cls, per_step=per_step)
         check(bool(torch.isfinite(losses).all()), f"{name}: a loss is not finite: {losses}")
-        conv, _, _ = train_run(dev, dtype, x, seed=1, steps=TRAIN_CONVERGE, cls=cls)
+        conv, _, _ = train_run(dev, dtype, x, seed=1, steps=TRAIN_CONVERGE, cls=cls,
+                               per_step=per_step)
         check(bool(torch.isfinite(conv).all()), f"{name}: a loss is not finite: {conv}")
         first, last = conv[:10].mean().item(), conv[20:30].mean().item()
         check(last < first, f"{name}: mean loss of steps 21-30 {last} not below steps 1-10 {first}")
@@ -1107,51 +1127,58 @@ def codec_batch_case(total, codec, xs, refs, dname, iters=BATCH_ITERS):
     return r
 
 
-def refine_case(total, model, codec, x, dev, dname):
+def refine_case(total, model, codec, x, dev, dname, per_call=REFINE_PER_CALL,
+                zero_steps=REFINE_ZERO_STEPS):
     """REFINE_STEPS Adam steps on one image's latents: the loss falls, the
-    refined latents round trip through the codec, the launches per call,
-    and ms a step (a call of REFINE_STEPS steps less one of none)."""
+    refined latents round trip through the codec, the launches per call
+    (``per_call``; ``zero_steps`` for a call of none), and ms a step (a call
+    of REFINE_STEPS steps less one of none)."""
     xd = torch.from_numpy(x).to(dev)
     refine = make_refiner(model, LAMBDA, steps=REFINE_STEPS, lr=REFINE_LR)
-    (y_q, z_q, m), _ = counted(total, REFINE_PER_CALL, refine, xd)
+    (y_q, z_q, m), _ = counted(total, per_call, refine, xd)
     pre, post = m["pre_loss"].item(), m["post_loss"].item()
     check(np.isfinite(pre) and np.isfinite(post) and post <= pre,
           f"{dname} refine: loss {pre} -> {post}")
-    data, _ = counted(total, NO_LAUNCHES, codec.compress_latents, y_q, z_q, HEIGHT, WIDTH)
+    # keywords: the factorized codec's compress_latents is (y_q, img_h, img_w, z_q=None)
+    data, _ = counted(total, NO_LAUNCHES, functools.partial(
+        codec.compress_latents, y_q, z_q=z_q, img_h=HEIGHT, img_w=WIDTH))
     y_d, z_d = counted(total, NO_LAUNCHES, codec.decode_latents, data)[0]
     check(np.array_equal(y_d, y_q[0].cpu().numpy()) and np.array_equal(z_d, z_q[0].cpu().numpy()),
           f"{dname} refine: the refined latents do not round trip")
     none = make_refiner(model, LAMBDA, steps=0, lr=REFINE_LR)
-    full_ms = 1e3 * statistics.median(counted(total, REFINE_PER_CALL, refine, xd)[1]
+    full_ms = 1e3 * statistics.median(counted(total, per_call, refine, xd)[1]
                                       for _ in range(REFINE_ITERS))
-    zero_ms = 1e3 * statistics.median(counted(total, REFINE_ZERO_STEPS, none, xd)[1]
+    zero_ms = 1e3 * statistics.median(counted(total, zero_steps, none, xd)[1]
                                       for _ in range(REFINE_ITERS))
     r = dict(pre_loss=pre, post_loss=post, pre_bpp=m["pre_bpp_total"].item(),
              post_bpp=m["post_bpp_total"].item(), pre_psnr=m["pre_psnr"].item(),
              post_psnr=m["post_psnr"].item(), refine_ms=full_ms, no_steps_ms=zero_ms,
              ms_per_step=(full_ms - zero_ms) / REFINE_STEPS, stream_bytes=len(data),
-             launches_per_call=REFINE_PER_CALL)
+             launches_per_call=per_call)
     print(f"  {dname} refine {REFINE_STEPS} steps (lr {REFINE_LR}): loss {pre:.4f} -> {post:.4f}, "
           f"bpp {r['pre_bpp']:.5f} -> {r['post_bpp']:.5f}, PSNR {r['pre_psnr']:.3f} -> "
           f"{r['post_psnr']:.3f}; {full_ms:.2f} ms a call, {r['ms_per_step']:.3f} ms a step; "
-          f"round trip exact; launches {REFINE_PER_CALL}", flush=True)
+          f"round trip exact; launches {per_call}", flush=True)
     return r
 
 
 def portable_case(total, model, x, ref, float_bytes, dname, codec_cls=JointARCodec,
-                  coder=(portable.portable_ar_encode, portable.portable_ar_decode)):
+                  coder=(portable.portable_ar_encode, portable.portable_ar_decode),
+                  card_type=(PortableCard.build, PortableCard.load)):
     """A card built here, saved and loaded (same hash); compress_portable's
     latents exact, its rate against the float stream's, encode and decode
     latency; at 64x128 the native and numpy coders (``coder``: the card
-    family's encode and decode) write the same bytes."""
+    family's encode and decode) write the same bytes. card_type: the
+    card's (build, load)."""
     encode, decode = coder
+    build, load = card_type
     t0 = time.perf_counter()
-    card, _ = counted(total, NO_LAUNCHES, PortableCard.build, model)
+    card, _ = counted(total, NO_LAUNCHES, build, model)
     build_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "card.npz")
         card.save(path)
-        loaded = PortableCard.load(path)
+        loaded = load(path)
     check(loaded.hash == card.hash, f"{dname}: the loaded card's hash differs")
     codec = codec_cls(model, portable_card=loaded)
     encode_only = dict(NO_LAUNCHES, gdn=3)
@@ -1233,10 +1260,11 @@ def added(*parts):
     return {k: sum(p[k] for p in parts) for k in parts[0]}
 
 
-def refine_launches(steps):
-    """One refine call of ``steps`` steps (REFINE_PER_CALL's terms)."""
+def refine_launches(steps, mixture=True):
+    """One refine call of ``steps`` steps (REFINE_PER_CALL's terms; no
+    mixture launches for a family without one)."""
     return dict(NO_LAUNCHES, gdn=6 + 3 * steps + 3, gdn_backward=3 * steps,
-                gmm_logp=1 + steps + 1, gmm_logp_backward=steps)
+                gmm_logp=(1 + steps + 1) * mixture, gmm_logp_backward=steps * mixture)
 
 
 def expecting(total, expect, fn, label, calls):
@@ -1495,19 +1523,52 @@ def trainer_phase(dev, card, bare):
     return total, results
 
 
-# --- phase 8: the parallel-decode families -------------------------------------
+# --- phase 8: the other families ------------------------------------------------
 
-# family -> (model, codec, eval FLOPs, the portable card's encode and decode)
+def factorized_prior(latent_channels, K, **kw):
+    """FactorizedPrior with the hierarchical families' call shape (it has
+    no K)."""
+    return FactorizedPrior(latent_channels, **kw)
+
+
+class Family:
+    """One family of phase 8: its model (called as cls(M, K, ...)), codec
+    and eval FLOPs (called as eval_flops(M, K, H, W)), its portable card's
+    (build, load) and coder (encode, decode), and the kernels' launches of
+    one forward, one train step and one refine call of n steps."""
+
+    def __init__(self, cls, codec, eval_flops, card_type, coder, mixture=True):
+        self.cls, self.codec, self.eval_flops = cls, codec, eval_flops
+        self.card_type, self.coder, self.mixture = card_type, coder, mixture
+        self.parallel = codec is not FactorizedPriorCodec  # lanes, batches, parameter passes
+        self.forward = dict(FORWARD, gmm_logp=GMM_PER_FORWARD * mixture)
+        self.step = dict(PER_STEP, gmm_logp=PER_STEP["gmm_logp"] * mixture,
+                         gmm_logp_backward=PER_STEP["gmm_logp_backward"] * mixture)
+
+    def refine(self, steps):
+        return refine_launches(steps, self.mixture)
+
+
+PORTABLE_CARD = (PortableCard.build, PortableCard.load)
 FAMILIES = {
-    "hyperprior": (MeanScaleHyperprior, MeanScaleHyperpriorCodec, flops.hyperprior_eval_flops,
-                   (portable.portable_hp_encode, portable.portable_hp_decode)),
-    "checkerboard": (CheckerboardHierarchical, CheckerboardCodec, flops.joint_ar_eval_flops,
-                     (portable.portable_cb_encode, portable.portable_cb_decode)),
+    "hyperprior": Family(MeanScaleHyperprior, MeanScaleHyperpriorCodec,
+                         flops.hyperprior_eval_flops, PORTABLE_CARD,
+                         (portable.portable_hp_encode, portable.portable_hp_decode)),
+    "checkerboard": Family(CheckerboardHierarchical, CheckerboardCodec, flops.joint_ar_eval_flops,
+                           PORTABLE_CARD,
+                           (portable.portable_cb_encode, portable.portable_cb_decode)),
+    "channel_cb": Family(ChannelCheckerboardHierarchical, ChannelCheckerboardCodec,
+                         flops.channel_cb_eval_flops,
+                         (build_channel_cb_cards, ChannelCBCards.load),
+                         (portable.portable_ccb_encode, portable.portable_ccb_decode)),
+    "factorized": Family(factorized_prior, FactorizedPriorCodec,
+                         lambda m, k, h, w: flops.factorized_prior_eval_flops(m, h, w),
+                         (FactorizedCard.build, FactorizedCard.load), None, mixture=False),
 }
 FAMILY_STREAMS = (1, 8)
-# phase 8's repeats, cut to keep it near 90 s: medians of 3 codec calls, the
-# device and z stages timed at n_streams 1 only (N lanes change the y rANS
-# alone), one timed batch call
+# phase 8's repeats, cut to keep it near 45 s a family: medians of 3 codec
+# calls, the device and z stages timed at n_streams 1 only (N lanes change
+# the y rANS alone), one timed batch call
 FAMILY_CODEC_ITERS, FAMILY_BATCH_ITERS = 3, 1
 
 
@@ -1519,14 +1580,15 @@ def family_median_ms(total, expect, fn, *args):
 
 
 def decode_y_host(payload, layout, args):
-    """The y rANS decode of one stream given its coder rows (the blocks in
-    stream order), as decode runs it between the parameter passes."""
-    _, mus, sigmas, weights, n_a = args
+    """The y rANS decode of one stream given its coder rows, block by block
+    (the blocks in stream order), as decode runs it between the parameter
+    passes."""
+    _, mus, sigmas, weights, bounds = args
     decs = codec_module._open_lanes(payload, layout)
-    for block in (slice(0, n_a), slice(n_a, len(mus))):
-        if block.stop > block.start:
-            codec_module._decode_block_lanes(decs, mus[block], sigmas[block],
-                                             None if weights is None else weights[block])
+    for b0, b1 in zip(bounds[:-1], bounds[1:]):
+        if b1 > b0:
+            codec_module._decode_block_lanes(decs, mus[b0:b1], sigmas[b0:b1],
+                                             None if weights is None else weights[b0:b1])
     codec_module._finish(decs)
 
 
@@ -1552,10 +1614,10 @@ def family_codec_case(total, codec, x, ref, dname, iname, n_streams, card, share
     args = passes()
 
     def y_encode():
-        sym, mus, sigmas, weights, n_a = args
+        sym, mus, sigmas, weights, bounds = args
         if n_streams == 1:
             return rans_backend.encode_gaussian(sym, mus, sigmas, weights)
-        return codec_module._encode_lanes(sym, mus, sigmas, weights, n_a, n_streams)
+        return codec_module._encode_lanes(sym, mus, sigmas, weights, bounds, n_streams)
 
     stages = {
         "encode_host_y": family_median_ms(total, NO_LAUNCHES, y_encode),
@@ -1591,37 +1653,75 @@ def family_codec_case(total, codec, x, ref, dname, iname, n_streams, card, share
     return r
 
 
+def factorized_codec_case(total, codec, x, ref, dname, iname, card):
+    """The factorized codec on one image: correctness, then latency by
+    stage: device (analysis and its fetch; synthesis) and host (the y
+    tables, cached by range, and the indexed rANS). It has no z, no lanes
+    and no parameter passes."""
+    label = f"{dname} {iname}"
+    data, y_q, _, xhat_err, xhat_note, ratio = codec_round_trip(total, codec, x, ref, dname,
+                                                                iname)
+    header = codec_module._read_header(data, codec.KINDS, codec.NAME)
+    tables = codec._tables(header[7], header[8])
+    stages = dict(
+        encode_analysis=family_median_ms(total, CODEC_PER_CALL, codec._analyse_image, x),
+        encode_host_y=family_median_ms(total, NO_LAUNCHES, codec._encode_from, y_q, HEIGHT,
+                                       WIDTH),
+        decode_host_y=family_median_ms(total, NO_LAUNCHES, codec.decode_latents, data),
+        decode_synthesis=family_median_ms(total, CODEC_PER_CALL, codec._synthesize, y_q[None],
+                                          HEIGHT, WIDTH))
+    r = dict(encode_ms=family_median_ms(total, CODEC_PER_CALL, codec.compress, x),
+             decode_ms=family_median_ms(total, CODEC_PER_CALL, codec.decompress, data),
+             encode_device_ms=stages["encode_analysis"], encode_host_ms=stages["encode_host_y"],
+             decode_device_ms=stages["decode_synthesis"], decode_host_ms=stages["decode_host_y"],
+             stages_ms=stages, stream_bytes=len(data), bpp=8 * len(data) / (HEIGHT * WIDTH),
+             analytic_bpp=ref["bits"] / (HEIGHT * WIDTH), stream_over_analytic=ratio,
+             x_hat_max_abs_diff=xhat_err, y_range=[header[7], header[8]],
+             table_rows=int(tables[0].shape[1]))
+    print(f"  {label}: encode {r['encode_ms']:.2f} ms (device analysis "
+          f"{stages['encode_analysis']:.2f}; host y {stages['encode_host_y']:.2f}), decode "
+          f"{r['decode_ms']:.2f} ms (host y {stages['decode_host_y']:.2f}; device synthesis "
+          f"{stages['decode_synthesis']:.2f}); y in [{header[7]}, {header[8]}]; {r['bpp']:.5f} "
+          f"bpp, {ratio:.5f} of analytic; latents exact, x_hat {xhat_note} [{card}, "
+          f"{os.cpu_count()} host cores]", flush=True)
+    return r
+
+
 def family_numerics_check(total, codec_cls, model, x, dname):
     """Compress with cuDNN autotuning and TF32 on, decode with both off: the
     latents are exact, they re-encode to the same bytes, and the parameter
     passes give the same rows; two fresh codecs write the same bytes."""
+    parallel = codec_cls is not FactorizedPriorCodec
+    lanes = dict(n_streams=FAMILY_STREAMS[-1]) if parallel else {}
     set_fast_numerics(True)
     try:
         fast = codec_cls(model)
-        data, _ = counted(total, CODEC_PER_CALL, fast.compress, x, FAMILY_STREAMS[-1])
+        data, _ = counted(total, CODEC_PER_CALL, functools.partial(fast.compress, **lanes), x)
         check(torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.benchmark
               and torch.backends.cuda.matmul.allow_tf32,
               f"{dname}: the codec did not restore the caller's numerics settings")
         (y_fast, z_fast), _ = counted(total, NO_LAUNCHES, fast.decode_latents, data)
-        rows_fast = fast._coder_args(y_fast, fast._enqueue(z_fast[None]))
+        rows_fast = fast._coder_args(y_fast, fast._enqueue(z_fast[None])) if parallel else ()
     finally:
         set_fast_numerics(False)
     plain = codec_cls(model)
     (y_q, z_q), _ = counted(total, NO_LAUNCHES, plain.decode_latents, data)
     check(np.array_equal(y_q, y_fast) and np.array_equal(z_q, z_fast),
           f"{dname}: latents decoded with TF32 off differ from those decoded with it on")
-    again, _ = counted(total, NO_LAUNCHES, plain.compress_latents, y_q, z_q, HEIGHT, WIDTH,
-                       FAMILY_STREAMS[-1])
+    again, _ = counted(total, NO_LAUNCHES, functools.partial(
+        plain.compress_latents, y_q, z_q=z_q, img_h=HEIGHT, img_w=WIDTH, **lanes))
     check(again == data, f"{dname}: the TF32-on stream's latents re-encode to other bytes")
-    rows = plain._coder_args(y_q, plain._enqueue(z_q[None]))
-    check(all(a is b or np.array_equal(a, b) for a, b in zip(rows, rows_fast)),
-          f"{dname}: the parameter passes depend on TF32")
+    if parallel:
+        rows = plain._coder_args(y_q, plain._enqueue(z_q[None]))
+        check(all(a is b or np.array_equal(a, b) for a, b in zip(rows, rows_fast)),
+              f"{dname}: the parameter passes depend on TF32")
     d1, _ = counted(total, CODEC_PER_CALL, codec_cls(model).compress, x)
     d2, _ = counted(total, CODEC_PER_CALL, codec_cls(model).compress, x)
     check(d1 == d2, f"{dname}: two fresh codecs wrote different streams")
-    print(f"  {dname}: TF32 + autotuned compress (n_streams={FAMILY_STREAMS[-1]}) decodes exactly "
-          f"with both off (re-encodes to the same {len(data)} bytes, parameter rows bit-equal); "
-          f"two fresh codecs: equal bytes", flush=True)
+    note = f" (n_streams={lanes['n_streams']})" if lanes else ""
+    rows_note = ", parameter rows bit-equal" if parallel else ""
+    print(f"  {dname}: TF32 + autotuned compress{note} decodes exactly with both off (re-encodes "
+          f"to the same {len(data)} bytes{rows_note}); two fresh codecs: equal bytes", flush=True)
 
 
 def family_codec_inputs(dev, cls):
@@ -1630,19 +1730,27 @@ def family_codec_inputs(dev, cls):
     images = codec_images()
     models = {"float32": gained_model(dev, cls=cls),
               "bfloat16": gained_model(dev, torch.bfloat16, cls=cls)}
+    refs = codec_references(dev, models, images)
+    if cls is factorized_prior:  # no z: the codec decodes an empty grid
+        for ref in refs.values():
+            ref["z_in"] = np.zeros((0, 0, 0), np.float32)
     xs = batch_images()
-    return (images, models, codec_references(dev, models, images), xs,
+    return (images, models, refs, xs,
             {dname: batch_references(model, xs, dev) for dname, model in models.items()})
 
 
 def family_codec(dev, total, card, family, inputs):
-    _, codec_cls, _, coder = FAMILIES[family]
+    fam = FAMILIES[family]
     images, models, refs, xs, batch_refs = inputs
     results = {}
     for dname, model in models.items():
-        codec = codec_cls(model)
+        codec = fam.codec(model)
         results[dname] = {}
         for iname, x in images.items():
+            if not fam.parallel:
+                results[dname][iname] = factorized_codec_case(
+                    total, codec, x, refs[dname, iname], dname, iname, card)
+                continue
             one = None
             for n in FAMILY_STREAMS:
                 r = family_codec_case(total, codec, x, refs[dname, iname], dname, iname, n, card,
@@ -1650,32 +1758,65 @@ def family_codec(dev, total, card, family, inputs):
                 one = one or r
                 results[dname][f"{iname} n_streams={n}"] = r
         x, ref = images["float32"], refs[dname, "float32"]
-        family_numerics_check(total, codec_cls, model, x, dname)
-        results[dname]["batch"] = codec_batch_case(total, codec, xs, batch_refs[dname], dname,
-                                                   FAMILY_BATCH_ITERS)
-        results[dname]["refine"] = refine_case(total, model, codec, x, dev, dname)
-        results[dname]["portable"] = portable_case(
-            total, model, x, ref, results[dname]["float32 n_streams=1"]["stream_bytes"], dname,
-            codec_cls, coder)
+        family_numerics_check(total, fam.codec, model, x, dname)
+        if fam.parallel:
+            results[dname]["batch"] = codec_batch_case(total, codec, xs, batch_refs[dname], dname,
+                                                       FAMILY_BATCH_ITERS)
+        results[dname]["refine"] = refine_case(total, model, codec, x, dev, dname,
+                                               fam.refine(REFINE_STEPS), fam.refine(0))
+        float_bytes = results[dname]["float32" + (" n_streams=1" if fam.parallel else "")][
+            "stream_bytes"]
+        results[dname]["portable"] = (
+            portable_case(total, model, x, ref, float_bytes, dname, fam.codec, fam.coder,
+                          fam.card_type) if fam.parallel
+            else factorized_portable_case(total, model, x, ref, float_bytes, dname))
     return results
 
 
+def factorized_portable_case(total, model, x, ref, float_bytes, dname):
+    """A FactorizedCard built here, saved and loaded (same hash);
+    compress_portable's latents exact, its rate against the float stream's,
+    encode and decode latency."""
+    t0 = time.perf_counter()
+    card, _ = counted(total, NO_LAUNCHES, FactorizedCard.build, model)
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "card.npz")
+        card.save(path)
+        loaded = FactorizedCard.load(path)
+    check(loaded.hash == card.hash, f"{dname}: the loaded card's hash differs")
+    codec = FactorizedPriorCodec(model, portable_card=loaded)
+    encode_only = dict(NO_LAUNCHES, gdn=3)
+    data, _ = counted(total, encode_only, codec.compress_portable, x)
+    check_latents(f"{dname} portable", counted(total, NO_LAUNCHES, codec.decode_latents, data)[0],
+                  ref)
+    r = dict(card_hash=card.hash.hex(), card_build_s=build_s, stream_bytes=len(data),
+             bpp=8 * len(data) / (HEIGHT * WIDTH), over_float=len(data) / float_bytes,
+             encode_ms=family_median_ms(total, encode_only, codec.compress_portable, x),
+             decode_ms=family_median_ms(total, CODEC_PER_CALL, codec.decompress, data))
+    print(f"  {dname} portable: card {r['card_hash']} built in {build_s:.2f} s, saved and loaded "
+          f"(same hash); {r['bpp']:.5f} bpp, {r['over_float']:.5f}x the float stream; encode "
+          f"{r['encode_ms']:.2f} ms, decode {r['decode_ms']:.2f} ms; latents exact", flush=True)
+    return r
+
+
 def family_phase(dev, card, family):
-    """One parallel-decode family at M=128, K=3: card against CPU and the
-    codec's references, then the main path (serve, train, codec, refine)
-    with its launches counted from 0. Returns (the main path's launches,
-    results)."""
-    cls, _, eval_flops, _ = FAMILIES[family]
+    """One family at M=128 (K=3 where it has a mixture): card against CPU
+    and the codec's references, then the main path (serve, train, codec,
+    refine) with its launches counted from 0. Returns (the main path's
+    launches, results)."""
+    fam = FAMILIES[family]
     t0 = time.perf_counter()
     print(f"  -- {family}: card against CPU, eval forward 2x256x256", flush=True)
-    parity(dev, cls)
-    inputs = family_codec_inputs(dev, cls)
+    parity(dev, fam.cls)
+    inputs = family_codec_inputs(dev, fam.cls)
     reset_launch_counts()
     print(f"  -- {family}: serve {HEIGHT}x{WIDTH}", flush=True)
-    forwards, serve = serve_phase(dev, card, cls)
+    forwards, serve = serve_phase(dev, card, fam.cls, fam.forward["gmm_logp"],
+                                  z_rate=fam.cls is not factorized_prior)
     print(f"  -- {family}: train, batch {TRAIN_BATCH} of {TRAIN_SIZE}x{TRAIN_SIZE}", flush=True)
-    steps, train = train_phase(dev, card, cls, eval_flops)
-    total = added(scaled(FORWARD, forwards), scaled(PER_STEP, steps))
+    steps, train = train_phase(dev, card, fam.cls, fam.eval_flops, fam.step)
+    total = added(scaled(fam.forward, forwards), scaled(fam.step, steps))
     check(launch_counts() == total, f"{family}: serve and train launched {launch_counts()}, "
                                     f"not {total} ({forwards} forwards, {steps} steps)")
     print(f"  -- {family}: codec and refine, one {HEIGHT}x{WIDTH} image", flush=True)
@@ -1684,8 +1825,10 @@ def family_phase(dev, card, family):
     check(launches == total, f"{family}: launches {launches}, its calls counted {total}")
     seconds = time.perf_counter() - t0
     print(f"main path ({family}): {forwards} forwards, {steps} steps, the codec's and refine's "
-          f"calls: launches {launches}; phase 8 for {family} took {seconds:.1f} s")
-    return launches, dict(serve=serve, train=train, codec=codec, seconds=seconds)
+          f"calls: launches {launches} (a forward {fam.forward}, a step {fam.step}); phase 8 "
+          f"for {family} took {seconds:.1f} s")
+    return launches, dict(serve=serve, train=train, codec=codec, seconds=seconds,
+                          launches_per_forward=fam.forward, launches_per_step=fam.step)
 
 
 def main() -> int:
@@ -1760,7 +1903,7 @@ def main() -> int:
     print(f"main path (Trainer and evaluator): launches {trainer_launches}")
     print(json.dumps({"trainer": trainer_results, "card": card}))
 
-    print(f"== phase 8: the parallel-decode families, M={M} K={K} [{card}]", flush=True)
+    print(f"== phase 8: the other families, M={M} (K={K} with a mixture) [{card}]", flush=True)
     family_launches = {}
     for family in FAMILIES:
         family_launches[family], family_results = family_phase(dev, card, family)
@@ -1770,9 +1913,12 @@ def main() -> int:
         r["launches"] = (serve_launches[r["name"]] + train_launches[r["name"]]
                          + codec_launches[r["name"]] + trainer_launches[r["name"]]
                          + sum(f[r["name"]] for f in family_launches.values()))
-        # every hierarchical family runs the kernels at these shapes
-        r["families"] = ["joint_ar"] + (list(FAMILIES) if r.get("path") in (
-            "serve", "train", "codec", "refine") else [])
+        # every family runs the GDN kernels at these shapes, the mixture
+        # kernels only the families with a mixture
+        r["families"] = ["joint_ar"] + ([f for f, fam in FAMILIES.items()
+                                         if fam.mixture or r["name"].startswith("gdn")]
+                                        if r.get("path") in ("serve", "train", "codec", "refine")
+                                        else [])
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

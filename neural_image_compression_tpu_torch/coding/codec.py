@@ -1,6 +1,6 @@
-"""Real bitstream codecs of the hierarchical families, port of
-coding/codec.py's ``JointARCodec``, ``CheckerboardCodec`` and
-``MeanScaleHyperpriorCodec``.
+"""Real bitstream codecs of the model families, port of coding/codec.py's
+``JointARCodec``, ``CheckerboardCodec``, ``MeanScaleHyperpriorCodec``,
+``ChannelCheckerboardCodec`` and ``FactorizedPriorCodec``.
 
   * z (hyper-latents), every family: per-channel quantized CDF tables from
     the factorized bottleneck (``cdf_tables.factorized_tables``), one
@@ -21,10 +21,19 @@ coding/codec.py's ``JointARCodec``, ``CheckerboardCodec`` and
   * y, hyperprior (``MeanScaleHyperpriorCodec``): one device pass gives
     every entropy parameter from z, and one rANS stream holds y row-major,
     channel fastest.
-  * For the two parallel families, ``n_streams=N`` splits each block of
+  * y, channel-conditional checkerboard (``ChannelCheckerboardCodec``): 2·G
+    device passes, two a channel group (the group's anchors from psi and
+    the channel context over the groups before it, then its non-anchors
+    with the spatial context over its decoded anchors), and one rANS
+    stream holds, group by group, the anchors, then the non-anchors, each
+    row-major, channel fastest.
+  * For these three parallel families, ``n_streams=N`` splits each block of
     symbols over N lanes (symbol s of a block to lane s % N): a partition,
     the entropy parameters unchanged, decoded on N threads.
-  * portable streams (kinds 4, 8, 10): the integer path of
+  * y, factorized prior (``FactorizedPriorCodec``): no z and no device
+    pass; one indexed rANS stream under the bottleneck's tables for y's
+    range, as the z stream of the others.
+  * portable streams (kinds 4, 5, 8, 10, 12): the integer path of
     ``coding.portable``, for streams that must decode on another machine or
     in the JAX package.
 
@@ -50,21 +59,24 @@ reverse. Portable streams are: with the same card, both packages write and
 read the same bytes.
 
 Bitstream layout (version 1), the JAX package's:
-  header ``<4sBBHHHHhhII``: magic 'NIC1', kind (1 joint-AR, 7 checkerboard,
-  9 hyperprior; 4, 8 and 10 their portable streams), K, M, H, W (the true
-  image size), layout, zmin, zmax, len_z, len_y; for a portable kind the
-  card's 8-byte hash; then the z stream, then the y payload. Layout,
-  joint-AR: (ta << 8) | tb for ta x tb tiles (1 x 1: one stream, also of a
-  portable stream; more: a ``<nI`` length table, then the tiles' streams in
-  raster order), or 0x8000 | N for N interleaved streams. Checkerboard and
-  hyperprior: 0 for one stream (also portable), or 0x8000 | N for N lanes (a
-  ``<NI`` length table, then the lanes).
+  header ``<4sBBHHHHhhII``: magic 'NIC1', kind (1 joint-AR, 2 factorized,
+  7 checkerboard, 9 hyperprior, 11 channel-conditional checkerboard; 4, 5,
+  8, 10 and 12 their portable streams), K, M, H, W (the true image size),
+  layout, zmin, zmax, len_z, len_y; for a portable kind the card's 8-byte
+  hash; then the z stream, then the y payload. Layout, joint-AR:
+  (ta << 8) | tb for ta x tb tiles (1 x 1: one stream, also of a portable
+  stream; more: a ``<nI`` length table, then the tiles' streams in raster
+  order), or 0x8000 | N for N interleaved streams. Checkerboard, hyperprior
+  and channel-conditional checkerboard: 0 for one stream (also portable),
+  or 0x8000 | N for N lanes (a ``<NI`` length table, then the lanes). The
+  factorized prior writes K 1, layout 0, y's range in the z fields and
+  len_z 0.
 """
 
 import os
 import struct
 from concurrent.futures import ThreadPoolExecutor
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,7 +84,8 @@ import torch
 from neural_image_compression_tpu_torch.coding import backend
 from neural_image_compression_tpu_torch.coding.cdf_tables import factorized_tables
 from neural_image_compression_tpu_torch.coding.portable import (
-    PortableCard, portable_ar_decode, portable_ar_encode, portable_cb_decode, portable_cb_encode,
+    FactorizedCard, PortableCard, build_channel_cb_cards, portable_ar_decode, portable_ar_encode,
+    portable_cb_decode, portable_cb_encode, portable_ccb_decode, portable_ccb_encode,
     portable_hp_decode, portable_hp_encode,
 )
 from neural_image_compression_tpu_torch.data.datasets import pad_to_multiple
@@ -87,17 +100,22 @@ _MAGIC = b"NIC1"
 _HEADER = "<4sBBHHHHhhII"
 _HEADER_SIZE = struct.calcsize(_HEADER)
 _KIND_JOINT = 1
+_KIND_FACTORIZED = 2
 _KIND_JOINT_PORTABLE = 4
+_KIND_FACTORIZED_PORTABLE = 5
 _KIND_CHECKERBOARD = 7
 _KIND_CHECKERBOARD_PORTABLE = 8
 _KIND_HYPERPRIOR = 9
 _KIND_HYPERPRIOR_PORTABLE = 10
-_PORTABLE_KINDS = (_KIND_JOINT_PORTABLE, _KIND_CHECKERBOARD_PORTABLE, _KIND_HYPERPRIOR_PORTABLE)
+_KIND_CHANNEL_CB = 11
+_KIND_CHANNEL_CB_PORTABLE = 12
+_PORTABLE_KINDS = (_KIND_JOINT_PORTABLE, _KIND_FACTORIZED_PORTABLE, _KIND_CHECKERBOARD_PORTABLE,
+                   _KIND_HYPERPRIOR_PORTABLE, _KIND_CHANNEL_CB_PORTABLE)
 _LAYOUT_ONE_TILE = (1 << 8) | 1
 _LAYOUT_ONE_STREAM = 0  # the parallel families' single stream
 _LAYOUT_INTERLEAVED = 0x8000
 _CARD_HASH_SIZE = 8
-# x16 analysis and x4 hyper-analysis downsampling
+# x16 analysis and x4 hyper-analysis downsampling (the factorized prior: x16)
 _MULTIPLE = 64
 # psi and the parallel families' entropy parameters cross to the host in
 # float16 (half the download); encode and decode run the same program and
@@ -129,16 +147,18 @@ def _pad_input(x, mult: int) -> np.ndarray:
     return pad_to_multiple(arr, mult)
 
 
-def _analysis(model, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _analysis(model, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x (1, H, W, 3) uint8 or float32 on the model's device -> (y, z_q):
     the encoder's unrounded latents in float32 and the rounded
-    hyper-latents, NHWC. z derives from the unrounded y, as in the model's
+    hyper-latents, NHWC (None for a model without a hyper-analysis, the
+    factorized prior). z derives from the unrounded y, as in the model's
     eval forward, so z_q equals its z_in."""
     if x.dtype == torch.uint8:
         x = x.float() / 255.0
     y = model.encoder(_nchw(x))
-    z = model.hyper_encoder(y)
-    return _nhwc(y).float(), torch.round(_nhwc(z).float())
+    hyper_encoder = getattr(model, "hyper_encoder", None)
+    z_q = None if hyper_encoder is None else torch.round(_nhwc(hyper_encoder(y)).float())
+    return _nhwc(y).float(), z_q
 
 
 def _fetch_y16(y16: torch.Tensor, refetch_f32) -> np.ndarray:
@@ -170,7 +190,8 @@ def _latents_to_device(y: np.ndarray, device) -> torch.Tensor:
 def _as_latent_grids(y_q, z_q, img_h: int, img_w: int, M: int, mult: int = _MULTIPLE):
     """Validate caller-supplied integer latent grids: (h, w, M) or
     (1, h, w, M) matching the padded img_h x img_w geometry (x16 transform,
-    x4 hyper), integer-valued (they are the coded symbols)."""
+    x4 hyper), integer-valued (they are the coded symbols). z_q None (the
+    factorized prior's) passes through as None."""
     ph, pw = _round_up(img_h, mult), _round_up(img_w, mult)
 
     def grid(a, shape, what):
@@ -188,7 +209,7 @@ def _as_latent_grids(y_q, z_q, img_h: int, img_w: int, M: int, mult: int = _MULT
         return a
 
     return (grid(y_q, (ph // 16, pw // 16, M), "y_q"),
-            grid(z_q, (ph // 64, pw // 64, M), "z_q"))
+            None if z_q is None else grid(z_q, (ph // 64, pw // 64, M), "z_q"))
 
 
 def stream_size(data: bytes) -> Tuple[int, int]:
@@ -203,6 +224,10 @@ def bitstream_bpp(data: bytes, img_h: int, img_w: int) -> float:
     return len(data) * 8.0 / (img_h * img_w)
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
 class _HostParamNets:
     """A family's context conv and entropy-parameter net in the native
     coders' layout, float32, from the model's parameters: ctx_w (12M, 2M)
@@ -212,13 +237,11 @@ class _HostParamNets:
     context-free hyperprior); each 1x1 layer is (in, out); for K > 1 the
     last layer's columns go from the model's (kind, k, m) order to
     (kind, m, k), so the mixture parameters come out (n, M, K)-contiguous.
-    The wavefront codec codes with these; the portable cards quantize them."""
+    The wavefront codec codes with these; the portable cards quantize them.
+    ``ep_only`` and ``context_taps`` build the parts from other modules (the
+    channel-conditional model's per-group nets)."""
 
     def __init__(self, model, family: str = "wavefront"):
-        def host(t: torch.Tensor) -> np.ndarray:
-            return t.detach().to("cpu", torch.float32).numpy()
-
-        M, K = model.latent_channels, model.K
         if family == "hyperprior":
             self.ctx_w = np.zeros((0, 0), np.float32)
             self.ctx_bias = np.zeros((0,), np.float32)
@@ -226,14 +249,33 @@ class _HostParamNets:
             ctx, positions = ((model.context_model.MaskedConv2d_0, CTX_POSITIONS)
                               if family == "wavefront"
                               else (model.context_model.Conv2d_0, CB_CTX_POSITIONS))
-            kernel = host(ctx.weight)  # (2M, M, 5, 5)
-            self.ctx_w = np.concatenate([kernel[:, :, r, c].T for (r, c) in positions], axis=0)
-            self.ctx_bias = np.ascontiguousarray(host(ctx.bias))
+            self.ctx_w, self.ctx_bias = self.context_taps(ctx, positions)
+        self._init_ep(model.entropy_parameters, model.latent_channels, model.K)
+
+    @staticmethod
+    def context_taps(conv, positions) -> Tuple[np.ndarray, np.ndarray]:
+        """A 5x5 conv's (M -> 2M) live taps at ``positions`` stacked as
+        (len(positions) * M, 2M), and its bias."""
+        kernel = _host(conv.weight)  # (2M, M, 5, 5)
+        return (np.concatenate([kernel[:, :, r, c].T for (r, c) in positions], axis=0),
+                np.ascontiguousarray(_host(conv.bias)))
+
+    @classmethod
+    def ep_only(cls, entropy_parameters, M: int, K: int) -> "_HostParamNets":
+        """The entropy-parameter net alone (no context: empty ctx_w), over
+        M latent channels."""
+        self = cls.__new__(cls)
+        self.ctx_w = np.zeros((0, 0), np.float32)
+        self.ctx_bias = np.zeros((0,), np.float32)
+        self._init_ep(entropy_parameters, M, K)
+        return self
+
+    def _init_ep(self, entropy_parameters, M: int, K: int) -> None:
         self.ep = []
         for name in ("Conv2d_0", "Conv2d_1", "Conv2d_2"):
-            conv = getattr(model.entropy_parameters, name)
-            self.ep.append((np.ascontiguousarray(host(conv.weight)[:, :, 0, 0].T),
-                            np.ascontiguousarray(host(conv.bias))))
+            conv = getattr(entropy_parameters, name)
+            self.ep.append((np.ascontiguousarray(_host(conv.weight)[:, :, 0, 0].T),
+                            np.ascontiguousarray(_host(conv.bias))))
         self.M, self.K = M, K
         if K > 1:
             t_idx, k_idx, m_idx = np.meshgrid(np.arange(3), np.arange(K), np.arange(M),
@@ -301,6 +343,13 @@ def _read_header(data: bytes, kinds=(_KIND_JOINT, _KIND_JOINT_PORTABLE), name: s
     return header
 
 
+def _check_card_hash(data: bytes, card, codec_name: str) -> None:
+    if data[_HEADER_SIZE:_HEADER_SIZE + _CARD_HASH_SIZE] != card.hash:
+        raise ValueError(f"portable stream was encoded with a different card — load the "
+                         f"encoder's card file ({type(card).__name__}.load) and pass it via "
+                         f"{codec_name}(portable_card=...)")
+
+
 def _body_start(header) -> int:
     """Offset of the z stream: after the header, and the card hash of a
     portable stream."""
@@ -359,22 +408,17 @@ def _fresh_f32(a, device) -> torch.Tensor:
     return out.copy_(src)
 
 
-class _Codec:
-    """What the three families' codecs share: the analysis and synthesis
-    programs, the z stream and its tables, the header and the portable
-    streams. A family sets its kinds, its name, the layout word of its
-    portable streams, its card's coder functions, and ``decode_latents``'s
-    float half (``_decode_float``)."""
+class _DeviceCodec:
+    """What every codec shares: the model's device, the analysis and
+    synthesis programs and the padding (``MULTIPLE``: the model's
+    downsampling, to which compress pads an image)."""
 
-    KINDS: Tuple[int, int]
-    NAME: str
-    PORTABLE_LAYOUT: int
+    MULTIPLE = _MULTIPLE
 
     def __init__(self, model, portable_card=None):
         self.model = model
-        self.M, self.K = model.latent_channels, model.K
+        self.M = model.latent_channels
         self.device = next(model.parameters()).device
-        self._z_cache = {}
         self._portable_card = portable_card
 
     # -- device programs -------------------------------------------------
@@ -408,26 +452,44 @@ class _Codec:
                 return x_u8.cpu().numpy()[:, :img_h, :img_w]
             return np.clip(x_hat.cpu().numpy(), 0.0, 1.0)[:, :img_h, :img_w]
 
+    def _analyse_device(self, x):
+        """Upload one padded image and enqueue the analysis: (img_h, img_w,
+        x on the device, y16, z_q on the device or None)."""
+        x = np.asarray(x)
+        if x.ndim != 4 or x.shape[0] != 1 or x.shape[3] != 3:
+            raise ValueError(f"x must be one (1, H, W, 3) image, got shape {x.shape}")
+        x_dev = torch.from_numpy(np.ascontiguousarray(_pad_input(x, self.MULTIPLE))).to(
+            self.device)
+        y16, z_dev = self._analysis_q(x_dev)
+        return x.shape[1], x.shape[2], x_dev, y16, z_dev
+
+    def _fetch_latents(self, x_dev, y16, z_dev):
+        y_q = _fetch_y16(y16, lambda: self._analysis_f32(x_dev)[0].cpu().numpy())[0]
+        return y_q, None if z_dev is None else z_dev.cpu().numpy()[0]
+
+
+class _Codec(_DeviceCodec):
+    """What the hierarchical families' codecs share beyond the transforms:
+    the z stream and its tables, the header and the portable streams. A
+    family sets its kinds, its name, the layout word of its portable
+    streams, its card's coder functions, and ``decode_latents``'s float half
+    (``_decode_float``)."""
+
+    KINDS: Tuple[int, int]
+    NAME: str
+    PORTABLE_LAYOUT: int
+
+    def __init__(self, model, portable_card=None):
+        super().__init__(model, portable_card)
+        self.K = model.K
+        self._z_cache = {}
+
     def _z_tables(self, zmin: int, zmax: int):
         # encode and decode of every image use the same tables: build once
         key = (zmin, zmax)
         if key not in self._z_cache:
             self._z_cache[key] = factorized_tables(self.model, zmin, zmax)
         return self._z_cache[key]
-
-    def _analyse_device(self, x):
-        """Upload one padded image and enqueue the analysis: (img_h, img_w,
-        x on the device, y16, z_q on the device)."""
-        x = np.asarray(x)
-        if x.ndim != 4 or x.shape[0] != 1 or x.shape[3] != 3:
-            raise ValueError(f"x must be one (1, H, W, 3) image, got shape {x.shape}")
-        x_dev = torch.from_numpy(np.ascontiguousarray(_pad_input(x, _MULTIPLE))).to(self.device)
-        y16, z_dev = self._analysis_q(x_dev)
-        return x.shape[1], x.shape[2], x_dev, y16, z_dev
-
-    def _fetch_latents(self, x_dev, y16, z_dev):
-        y_q = _fetch_y16(y16, lambda: self._analysis_f32(x_dev)[0].cpu().numpy())[0]
-        return y_q, z_dev.cpu().numpy()[0]
 
     # -- the z stream and the header -----------------------------------------
     def _encode_z(self, z_q: np.ndarray, tables=None):
@@ -453,11 +515,8 @@ class _Codec:
             raise ValueError(f"stream is for K={K}, M={M}; this codec's model has "
                              f"K={self.K}, M={self.M}")
         self._check_layout_word(header[1], header[6])
-        if header[1] == self.KINDS[1] and \
-                data[_HEADER_SIZE:_HEADER_SIZE + _CARD_HASH_SIZE] != self.portable_card().hash:
-            raise ValueError(f"portable stream was encoded with a different card — load the "
-                             f"encoder's card file (PortableCard.load) and pass it via "
-                             f"{type(self).__name__}(portable_card=...)")
+        if header[1] == self.KINDS[1]:
+            _check_card_hash(data, self.portable_card(), type(self).__name__)
         return header
 
     def _check_layout_word(self, kind: int, layout: int) -> None:
@@ -750,13 +809,21 @@ def _rows_to_host(rows) -> Tuple[np.ndarray, ...]:
     return tuple(None if r is None else r.cpu().numpy().astype(np.float32) for r in rows)
 
 
-def _encode_lanes(sym, mus, sigmas, weights, n_a: int, n: int, workers=None) -> bytes:
-    """N-way lanes over the two-block symbol sequence (the first n_a symbols,
-    then the rest): within each block, symbol s goes to lane s % N, so the
-    first block's decode needs each lane's prefix only. Payload: N uint32
-    lane lengths, then the lanes."""
+def _passes_to_host(passes) -> Tuple[np.ndarray, ...]:
+    """Several passes' coder rows (each ``_coder_rows``'s triple, in stream
+    order) concatenated on the device and fetched once a kind."""
+    return _rows_to_host(None if rows[0] is None else torch.cat(rows)
+                         for rows in zip(*passes))
+
+
+def _encode_lanes(sym, mus, sigmas, weights, bounds, n: int, workers=None) -> bytes:
+    """N-way lanes over a symbol sequence of blocks (block j: symbols
+    bounds[j] to bounds[j + 1]): within each block, symbol s goes to lane
+    s % N, so a block's decode needs each lane's slice of that block only.
+    Payload: N uint32 lane lengths, then the lanes."""
     def one(i):
-        pick = np.concatenate([np.arange(i, n_a, n), np.arange(n_a + i, len(sym), n)])
+        pick = np.concatenate([np.arange(b0 + i, b1, n)
+                               for b0, b1 in zip(bounds[:-1], bounds[1:])])
         return backend.encode_gaussian(sym[pick], mus[pick], sigmas[pick],
                                        None if weights is None else weights[pick])
 
@@ -793,13 +860,27 @@ def _finish(decs) -> None:
 
 class _ParallelCodec(_Codec):
     """The codec of a family whose entropy parameters come from device
-    passes (checkerboard: two; hyperprior: one). A family sets
-    ``_enqueue(z_dev)`` (the passes that need z alone, enqueued before the
-    latents' fetch), ``_coder_args(y_q, pending)`` (the rest of the passes
-    and the fetch: the symbols in stream order, their rows and the first
-    block's length) and ``_decode_ys``."""
+    passes (hyperprior: one; checkerboard: two; channel-conditional
+    checkerboard: two a group). A family sets ``_enqueue(z_dev)`` (the
+    passes that need z alone, enqueued before the latents' fetch),
+    ``_coder_args(y_q, pending)`` (the rest of the passes and the fetch:
+    the symbols in stream order, their rows, and the bounds of the blocks
+    that decode pass by pass) and ``_decode_ys``."""
 
     PORTABLE_LAYOUT = _LAYOUT_ONE_STREAM
+
+    def __init__(self, model, portable_card=None):
+        super().__init__(model, portable_card)
+        self._plans = {}
+
+    def _plan(self, h: int, w: int):
+        """(anchor mask, anchor and non-anchor flat positions on the device)
+        of an h x w grid."""
+        if (h, w) not in self._plans:
+            am = checkerboard_mask(h, w)
+            self._plans[h, w] = (am,) + tuple(
+                torch.from_numpy(np.flatnonzero(m.ravel())).to(self.device) for m in (am, ~am))
+        return self._plans[h, w]
 
     def _check_layout_word(self, kind: int, layout: int) -> None:
         super()._check_layout_word(kind, layout)
@@ -835,14 +916,14 @@ class _ParallelCodec(_Codec):
     def _write(self, z_q: np.ndarray, args, img_h: int, img_w: int, n_streams: int,
                lane_workers=None) -> bytes:
         """The host half: the z stream, the y stream or lanes, the header."""
-        sym, mus, sigmas, weights, n_a = args
+        sym, mus, sigmas, weights, bounds = args
         zmin, zmax, z_bytes = self._encode_z(z_q)
         if n_streams == 1:
             layout = _LAYOUT_ONE_STREAM
             y_payload = backend.encode_gaussian(sym, mus, sigmas, weights)
         else:
             layout = _LAYOUT_INTERLEAVED | n_streams
-            y_payload = _encode_lanes(sym, mus, sigmas, weights, n_a, n_streams, lane_workers)
+            y_payload = _encode_lanes(sym, mus, sigmas, weights, bounds, n_streams, lane_workers)
         return self._pack(self.KINDS[0], img_h, img_w, layout, zmin, zmax, z_bytes, y_payload)
 
     def compress_batch(self, xs, workers=None, n_streams: int = 1) -> list:
@@ -911,7 +992,7 @@ class MeanScaleHyperpriorCodec(_ParallelCodec):
 
     def _coder_args(self, y_q: np.ndarray, pending):
         sym = y_q.astype(np.int32).reshape(-1)  # row-major, channel fastest
-        return (sym,) + _rows_to_host(pending) + (sym.shape[0],)
+        return (sym,) + _rows_to_host(pending) + ([0, sym.shape[0]],)
 
     def _decode_ys(self, jobs, h: int, w: int, workers=None, lane_workers=None) -> list:
         """(h, w, M) float32 latents of each (payload, layout, z_q) job: the
@@ -941,19 +1022,6 @@ class CheckerboardCodec(_ParallelCodec):
     _portable_encode = staticmethod(portable_cb_encode)
     _portable_decode = staticmethod(portable_cb_decode)
 
-    def __init__(self, model, portable_card=None):
-        super().__init__(model, portable_card)
-        self._plans = {}
-
-    def _plan(self, h: int, w: int):
-        """(anchor mask, anchor and non-anchor flat positions on the device)
-        of an h x w grid."""
-        if (h, w) not in self._plans:
-            am = checkerboard_mask(h, w)
-            self._plans[h, w] = (am,) + tuple(
-                torch.from_numpy(np.flatnonzero(m.ravel())).to(self.device) for m in (am, ~am))
-        return self._plans[h, w]
-
     def _anchor_device(self, z_q):
         """Pass 1 for z_q (1, hz, wz, M): (psi on the device, the anchors'
         coder rows, float16 on the device)."""
@@ -977,11 +1045,9 @@ class CheckerboardCodec(_ParallelCodec):
         psi, rows_a = pending
         am = self._plan(*y_q.shape[:2])[0]
         rows_n = self._nonanchor_device(psi, np.where(am[..., None], y_q, 0.0).astype(np.float32))
-        (mu_a, sig_a, w_a), (mu_n, sig_n, w_n) = _rows_to_host(rows_a), _rows_to_host(rows_n)
         sym = np.concatenate([y_q[am], y_q[~am]]).astype(np.int32).reshape(-1)
-        weights = None if self.K == 1 else np.concatenate([w_a, w_n])
-        return (sym, np.concatenate([mu_a, mu_n]), np.concatenate([sig_a, sig_n]), weights,
-                mu_a.shape[0])
+        return (sym,) + _passes_to_host([rows_a, rows_n]) + (
+            [0, int(am.sum()) * self.M, sym.shape[0]],)
 
     def _decode_ys(self, jobs, h: int, w: int, workers=None, lane_workers=None) -> list:
         """(h, w, M) float32 latents of each (payload, layout, z_q) job:
@@ -1009,3 +1075,251 @@ class CheckerboardCodec(_ParallelCodec):
 
         _pool_map(nonanchors, range(n), workers)
         return y_hats
+
+
+def _anchor_grid(am: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """(1, h, w, c): y (h, w, c) at the anchors of mask am, zeros elsewhere."""
+    return np.where(am[..., None], y, 0.0)[None]
+
+
+class ChannelCheckerboardCodec(_ParallelCodec):
+    """Real encode/decode for ``models.ChannelCheckerboardHierarchical``:
+    2·G device passes, two a channel group, give every entropy parameter.
+    Group i's anchor pass runs its channel context over the groups before it
+    (decoded everywhere) and keeps it on the device for the group's
+    non-anchor pass, which adds the spatial context over the group's
+    decoded anchors. One rANS stream (or N lanes) holds the 2·G blocks: per
+    group, its anchors, then its non-anchors, each row-major, channel
+    fastest. Groups chain: group i's passes need groups < i decoded.
+
+    Every pass runs batch-1 on fresh float32 inputs built the same way at
+    encode and at decode (z_q; the previous groups' grid; the group's
+    anchor-filled grid), under fixed numerics, so the float parameters are
+    bit-identical on both sides. Portable streams (kind 12) use a
+    ``portable.ChannelCBCards`` set, one checkerboard card a group.
+    Devices as ``JointARCodec``'s."""
+
+    KINDS = (_KIND_CHANNEL_CB, _KIND_CHANNEL_CB_PORTABLE)
+    NAME = "channel_cb"
+    _portable_encode = staticmethod(portable_ccb_encode)
+    _portable_decode = staticmethod(portable_ccb_decode)
+
+    def __init__(self, model, portable_card=None):
+        super().__init__(model, portable_card)
+        self.groups = tuple(model.group_sizes)
+
+    def portable_card(self):
+        """The ``portable.ChannelCBCards`` set of this codec's portable
+        streams (built from the model at first use; see
+        ``JointARCodec.portable_card``)."""
+        if self._portable_card is None:
+            self._portable_card = build_channel_cb_cards(self.model)
+        if tuple(self._portable_card.groups) != self.groups:
+            raise ValueError(f"portable card set is for groups "
+                             f"{tuple(self._portable_card.groups)}, the codec's model has "
+                             f"{self.groups}")
+        return self._portable_card
+
+    # -- the 2·G passes ------------------------------------------------------
+    def _psi_device(self, z_q) -> torch.Tensor:
+        """psi (1, h, w, 2M) on the device for z_q (1, hz, wz, M): the
+        hyper-decoder on a fresh float32 z under fixed numerics."""
+        z = _fresh_f32(z_q, self.device)
+        with torch.inference_mode(), fixed_numerics():
+            return self.model.hyper_features(z)
+
+    _enqueue = _psi_device
+
+    def _anchor_device(self, i: int, psi: torch.Tensor, y_prev):
+        """Group i's anchor pass: (its channel context on the device, None
+        for group 0; the anchors' coder rows, float16 on the device).
+        y_prev (1, h, w, sum(groups[:i])): the groups before it."""
+        y = None if i == 0 else _fresh_f32(y_prev, self.device)
+        with torch.inference_mode(), fixed_numerics():
+            ch = self.model.group_channel_ctx(i, y)
+            params = self.model.group_params(i, psi, ch, None)
+            return ch, _coder_rows(params, self.K, self._plan(psi.shape[1], psi.shape[2])[1])
+
+    def _nonanchor_device(self, i: int, psi: torch.Tensor, ch, y_anchor):
+        """Group i's non-anchor pass: the non-anchors' coder rows (float16,
+        on the device) from psi, the group's channel context and y_anchor
+        (1, h, w, g), its anchors with zeros at the non-anchors."""
+        y = _fresh_f32(y_anchor, self.device)
+        with torch.inference_mode(), fixed_numerics():
+            params = self.model.group_params(i, psi, ch, y)
+            return _coder_rows(params, self.K, self._plan(psi.shape[1], psi.shape[2])[2])
+
+    def _coder_args(self, y_q: np.ndarray, psi):
+        """Every pass on the exact latents (at encode the decoded groups are
+        y_q itself), all enqueued before one fetch: the symbols and rows in
+        stream order and the 2·G blocks' bounds."""
+        am = self._plan(*y_q.shape[:2])[0]
+        passes, syms, bounds = [], [], [0]
+        off = 0
+        for i, gi in enumerate(self.groups):
+            y_g = y_q[..., off:off + gi]
+            ch, rows_a = self._anchor_device(i, psi, y_q[None, ..., :off])
+            passes += [rows_a, self._nonanchor_device(i, psi, ch, _anchor_grid(am, y_g))]
+            for sel in (am, ~am):
+                syms.append(y_g[sel].astype(np.int32).reshape(-1))
+                bounds.append(bounds[-1] + syms[-1].size)
+            off += gi
+        return (np.concatenate(syms),) + _passes_to_host(passes) + (bounds,)
+
+    def _decode_ys(self, jobs, h: int, w: int, workers=None, lane_workers=None) -> list:
+        """(h, w, M) float32 latents of each (payload, layout, z_q) job,
+        group by group: every image's anchor pass, then the anchors' decodes
+        on ``workers`` threads, every image's non-anchor pass, then the
+        non-anchors' decodes."""
+        am = self._plan(h, w)[0]
+        n = len(jobs)
+        psis = [self._psi_device(z_q[None]) for _, _, z_q in jobs]
+        decs = [_open_lanes(payload, layout) for payload, layout, _ in jobs]
+        y_hats = [np.zeros((h, w, self.M), np.float32) for _ in range(n)]
+        off = 0
+        for i, gi in enumerate(self.groups):
+            firsts = [self._anchor_device(i, psis[b], y_hats[b][None, ..., :off])
+                      for b in range(n)]
+            rows = [_rows_to_host(r) for _, r in firsts]
+
+            def anchors(b):
+                vals = _decode_block_lanes(decs[b], *rows[b], lane_workers)
+                y_hats[b][am, off:off + gi] = vals.reshape(-1, gi)
+
+            _pool_map(anchors, range(n), workers)
+            rows = [_rows_to_host(self._nonanchor_device(
+                i, psis[b], firsts[b][0], _anchor_grid(am, y_hats[b][..., off:off + gi])))
+                for b in range(n)]
+
+            def nonanchors(b):
+                vals = _decode_block_lanes(decs[b], *rows[b], lane_workers)
+                y_hats[b][~am, off:off + gi] = vals.reshape(-1, gi)
+
+            _pool_map(nonanchors, range(n), workers)
+            off += gi
+        for d in decs:
+            _finish(d)
+        return y_hats
+
+
+class FactorizedPriorCodec(_DeviceCodec):
+    """Real encode/decode for ``models.FactorizedPrior``: the analysis and
+    synthesis on the model's device, and one indexed rANS stream of y under
+    the bottleneck's per-channel tables for the image's [ymin, ymax]
+    (``cdf_tables.factorized_tables``, cached by range), on the host. There
+    is no z and no device pass between the coders, so one image's stream
+    is a few milliseconds of host work. Images pad to multiples of 16.
+
+    Header: kind 2 (5 portable), K 1, layout 0, ymin and ymax in the z
+    fields, len_z 0; a portable stream carries its card's 8-byte hash after
+    the header. portable_card: the ``portable.FactorizedCard`` (the tables
+    frozen over [-256, 256]; built from the model at first use when none is
+    given)."""
+
+    KINDS = (_KIND_FACTORIZED, _KIND_FACTORIZED_PORTABLE)
+    NAME = "factorized"
+    MULTIPLE = 16
+
+    def __init__(self, model, portable_card=None):
+        super().__init__(model, portable_card)
+        self._y_cache = {}
+
+    def _tables(self, ymin: int, ymax: int):
+        key = (ymin, ymax)
+        if key not in self._y_cache:
+            self._y_cache[key] = factorized_tables(self.model, ymin, ymax)
+        return self._y_cache[key]
+
+    def _analyse_image(self, x):
+        """(img_h, img_w, y_q (h, w, M)) on the host for one image."""
+        img_h, img_w, x_dev, y16, z_dev = self._analyse_device(x)
+        return (img_h, img_w) + self._fetch_latents(x_dev, y16, z_dev)[:1]
+
+    def _encode_y(self, y_q: np.ndarray, tables) -> bytes:
+        sym = y_q.reshape(-1).astype(np.int32)
+        index = np.tile(np.arange(self.M, dtype=np.int32), sym.shape[0] // self.M)
+        return backend.encode_indexed(sym, index, *tables)
+
+    def _pack(self, kind: int, img_h: int, img_w: int, ymin: int, ymax: int, y_bytes: bytes,
+              card_hash: bytes = b"") -> bytes:
+        return struct.pack(_HEADER, _MAGIC, kind, 1, self.M, img_h, img_w, _LAYOUT_ONE_STREAM,
+                           ymin, ymax, 0, len(y_bytes)) + card_hash + y_bytes
+
+    # -- encode ----------------------------------------------------------
+    def compress(self, x) -> bytes:
+        """x: (1, H, W, 3) float32 in [0, 1] or uint8, any size (padded to
+        multiples of 16 here, cropped back by decompress)."""
+        img_h, img_w, y_q = self._analyse_image(x)
+        return self._encode_from(y_q, img_h, img_w)
+
+    def compress_latents(self, y_q, img_h: int, img_w: int, z_q=None) -> bytes:
+        """Encode a given integer latent grid (e.g. from ``coding.refine``)
+        for an img_h x img_w image: compress()'s stream for the same
+        latents. z_q is taken and ignored, so the call shape is the other
+        codecs' (the refiner gives an empty z)."""
+        y_q, _ = _as_latent_grids(y_q, None, img_h, img_w, self.M, mult=self.MULTIPLE)
+        return self._encode_from(y_q, img_h, img_w)
+
+    def _encode_from(self, y_q: np.ndarray, img_h: int, img_w: int) -> bytes:
+        ymin, ymax = int(y_q.min()), int(y_q.max())
+        return self._pack(_KIND_FACTORIZED, img_h, img_w, ymin, ymax,
+                          self._encode_y(y_q, self._tables(ymin, ymax)))
+
+    # -- portable streams ------------------------------------------------------
+    def portable_card(self) -> FactorizedCard:
+        """The card of this codec's portable streams: the tables frozen over
+        the card's range (built from the model at first use; save it and
+        load it where the stream decodes)."""
+        if self._portable_card is None:
+            self._portable_card = FactorizedCard.build(self.model)
+        return self._portable_card
+
+    def compress_portable(self, x) -> bytes:
+        """Encode one image under the card's frozen tables: the stream
+        decodes on any machine and implementation that holds the card."""
+        img_h, img_w, y_q = self._analyse_image(x)
+        return self._encode_portable_from(y_q, img_h, img_w)
+
+    def compress_latents_portable(self, y_q, img_h: int, img_w: int, z_q=None) -> bytes:
+        """compress_latents' portable twin. y_q is clipped to the card's
+        [ymin, ymax]: the clipped grid is what decode reconstructs."""
+        card = self.portable_card()
+        y_q, _ = _as_latent_grids(y_q, None, img_h, img_w, self.M, mult=self.MULTIPLE)
+        return self._encode_portable_from(np.clip(y_q, card.ymin, card.ymax), img_h, img_w)
+
+    def _encode_portable_from(self, y_q: np.ndarray, img_h: int, img_w: int) -> bytes:
+        card = self.portable_card()
+        y_bytes = self._encode_y(y_q, (card.cdfs, card.offsets, card.sizes))
+        return self._pack(_KIND_FACTORIZED_PORTABLE, img_h, img_w, card.ymin, card.ymax, y_bytes,
+                          card.hash)
+
+    # -- decode ----------------------------------------------------------
+    def decode_latents(self, data: bytes) -> Tuple[np.ndarray, np.ndarray]:
+        """(y_q (h, w, M) float32, an empty (0, 0, 0) z) from a float or
+        portable stream."""
+        header = _read_header(data, self.KINDS, self.NAME)
+        _, kind, K, M, img_h, img_w, layout, ymin, ymax, len_z, _ = header
+        if (K, M) != (1, self.M):
+            raise ValueError(f"stream is for K={K}, M={M}; this codec's model has K=1, "
+                             f"M={self.M}")
+        if layout != _LAYOUT_ONE_STREAM or len_z:
+            raise ValueError(f"corrupt header: factorized stream with layout {layout:#06x} "
+                             f"and a {len_z}-byte z stream")
+        if kind == _KIND_FACTORIZED_PORTABLE:
+            card = self.portable_card()
+            _check_card_hash(data, card, type(self).__name__)
+            tables = (card.cdfs, card.offsets, card.sizes)
+        else:
+            tables = self._tables(ymin, ymax)
+        h = _round_up(img_h, self.MULTIPLE) // 16
+        w = _round_up(img_w, self.MULTIPLE) // 16
+        index = np.tile(np.arange(self.M, dtype=np.int32), h * w)
+        sym = _decode_indexed_checked(data[_body_start(header):], index, *tables)
+        return sym.reshape(h, w, self.M).astype(np.float32), np.zeros((0, 0, 0), np.float32)
+
+    def decompress(self, data: bytes, as_uint8: bool = False) -> np.ndarray:
+        """(1, H, W, 3) at the stream's true size: float32 clipped to
+        [0, 1], or uint8 with as_uint8=True."""
+        y_hat, _ = self.decode_latents(data)
+        img_h, img_w = stream_size(data)
+        return self._synthesize(y_hat[None], img_h, img_w, as_uint8)

@@ -1,6 +1,7 @@
-"""Portable (cross-machine) bitstreams for the hierarchical families' codecs,
-port of the JAX package's coding/portable.py (the wavefront, checkerboard
-and hyperprior card families).
+"""Portable (cross-machine) bitstreams for the families' codecs, port of the
+JAX package's coding/portable.py (the wavefront, checkerboard and
+hyperprior card families, the channel-conditional checkerboard's card set
+and the factorized prior's card).
 
 The float codec derives its entropy parameters through float GEMMs whose
 results are bit-stable per build only. Here every operation between the
@@ -21,6 +22,9 @@ coder it drives: 0 the joint-AR wavefront (the 12 causal taps of the masked
 context), 1 the checkerboard's two passes (the plain 5x5 context conv's 12
 odd-parity taps, ``models.checkerboard.CB_CTX_POSITIONS``), 2 the
 hyperprior's one pass (no context: empty ``ctx`` and ``ep1_phi``).
+``ChannelCBCards`` drives the channel-conditional checkerboard with one
+checkerboard card a channel group, and ``FactorizedCard`` freezes the
+factorized prior's tables.
 
 Fixed-point conventions (the cross-implementation spec):
   * activations: F=12 fractional bits, int64 math;
@@ -42,14 +46,15 @@ functions are its plain version (``native=False``) and write the same bytes.
 
 import hashlib
 import math
+import struct
 from typing import Dict, List, Tuple
 
 import numpy as np
 
 from neural_image_compression_tpu_torch.coding import backend
 from neural_image_compression_tpu_torch.models import (
-    CB_CTX_POSITIONS, CheckerboardHierarchical, JointAutoregressiveHierarchical,
-    MeanScaleHyperprior, checkerboard_mask,
+    CB_CTX_POSITIONS, ChannelCheckerboardHierarchical, CheckerboardHierarchical, FactorizedPrior,
+    JointAutoregressiveHierarchical, MeanScaleHyperprior, checkerboard_mask,
 )
 
 F_BITS = 12                 # activation fractional bits
@@ -81,11 +86,15 @@ FAMILIES = {"wavefront": 0, "checkerboard": 1, "hyperprior": 2}
 
 
 def model_family(model) -> str:
-    """The card family of a hierarchical model: "wavefront" (joint-AR),
-    "checkerboard" or "hyperprior"."""
+    """The portable family of a model: "wavefront" (joint-AR),
+    "checkerboard" or "hyperprior" (a ``PortableCard`` of that family),
+    "channel_cb" (a ``ChannelCBCards`` set, ``build_channel_cb_cards``) or
+    "factorized" (a ``FactorizedCard``)."""
     for cls, family in ((JointAutoregressiveHierarchical, "wavefront"),
                         (CheckerboardHierarchical, "checkerboard"),
-                        (MeanScaleHyperprior, "hyperprior")):
+                        (MeanScaleHyperprior, "hyperprior"),
+                        (ChannelCheckerboardHierarchical, "channel_cb"),
+                        (FactorizedPrior, "factorized")):
         if isinstance(model, cls):
             return family
     raise ValueError(f"no portable card family for {type(model).__name__}")
@@ -405,6 +414,10 @@ class PortableCard:
         from neural_image_compression_tpu_torch.utils.weights import joint_ar_params_to_jax
 
         family = family or model_family(model)
+        if family not in FAMILIES:
+            raise ValueError(f"a {family} model takes "
+                             + ("a ChannelCBCards set (build_channel_cb_cards)"
+                                if family == "channel_cb" else "a FactorizedCard"))
         nets = _HostParamNets(model, family)
         hyper = _hyper_layers(joint_ar_params_to_jax(model))
         ctx = QuantLayer.quantize(nets.ctx_w, nets.ctx_bias)
@@ -888,3 +901,212 @@ def _py_hp_decode(card: PortableCard, data: bytes, psi_fix: np.ndarray,
     y_out = np.stack([_py_decode_pixel(card, dec, h3[p]) for p in range(h * w)])
     _py_finish(dec)
     return y_out.reshape(h, w, card.M).astype(np.float32)
+
+
+# --- the channel-conditional checkerboard's card set: one checkerboard card a group ----
+
+class ChannelCBCards:
+    """Portable card set of the channel-conditional checkerboard
+    (``models.ChannelCheckerboardHierarchical``): one checkerboard-family
+    card a channel group, coded group by group with the two-pass integer
+    coder.
+
+    Group i's entropy parameters depend on [spatial context, channel
+    context, psi]. The spatial context is the group's 12 odd-parity 5x5
+    taps, a checkerboard card's context GEMM; the channel context is two
+    dense stride-1 convs over the decoded groups, an integer conv stack like
+    the hyper-decoder's. So sub-card i is a family-1 ``PortableCard`` whose
+    ``hyper`` slot holds the group's channel-context convs (group 0's holds
+    the z hyper-decoder) and whose per-position "psi" row is [channel
+    context || psi] (group 0: psi alone; its channel rows see exact zeros,
+    which add nothing to the integer accumulators, so the card drops them).
+    Every group then codes through ``portable_cb_encode`` /
+    ``portable_cb_decode``. The hash covers the groups and every sub-card's
+    hash."""
+
+    def __init__(self, cards: List[PortableCard], groups):
+        groups = tuple(int(g) for g in groups)
+        if not cards or len(cards) != len(groups):
+            raise ValueError("card/group count mismatch")
+        for c, g in zip(cards, groups):
+            if c.family != FAMILIES["checkerboard"] or c.M != g:
+                raise ValueError("corrupt channel_cb card set: sub-card family/width does not "
+                                 "match its group")
+        self.cards = tuple(cards)
+        self.groups = groups
+        self.M = sum(groups)
+        self.K = cards[0].K
+        self.zmin, self.zmax = cards[0].zmin, cards[0].zmax
+        self.z_cdfs = cards[0].z_cdfs
+        self.z_offsets = cards[0].z_offsets
+        self.z_sizes = cards[0].z_sizes
+        h = hashlib.sha256()
+        h.update(np.asarray(groups, np.int64).tobytes())
+        for c in cards:
+            h.update(c.hash)
+        self.hash = h.digest()[:8]
+
+    def hyper_forward(self, z_q: np.ndarray, native: bool = True) -> np.ndarray:
+        """psi from z_q: group 0's sub-card holds the z hyper-decoder."""
+        return self.cards[0].hyper_forward(z_q, native=native)
+
+    def channel_forward(self, i: int, y_prev: np.ndarray, native: bool = True) -> np.ndarray:
+        """Group i's (> 0) integer channel context from the decoded groups
+        before it, y_prev (h, w, sum(groups[:i])) integer-valued: sub-card
+        i's ``hyper`` slot holds the two dense 5x5 convs."""
+        return self.cards[i].hyper_forward(y_prev, native=native)
+
+    def save(self, path: str) -> None:
+        arrs = {"groups": np.asarray(self.groups, np.int64)}
+        for i, card in enumerate(self.cards):
+            arrs.update({f"g{i}_{k}": v for k, v in card._arrays()})
+        np.savez_compressed(path, **arrs)
+
+    @classmethod
+    def load(cls, path: str) -> "ChannelCBCards":
+        with np.load(path) as d:
+            if "groups" not in d:
+                raise ValueError(f"{path} is not a channel_cb card set (no groups array)")
+            groups = tuple(int(g) for g in d["groups"])
+            cards = []
+            for i in range(len(groups)):
+                sub = {k[len(f"g{i}_"):]: d[k] for k in d.files if k.startswith(f"g{i}_")}
+                if not sub:
+                    raise ValueError(f"{path} is missing sub-card g{i}")
+                cards.append(PortableCard._from_mapping(sub))
+        return cls(cards, groups)
+
+
+def build_channel_cb_cards(model, zmin: int = -64, zmax: int = 64) -> ChannelCBCards:
+    """Quantize a ChannelCheckerboardHierarchical's coding-path weights into
+    a ``ChannelCBCards`` set: the only float computation of its portable
+    mode. Per group i: ``spatial_ctx_i`` (its 12 odd-parity taps),
+    ``channel_ctx_i`` (conv 5x5, leaky ReLU, conv 5x5; i > 0) and
+    ``entropy_parameters_i`` (the 1x1 net over [spatial (2g) | channel (2g)
+    | psi (2M)]), in the layouts ``PortableCard.build`` uses; the z tables
+    as there."""
+    from neural_image_compression_tpu_torch.coding.cdf_tables import factorized_tables
+    from neural_image_compression_tpu_torch.coding.codec import _HostParamNets
+    from neural_image_compression_tpu_torch.utils.weights import joint_ar_params_to_jax
+
+    params = joint_ar_params_to_jax(model)
+    K, groups = model.K, tuple(model.group_sizes)
+    sigma_thr, sigma_fix, sigma2_fix, sigma_R, tables, exp_lut = _integer_tables()
+    z_cdfs, z_offsets, z_sizes = factorized_tables(model, zmin, zmax)
+    z_tables = (z_cdfs.astype(np.uint32), np.asarray(z_offsets, np.int32),
+                np.asarray(z_sizes, np.int32))
+    cards = []
+    off = 0
+    for i, gi in enumerate(groups):
+        nets = _HostParamNets.ep_only(getattr(model, f"entropy_parameters_{i}"), gi, K)
+        ctx = QuantLayer.quantize(*_HostParamNets.context_taps(getattr(model, f"spatial_ctx_{i}"),
+                                                              CB_CTX_POSITIONS))
+        (w1, b1), (w2, b2), (w3, b3) = nets.ep
+        # layer-1 rows: [0, 2g) spatial, [2g, 4g) channel, [4g, ...) psi; group
+        # 0 has no channel context, so its psi half is the psi rows alone
+        psi_lo = 2 * gi if i > 0 else 4 * gi
+        ep1_phi, ep1_psi = _quantize_ep1_split(np.vstack([w1[:2 * gi], w1[psi_lo:]]), b1,
+                                               2 * gi)
+        if i == 0:
+            hyper = _hyper_layers(params)
+        else:
+            # the first conv's exactness bound, as the context GEMM's
+            # Y_ABS_MAX argument: 25 taps x `off` channels of (|y| << F) * w
+            # int64 terms must stay below 2^63
+            if 25 * off * (Y_ABS_MAX << F_BITS) * 32767 >= 2 ** 63:
+                raise ValueError(f"channel-context conv over {off} decoded channels exceeds "
+                                 f"the int64 exactness bound: reduce the prefix groups' widths "
+                                 f"(sum(groups[:-1]) <= 163)")
+            ch = params[f"channel_ctx_{i}"]
+            hyper = [("conv", QuantLayer.quantize(np.asarray(ch[name]["kernel"]),
+                                                  np.asarray(ch[name]["bias"])), (1, 2))
+                     for name in ("Conv2d_0", "Conv2d_1")]
+        cards.append(PortableCard(
+            gi, K, hyper, ctx, ep1_phi, ep1_psi, QuantLayer.quantize(w2, b2),
+            QuantLayer.quantize(w3, b3), sigma_thr, sigma_fix, sigma2_fix, sigma_R, tables,
+            exp_lut, *z_tables, zmin, zmax, FAMILIES["checkerboard"]))
+        off += gi
+    return ChannelCBCards(cards, groups)
+
+
+def portable_ccb_encode(cards: ChannelCBCards, y_q: np.ndarray, psi_fix: np.ndarray,
+                        native: bool = True) -> bytes:
+    """Encode one channel-conditional checkerboard latent grid on the
+    integer path: per group, the checkerboard two-pass coder over the
+    group's channels with the row [channel context || psi]; the groups chain
+    on the exact latents (what decode reconstructs). Payload: G uint32
+    block lengths, then the groups' streams."""
+    y_int = np.asarray(y_q)
+    blocks = []
+    off = 0
+    for i, gi in enumerate(cards.groups):
+        psi_i = psi_fix if i == 0 else np.concatenate(
+            [cards.channel_forward(i, y_int[..., :off], native=native), psi_fix], axis=-1)
+        blocks.append(portable_cb_encode(cards.cards[i], y_int[..., off:off + gi], psi_i,
+                                         native=native))
+        off += gi
+    return struct.pack(f"<{len(blocks)}I", *map(len, blocks)) + b"".join(blocks)
+
+
+def portable_ccb_decode(cards: ChannelCBCards, data: bytes, psi_fix: np.ndarray,
+                        h: int, w: int, native: bool = True) -> np.ndarray:
+    """Decode one channel-conditional checkerboard latent grid -> (h, w, M)
+    float32 integers. Decoded escapes are Y_ABS_MAX-bounded inside
+    ``portable_cb_decode``, so every channel_forward input stays in spec."""
+    G = len(cards.groups)
+    if len(data) < 4 * G:
+        raise ValueError("corrupt or truncated portable channel_cb stream")
+    lens = struct.unpack(f"<{G}I", data[:4 * G])
+    if 4 * G + sum(lens) != len(data):
+        raise ValueError("corrupt portable channel_cb stream: the block table does not cover "
+                         "the payload")
+    y_out = np.zeros((h, w, cards.M), np.float32)
+    start = 4 * G
+    off = 0
+    for i, gi in enumerate(cards.groups):
+        psi_i = psi_fix if i == 0 else np.concatenate(
+            [cards.channel_forward(i, y_out[..., :off], native=native), psi_fix], axis=-1)
+        y_out[..., off:off + gi] = portable_cb_decode(cards.cards[i], data[start:start + lens[i]],
+                                                      psi_i, h, w, native=native)
+        off += gi
+        start += lens[i]
+    return y_out
+
+
+# --- the factorized prior's card: frozen tables -----------------------------------
+
+class FactorizedCard:
+    """Portable artifact of a FactorizedPrior: its per-channel tables frozen
+    over a fixed range. The float tables are rebuilt per range and machine;
+    frozen, a stream decodes anywhere, since the indexed rANS coder is exact
+    integer code."""
+
+    def __init__(self, cdfs: np.ndarray, offsets: np.ndarray, sizes: np.ndarray,
+                 ymin: int, ymax: int):
+        self.cdfs = cdfs.astype(np.uint32)
+        self.offsets = np.asarray(offsets, np.int32)
+        self.sizes = np.asarray(sizes, np.int32)
+        self.ymin = ymin
+        self.ymax = ymax
+        h = hashlib.sha256()
+        for arr in (np.array([ymin, ymax], np.int64), self.cdfs, self.offsets, self.sizes):
+            h.update(np.ascontiguousarray(arr).tobytes())
+        self.hash = h.digest()[:8]
+
+    @classmethod
+    def build(cls, model, ymin: int = -256, ymax: int = 256) -> "FactorizedCard":
+        """The model's tables over [ymin, ymax] (``cdf_tables
+        .factorized_tables`` on the model's device)."""
+        from neural_image_compression_tpu_torch.coding.cdf_tables import factorized_tables
+
+        return cls(*factorized_tables(model, ymin, ymax), ymin, ymax)
+
+    def save(self, path: str) -> None:
+        np.savez_compressed(path, cdfs=self.cdfs, offsets=self.offsets, sizes=self.sizes,
+                            meta=np.array([self.ymin, self.ymax], np.int64))
+
+    @classmethod
+    def load(cls, path: str) -> "FactorizedCard":
+        with np.load(path) as d:
+            ymin, ymax = (int(v) for v in d["meta"])
+            return cls(d["cdfs"], d["offsets"], d["sizes"], ymin, ymax)

@@ -177,8 +177,12 @@ class CompressionEvaluator:
                     xf = img.astype(np.float32)
                     if img.dtype == np.uint8:
                         xf /= 255.0
-                    y_q, z_q, _ = refiner(pad_to_multiple(xf, 64))
-                    data = codec.compress_latents(y_q[0], z_q[0], h, w, **compress_kwargs)
+                    # pad as compress does (64, or the factorized prior's 16); the
+                    # keywords fit every codec's compress_latents, the
+                    # factorized one's (y_q, img_h, img_w, z_q=None) too
+                    y_q, z_q, _ = refiner(pad_to_multiple(xf, codec.MULTIPLE))
+                    data = codec.compress_latents(y_q[0], z_q=z_q[0], img_h=h, img_w=w,
+                                                  **compress_kwargs)
                 else:
                     data = codec.compress(img, **compress_kwargs)
                 x_hat = codec.decompress(data)

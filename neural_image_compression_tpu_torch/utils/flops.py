@@ -1,9 +1,10 @@
-"""Analytic FLOP counts of the hierarchical families' networks, the port's
-own copy of the JAX package's utils/flops.py (``joint_ar_eval_flops`` and
-``hyperprior_eval_flops`` for the 5x5 transforms, ``train_step_flops``,
-``mfu``), with the card's peaks in place of the TPU's. The checkerboard
-model's count is ``joint_ar_eval_flops``: its context conv has the masked
-conv's shape.
+"""Analytic FLOP counts of the families' networks, the port's own copy of
+the JAX package's utils/flops.py (``joint_ar_eval_flops``,
+``hyperprior_eval_flops``, ``channel_cb_eval_flops`` and
+``factorized_prior_eval_flops`` for the 5x5 transforms,
+``train_step_flops``, ``mfu``), with the card's peaks in place of the
+TPU's. The checkerboard model's count is ``joint_ar_eval_flops``: its
+context conv has the masked conv's shape.
 
 Multiply-accumulates count 2 for every conv, deconv and GDN product on the
 eval forward, per image; deconvs count input_pixels * k^2 * Cin * Cout * 2,
@@ -77,6 +78,47 @@ def hyperprior_eval_flops(M: int, K: int, H: int, W: int) -> Dict[str, int]:
         _conv(h16, w16, 1, 2 * M, 640) + _conv(h16, w16, 1, 640, 640)
         + _conv(h16, w16, 1, 640, ep_out))
     out["total"] = sum(v for k, v in out.items() if k != "total")
+    return out
+
+
+def channel_cb_eval_flops(M: int, K: int, H: int, W: int, groups=None) -> Dict[str, int]:
+    """Per-image eval-forward FLOPs of ChannelCheckerboardHierarchical: the
+    joint-AR transforms, with the context conv and entropy net replaced by
+    each group's spatial-context conv, channel-context stack and entropy
+    net. groups: the channel split (``models.channel_cb.default_groups``
+    when None)."""
+    from neural_image_compression_tpu_torch.models.channel_cb import default_groups
+
+    g = tuple(groups) if groups is not None else default_groups(M)
+    out = dict(joint_ar_eval_flops(M, K, H, W))
+    h16, w16 = H // 16, W // 16
+    del out["context"]
+    spatial = channel = ep = 0
+    off = 0
+    for i, gi in enumerate(g):
+        spatial += _conv(h16, w16, 5, gi, 2 * gi)
+        if i > 0:
+            hidden = max(2 * gi, 64)
+            channel += _conv(h16, w16, 5, off, hidden) + _conv(h16, w16, 5, hidden, 2 * gi)
+        ep_out = 2 * gi if K == 1 else 3 * K * gi
+        ep += (_conv(h16, w16, 1, 4 * gi + 2 * M, 640) + _conv(h16, w16, 1, 640, 640)
+               + _conv(h16, w16, 1, 640, ep_out))
+        off += gi
+    out["spatial_ctx"] = spatial
+    out["channel_ctx"] = channel
+    out["entropy_parameters"] = ep
+    out["total"] = sum(v for k, v in out.items() if k != "total")
+    return out
+
+
+def factorized_prior_eval_flops(M: int, H: int, W: int) -> Dict[str, int]:
+    """Per-image eval-forward FLOPs of FactorizedPrior: the 5x5 analysis and
+    synthesis and the bottleneck's elementwise work on y. H, W: multiples
+    of 16."""
+    base = joint_ar_eval_flops(M, 1, H, W)
+    out = {"encoder": base["encoder"], "decoder": base["decoder"],
+           "elementwise": 100 * (H // 16) * (W // 16) * M}
+    out["total"] = sum(out.values())
     return out
 
 

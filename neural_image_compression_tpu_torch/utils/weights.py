@@ -2,12 +2,15 @@
 
 The port's modules are named after the JAX parameter tree (``encoder.
 Conv2d_0``, ``decoder.GDN_1``, ``context_model.MaskedConv2d_0``, the
-checkerboard's ``context_model.Conv2d_0``, ...), so a tree leaf at path
-``a/b/leaf`` becomes the ``state_dict`` entry ``a.b.<name>`` with a layout
-change where the two frameworks differ. The walk goes by names alone, so it
-serves every hierarchical family (joint-AR, checkerboard, hyperprior):
+checkerboard's ``context_model.Conv2d_0``, the channel-conditional model's
+``spatial_ctx_0`` and ``channel_ctx_1.Conv2d_0``, ...), so a tree leaf at
+path ``a/b/leaf`` becomes the ``state_dict`` entry ``a.b.<name>`` with a
+layout change where the two frameworks differ. The walk goes by names alone,
+so it serves every family (joint-AR, checkerboard, hyperprior,
+channel-conditional checkerboard, factorized prior):
 
-* conv kernel (HWIO, under ``Conv2d_*`` / ``MaskedConv2d_*``) -> ``weight``
+* conv kernel (HWIO, under ``Conv2d_*`` / ``MaskedConv2d_*``, or directly
+  under a bare conv the model names itself, ``spatial_ctx_*``) -> ``weight``
   OIHW;
 * deconv kernel (under ``Deconv2d_*``: a direct-conv HWIO kernel, the
   spatial flip of torch's) -> ``weight`` in ConvTranspose2d's (in, out, kh,
@@ -28,13 +31,18 @@ import numpy as np
 import torch
 from torch import nn
 
+# module names whose kernels are direct convolutions: flax's auto-named conv
+# modules, and the bare convs a model names itself (channel_cb.py's
+# spatial_ctx_{i})
+_CONV_MODULES = ("Conv2d_", "MaskedConv2d_", "spatial_ctx_")
+
 
 def _convert(path: str, module: str, leaf: str, value: np.ndarray):
     if leaf == "kernel":
         if module.startswith("Deconv2d_"):
             # (kh, kw, in, out) direct-conv kernel -> torch (in, out, kh, kw), unflipped
             return "weight", np.transpose(value, (2, 3, 0, 1))[:, :, ::-1, ::-1]
-        if module.startswith(("Conv2d_", "MaskedConv2d_")):
+        if module.startswith(_CONV_MODULES):
             return "weight", np.transpose(value, (3, 2, 0, 1))
         raise KeyError(f"{path}: kernel under an unknown module kind {module!r}")
     if leaf in ("bias", "beta", "gamma") or leaf.startswith(("matrix_", "bias_", "factor_")):
@@ -43,9 +51,10 @@ def _convert(path: str, module: str, leaf: str, value: np.ndarray):
 
 
 def joint_ar_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax param tree of a hierarchical model (the ``params`` collection of
-    the JAX package's JointAutoregressiveHierarchical, CheckerboardHierarchical
-    or MeanScaleHyperprior) -> the port's state_dict (CPU tensors)."""
+    """Flax param tree of a model (the ``params`` collection of the JAX
+    package's JointAutoregressiveHierarchical, CheckerboardHierarchical,
+    MeanScaleHyperprior, ChannelCheckerboardHierarchical or FactorizedPrior)
+    -> the port's state_dict (CPU tensors)."""
     state: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: tuple):
@@ -72,7 +81,7 @@ def _to_jax(key: str, value: np.ndarray):
         if module.startswith("Deconv2d_"):
             # torch (in, out, kh, kw) -> the flipped direct-conv kernel (kh, kw, in, out)
             return "kernel", np.transpose(value[:, :, ::-1, ::-1], (2, 3, 0, 1))
-        if module.startswith(("Conv2d_", "MaskedConv2d_")):
+        if module.startswith(_CONV_MODULES):
             return "kernel", np.transpose(value, (2, 3, 1, 0))
         raise KeyError(f"{key}: weight under an unknown module kind {module!r}")
     if leaf in ("bias", "beta", "gamma") or leaf.startswith(("matrix_", "bias_", "factor_")):

@@ -1,6 +1,8 @@
-"""PyTorch port, the parallel-decode families: MeanScaleHyperprior here and
-CheckerboardHierarchical (tests/test_torch_checkerboard.py runs this
-module's tests with FAMILY = "checkerboard"), held against the JAX package
+"""PyTorch port, the parallel-decode families: MeanScaleHyperprior here,
+CheckerboardHierarchical and ChannelCheckerboardHierarchical
+(tests/test_torch_checkerboard.py and tests/test_torch_channel_cb.py run
+this module's tests with FAMILY = "checkerboard" and "channel_cb"), held
+against the JAX package
 on the same weights (JAX-initialised, gains on the last analysis convs so
 that y and z spread over several integers, carried across with
 load_jax_params; CPU, M=16, 64x128, K=1 and K=3): the eval forward, the
@@ -33,16 +35,21 @@ from neural_image_compression_tpu.coding import codec as jcodec
 from neural_image_compression_tpu.coding.refine import _ste_round as jax_ste_round
 from neural_image_compression_tpu.coding.refine import make_refiner as jax_make_refiner
 from neural_image_compression_tpu.entropy.gaussian import gaussian_likelihood, mixture_likelihood
+from neural_image_compression_tpu.models.channel_cb import (
+    ChannelCheckerboardHierarchical as JChannelCB,
+)
 from neural_image_compression_tpu.models.checkerboard import CheckerboardHierarchical as JCheckerboard
 from neural_image_compression_tpu.models.hyperprior import MeanScaleHyperprior as JHyperprior
 from neural_image_compression_tpu.train.loss import rd_loss as jrd_loss
 from neural_image_compression_tpu.utils import flops as jflops
 from neural_image_compression_tpu_torch.coding import (
-    CheckerboardCodec, JointARCodec, MeanScaleHyperpriorCodec, codec, make_refiner, refine,
+    ChannelCheckerboardCodec, CheckerboardCodec, JointARCodec, MeanScaleHyperpriorCodec, codec,
+    make_refiner, refine,
 )
 from neural_image_compression_tpu_torch.evaluation import CompressionEvaluator
 from neural_image_compression_tpu_torch.models import (
-    CheckerboardHierarchical, JointAutoregressiveHierarchical, MeanScaleHyperprior,
+    ChannelCheckerboardHierarchical, CheckerboardHierarchical, JointAutoregressiveHierarchical,
+    MeanScaleHyperprior,
 )
 from neural_image_compression_tpu_torch.train import rd_loss
 from neural_image_compression_tpu_torch.utils import flops
@@ -63,6 +70,8 @@ FAMILIES = {
                    MeanScaleHyperpriorCodec),
     "checkerboard": (JCheckerboard, jcodec.CheckerboardCodec, CheckerboardHierarchical,
                      CheckerboardCodec),
+    "channel_cb": (JChannelCB, jcodec.ChannelCheckerboardCodec, ChannelCheckerboardHierarchical,
+                   ChannelCheckerboardCodec),
 }
 M, SEED, LAMBDA = 16, 0, 0.005
 SHAPE = (2, 64, 128, 3)
@@ -177,6 +186,11 @@ def test_flops_match_jax(request):
         if request.module.FAMILY == "hyperprior":
             assert flops.hyperprior_eval_flops(128, K, 512, 768) == \
                 jflops.hyperprior_eval_flops(128, K, 512, 768)
+        elif request.module.FAMILY == "channel_cb":
+            assert flops.channel_cb_eval_flops(128, K, 512, 768) == \
+                jflops.channel_cb_eval_flops(128, K, 512, 768)
+            assert flops.channel_cb_eval_flops(M, K, 64, 128, (2, 6, 8)) == \
+                jflops.channel_cb_eval_flops(M, K, 64, 128, (2, 6, 8))
         else:  # the JAX docstring: the checkerboard's count is the joint-AR one
             assert flops.joint_ar_eval_flops(128, K, 512, 768) == \
                 jflops.joint_ar_eval_flops(128, K, 512, 768)
@@ -288,8 +302,11 @@ def test_lanes_match_jax(n):
     w = rng.uniform(size=(n_sym, K)).astype(np.float32)
     w /= w.sum(1, keepdims=True)
     sym = np.round(mus[:, 0]).astype(np.int32)
-    data = codec._encode_lanes(sym, mus, sigmas, w, n_a, n)
+    data = codec._encode_lanes(sym, mus, sigmas, w, [0, n_a, n_sym], n)
     assert data == jcodec.CheckerboardCodec._encode_lanes(sym, mus, sigmas, w, n_a, n)
+    # the hyperprior's one block: the JAX codec's call with an empty second block
+    assert codec._encode_lanes(sym, mus, sigmas, w, [0, n_sym], n) == \
+        jcodec.MeanScaleHyperpriorCodec._encode_lanes(sym, mus, sigmas, w, n_sym, n)
     decs = codec._open_lanes(data, 0x8000 | n)
     first = codec._decode_block_lanes(decs, mus[:n_a], sigmas[:n_a], w[:n_a])
     second = codec._decode_block_lanes(decs, mus[n_a:], sigmas[n_a:], w[n_a:])
@@ -387,10 +404,13 @@ def test_other_models_streams_raise(pair, coded, request):
     for other in (cls(M, 2 if K == 1 else 1, device="cpu"), cls(8, K, device="cpu")):
         with pytest.raises(ValueError, match=f"K={K}, M={M}"):
             cod_cls(other).decode_latents(data)
-    # the other parallel family's stream, and a joint-AR one
-    other_cls = [c for c in (MeanScaleHyperpriorCodec, CheckerboardCodec) if c is not cod_cls][0]
-    with pytest.raises(ValueError, match="is not a"):
-        other_cls(pair[3]).decode_latents(data)
+    # the other parallel families' streams, and a joint-AR one
+    grouped = ChannelCheckerboardHierarchical(M, K, device="cpu")
+    for other_cls, model in ((MeanScaleHyperpriorCodec, pair[3]), (CheckerboardCodec, pair[3]),
+                             (ChannelCheckerboardCodec, grouped)):
+        if other_cls is not cod_cls:
+            with pytest.raises(ValueError, match="is not a"):
+                other_cls(model).decode_latents(data)
     joint = JointARCodec(JointAutoregressiveHierarchical(M, K, device="cpu"))
     with pytest.raises(ValueError, match="is not a joint-AR stream"):
         joint.decode_latents(data)

@@ -4,8 +4,10 @@ training step, its Trainer or its latent refinement.
 
 Profiles, with torch.profiler on one CUDA card, the flagship
 (JointAutoregressiveHierarchical, M=128, K=3), or with --family another
-hierarchical family at the same widths (MeanScaleHyperprior,
-CheckerboardHierarchical), in float32 and bfloat16 transforms: by default the eval forward through make_serving_fn at 768x512,
+family at the same widths (MeanScaleHyperprior, CheckerboardHierarchical,
+ChannelCheckerboardHierarchical with groups (16, 16, 32, 64), or
+FactorizedPrior, which has no K), in float32 and bfloat16 transforms: by
+default the eval forward through make_serving_fn at 768x512,
 batch 48 and batch 1; with --train the training step through
 make_train_step (batch 16 of 256x256, rd_loss at lambda 0.005, Adam 1e-4);
 with --trainer a step of train.Trainer (the same batch and loss, the
@@ -23,7 +25,7 @@ device time), then one JSON line with the same numbers. Imports only the
 port, never JAX; TF32 off as in chip_smoke.py.
 
     python3 tools/profile_torch_serve.py [--train | --trainer | --refine]
-        [--family joint_ar|hyperprior|checkerboard]
+        [--family joint_ar|hyperprior|checkerboard|channel_cb|factorized]
 """
 
 import argparse
@@ -43,7 +45,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from neural_image_compression_tpu_torch.coding import make_refiner  # noqa: E402
 from neural_image_compression_tpu_torch.models import (  # noqa: E402
-    CheckerboardHierarchical, JointAutoregressiveHierarchical, MeanScaleHyperprior,
+    ChannelCheckerboardHierarchical, CheckerboardHierarchical, FactorizedPrior,
+    JointAutoregressiveHierarchical, MeanScaleHyperprior,
 )
 from neural_image_compression_tpu_torch.ops.kernels import gdn_kernel  # noqa: E402
 from neural_image_compression_tpu_torch.parallel import make_train_step  # noqa: E402
@@ -53,8 +56,18 @@ from neural_image_compression_tpu_torch.train import MetricsLogger, Trainer, rd_
 from neural_image_compression_tpu_torch.train import trainer as trainer_module  # noqa: E402
 
 ITERS = 3
+
+
+def factorized_prior(latent_channels, K, **kw):
+    """FactorizedPrior with the hierarchical families' call shape (it has
+    no K)."""
+    return FactorizedPrior(latent_channels, **kw)
+
+
+factorized_prior.__name__ = "FactorizedPrior"
 FAMILIES = {"joint_ar": JointAutoregressiveHierarchical, "hyperprior": MeanScaleHyperprior,
-            "checkerboard": CheckerboardHierarchical}
+            "checkerboard": CheckerboardHierarchical,
+            "channel_cb": ChannelCheckerboardHierarchical, "factorized": factorized_prior}
 # the profiled family's model class (--family)
 MODEL = JointAutoregressiveHierarchical
 
@@ -304,7 +317,8 @@ def main() -> int:
     mode.add_argument("--refine", action="store_true",
                       help="profile latent refinement instead of the serving forward")
     parser.add_argument("--family", choices=sorted(FAMILIES), default="joint_ar",
-                        help="the model family to profile (M=128, K=3 each)")
+                        help="the model family to profile (M=128, K=3 where it has a "
+                             "mixture)")
     args = parser.parse_args()
     global MODEL
     MODEL = FAMILIES[args.family]
