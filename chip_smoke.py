@@ -57,7 +57,20 @@ Phases, in order; any failure exits non-zero:
      refinement, and portable streams from a card (set) built here. The
      factorized prior launches no mixture kernel: 6/0/0/0 a forward and
      6/6/0/0 a step.
-Phases 4, 5, 6, 7 and each family of phase 8 are the main paths: the
+  9. the residual family, HierarchicalMixtureResidual at M = 192, K = 1
+     (the 3x3 residual transforms): the GDN kernels against their plain
+     versions at C = 192 (the forward at the serve's, the train step's and
+     the codec's rows, the backward at the train step's and refinement's);
+     card-vs-CPU parity of its eval forward (2x256x256) and of the four
+     other families with transform="res3x3" (M = 32, 1x128x128); then its
+     main path: serve (as phase 4), train (as phase 5, MFU from the res3x3
+     FLOP count), JointARCodec on one 768x512 image (f32 and bf16 models,
+     n_streams 1 and 8: exact latents, decompress against the eval
+     forward, bits against the analytic rate, latency by stage), a portable
+     round trip (a card with the res3x3 integer hyper-decoder) and a
+     20-step refine call. No mixture kernel: 6/0/0/0 a forward, 6/6/0/0 a
+     step, 69/60/0/0 a refine call.
+Phases 4, 5, 6, 7, each family of phase 8 and phase 9 are the main paths: the
 kernels' launch counts are set to 0 just before each and read just after
 it, and the kernels' record adds them up.
 The last lines are the kernels' JSON record and
@@ -96,7 +109,7 @@ from neural_image_compression_tpu_torch.evaluation import (
 )
 from neural_image_compression_tpu_torch.models import (
     ChannelCheckerboardHierarchical, CheckerboardHierarchical, FactorizedPrior,
-    JointAutoregressiveHierarchical, MeanScaleHyperprior, joint_ar,
+    HierarchicalMixtureResidual, JointAutoregressiveHierarchical, MeanScaleHyperprior, joint_ar,
 )
 from neural_image_compression_tpu_torch.ops.kernels import (
     _build, gdn_kernel, gmm_kernel, launch_counts, reset_launch_counts,
@@ -264,9 +277,10 @@ def check_gdn(x, gamma_t, beta_t, inverse, label):
     return err
 
 
-def gdn_site_records(path, sites, rng, gamma_t, beta_t, dev):
+def gdn_site_records(path, sites, rng, gamma_t, beta_t, dev, tag=""):
     """The GDN kernel at each site's rows against its plain version, timed
-    beside its bound, in float32 and bfloat16, GDN and IGDN."""
+    beside its bound, in float32 and bfloat16, GDN and IGDN. tag: added to
+    the printed labels."""
     c = gamma_t.shape[0]
     records = []
     for site, rows in sites.items():
@@ -276,7 +290,8 @@ def gdn_site_records(path, sites, rng, gamma_t, beta_t, dev):
             dname = str(dtype).replace("torch.", "")
             for inverse in (False, True):
                 name = "igdn" if inverse else "gdn"
-                err = check_gdn(x, gamma_t, beta_t, inverse, f"{name:4s} {path} {site} {dname}")
+                err = check_gdn(x, gamma_t, beta_t, inverse,
+                                f"{name:4s}{tag} {path} {site} {dname}")
                 ms = median_ms(lambda: gdn_kernel.gdn(x, gamma_t, beta_t, inverse))
                 plain_ms = median_ms(
                     lambda: gdn_kernel.gdn_reference(x, gamma_t, beta_t, inverse))
@@ -288,7 +303,7 @@ def gdn_site_records(path, sites, rng, gamma_t, beta_t, dev):
                     name="gdn", **KERNEL_INFO["gdn"], path=path, site=site, inverse=inverse,
                     shape=[rows, c], dtype=dname, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, peak=peak, library_ms=None))
-                print(f"  {name:4s} {path} {site} rows={rows} {dname:8s} "
+                print(f"  {name:4s}{tag} {path} {site} rows={rows} {dname:8s} "
                       f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
                       f"({bound_by}, {100 * bound_ms / ms:.1f}% of it)", flush=True)
         del x32, x
@@ -415,42 +430,65 @@ def gdn_backward_design_bytes(rows, c, esz):
     return norm + mix + partials + reduce
 
 
-def gdn_backward_cases(dev):
-    rng = np.random.default_rng(3)
-    c = M
-    gamma_t, beta_t = gdn_params(c, rng, dev)
+def gdn_backward_site_records(path, sites, rng, gamma_t, beta_t, dev, inverses=(False, True),
+                              param_grads=True, tag=""):
+    """The GDN backward kernel at each site's rows against its plain
+    version, timed beside its bound, in float32 and bfloat16: with the
+    dgamma/dbeta stage (and beside its design's floor), or without it
+    (param_grads False: dx alone, as refinement runs it). tag: added to the
+    printed labels."""
+    c = gamma_t.shape[0]
     records = []
-    for site, rows in TRAIN_GDN_SITES.items():
+    for site, rows in sites.items():
         x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
         g32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             x, g = x32.to(dtype), g32.to(dtype)
-            for inverse in (False, True):
+            dname = str(dtype).replace("torch.", "")
+            for inverse in inverses:
                 name = "igdn" if inverse else "gdn"
-                dname = str(dtype).replace("torch.", "")
+                prefix = (f"{name}-bwd{'' if param_grads else ' dx'}{tag}"
+                          + ("" if path == "train" else f" {path}"))
                 err = check_gdn_backward(x, gamma_t, beta_t, g, inverse,
-                                         f"{name}-bwd {site} {dname}")
-                ms = median_ms(lambda: gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, inverse))
-                plain_ms = median_ms(
-                    lambda: gdn_kernel.gdn_backward_reference(x, gamma_t, beta_t, g, inverse))
-                # x and g read, dx written; gamma and beta read, dgamma and dbeta written
-                io_bytes = 3 * rows * c * x.element_size() + 2 * (c * c + c) * 4
-                # the three (N, C) x (C, C) products, counted once
+                                         f"{prefix} {site} {dname}", param_grads=param_grads)
+                ms = median_ms(lambda: gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, inverse,
+                                                               param_grads))
+                plain_ms = median_ms(lambda: gdn_kernel.gdn_backward_reference(
+                    x, gamma_t, beta_t, g, inverse, param_grads))
                 peak = "tf32_tensor_core"
-                bound_ms, bound_by = bound(io_bytes, 6.0 * rows * c * c + 12.0 * rows * c, peak)
-                # what this design must move (t written once, read twice; d1)
-                floor_ms = (gdn_backward_design_bytes(rows, c, x.element_size())
-                            / HBM_BYTES_PER_S * 1e3)
+                if param_grads:
+                    # x and g read, dx written; gamma and beta read, dgamma and
+                    # dbeta written; the three (N, C) x (C, C) products, counted once
+                    io_bytes = 3 * rows * c * x.element_size() + 2 * (c * c + c) * 4
+                    bound_ms, bound_by = bound(io_bytes, 6.0 * rows * c * c + 12.0 * rows * c,
+                                               peak)
+                    # what this design must move (t written once, read twice; d1)
+                    floor_ms = (gdn_backward_design_bytes(rows, c, x.element_size())
+                                / HBM_BYTES_PER_S * 1e3)
+                    floor_note = (f"  design floor {floor_ms:.4f} ms "
+                                  f"({100 * floor_ms / ms:.1f}% of it)")
+                else:
+                    # x and g read, dx written, gamma and beta read; the two
+                    # (N, C) x (C, C) products (the norm, t @ gamma^T), counted once
+                    bound_ms, bound_by = bound(3 * rows * c * x.element_size() + (c * c + c) * 4,
+                                               4.0 * rows * c * c + 10.0 * rows * c, peak)
+                    floor_note = ""
                 records.append(dict(
-                    name="gdn_backward", **KERNEL_INFO["gdn_backward"], path="train", site=site,
-                    inverse=inverse, shape=[rows, c], dtype=dname, max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, peak=peak,
-                    library_ms=None))
-                print(f"  {name}-bwd {site} rows={rows} {dname:8s} kernel {ms:.4f} ms  "
+                    name="gdn_backward", **KERNEL_INFO["gdn_backward"], path=path, site=site,
+                    inverse=inverse, **({} if param_grads else {"param_grads": False}),
+                    shape=[rows, c], dtype=dname, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, peak=peak, library_ms=None))
+                print(f"  {prefix} {site} rows={rows} {dname:8s} kernel {ms:.4f} ms  "
                       f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}, "
-                      f"{100 * bound_ms / ms:.1f}% of it)  design floor {floor_ms:.4f} ms "
-                      f"({100 * floor_ms / ms:.1f}% of it)", flush=True)
+                      f"{100 * bound_ms / ms:.1f}% of it){floor_note}", flush=True)
         del x32, g32, x, g
+    return records
+
+
+def gdn_backward_cases(dev):
+    rng = np.random.default_rng(3)
+    gamma_t, beta_t = gdn_params(M, rng, dev)
+    records = gdn_backward_site_records("train", TRAIN_GDN_SITES, rng, gamma_t, beta_t, dev)
     for rows, c in GDN_EXTRA_CASES:
         gamma_c, beta_c = gdn_params(c, rng, dev)
         x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
@@ -508,27 +546,35 @@ def rounding_margin(v: torch.Tensor) -> float:
     return (f - f.floor() - 0.5).abs().min().item()
 
 
-def gained_model(device, dtype=None, cls=JointAutoregressiveHierarchical):
-    """The flagship (or another family, ``cls``) from PARITY_SEED with the
-    parity gains on the last analysis convs, so that y and z spread over
-    several integers."""
-    model = cls(M, K, dtype=dtype, device=device, seed=PARITY_SEED)
-    hyper = getattr(model, "hyper_encoder", None)  # the factorized prior has none
+def bottleneck_convs(model):
+    """The last convs of the analysis and of the hyper-analysis (None for a
+    model without one, the factorized prior), for either transform."""
+    res = getattr(model, "transform", "conv5x5") == "res3x3"
+    hyper = getattr(model, "hyper_encoder", None)
+    return ((model.encoder.Conv2d_0 if res else model.encoder.Conv2d_3),
+            None if hyper is None else (hyper.Conv2d_4 if res else hyper.Conv2d_2))
+
+
+def gained_model(device, dtype=None, cls=JointAutoregressiveHierarchical, widths=None,
+                 seed=PARITY_SEED, gains=(PARITY_GAIN_Y, PARITY_GAIN_Z)):
+    """The flagship (or another family, ``cls`` at ``widths``: (M, K) when
+    None) from ``seed`` with ``gains`` on the last analysis convs (y's,
+    z's), so that y and z spread over several integers."""
+    model = cls(*(widths or (M, K)), dtype=dtype, device=device, seed=seed)
     with torch.no_grad():
-        for conv, gain in ((model.encoder.Conv2d_3, PARITY_GAIN_Y),
-                           (None if hyper is None else hyper.Conv2d_2, PARITY_GAIN_Z)):
+        for conv, gain in zip(bottleneck_convs(model), gains):
             if conv is not None:
                 conv.weight.mul_(gain)
                 conv.bias.mul_(gain)
     return model
 
 
-def parity(dev, cls=JointAutoregressiveHierarchical):
-    cpu_model = gained_model("cpu", cls=cls)
-    card_model = cls(M, K, device=dev, seed=PARITY_SEED)
+def parity(dev, cls=JointAutoregressiveHierarchical, widths=None, seed=PARITY_SEED,
+           gains=(PARITY_GAIN_Y, PARITY_GAIN_Z), shape=(2, 256, 256, 3)):
+    cpu_model = gained_model("cpu", cls=cls, widths=widths, seed=seed, gains=gains)
+    card_model = cls(*(widths or (M, K)), device=dev, seed=seed)
     card_model.load_state_dict(cpu_model.state_dict())
-    x = torch.from_numpy(np.random.default_rng(PARITY_SEED).uniform(
-        size=(2, 256, 256, 3)).astype(np.float32))
+    x = torch.from_numpy(np.random.default_rng(seed).uniform(size=shape).astype(np.float32))
     ref = cpu_model(x, training=False)
     got = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
            for k, v in card_model(x.to(dev), training=False).items()}
@@ -541,9 +587,9 @@ def parity(dev, cls=JointAutoregressiveHierarchical):
         check(torch.equal(got[key + "_in"], ref[key + "_in"]), f"{key}_in differs")
     check(int((ref["y_in"] != 0).sum()) > 0, "y_in is all zeros")
     tolerances = {"x_hat": 1e-4, "logp_y": 1e-4, "logp_z": 1e-4, "weights": 1e-5,
-                  "mus": 1e-4, "sigmas": 1e-4}
+                  "mus": 1e-4, "sigmas": 1e-4, "mu": 1e-4, "sigma": 1e-4}
     for key, tol in tolerances.items():
-        if key not in ref:  # the factorized prior has no mixture
+        if key not in ref:  # a K=1 model has mu and sigma, the factorized prior neither
             continue
         err = (got[key] - ref[key]).abs().max().item()
         print(f"  {key}: max abs diff {err:.3e} (tolerance {tol:g})")
@@ -611,17 +657,19 @@ def grad_parity(dev):
 # --- phase 4: the main path ---------------------------------------------------
 
 def serve_phase(dev, card: str, cls=JointAutoregressiveHierarchical,
-                gmm_per_forward=GMM_PER_FORWARD, z_rate=True):
+                gmm_per_forward=GMM_PER_FORWARD, z_rate=True, widths=None,
+                latency_iters=LATENCY_ITERS):
     """serve() at batch 48 and 1 in f32 and bf16. gmm_per_forward: the
     family's mixture launches a forward; z_rate False: the family has no z,
-    so bpp_z must be 0 (else positive)."""
+    so bpp_z must be 0 (else positive); widths: the model's (M, K) (M and
+    K when None); latency_iters: the batch-1 calls timed."""
     rng = np.random.default_rng(2)
     x48 = torch.from_numpy(rng.uniform(size=(BATCH, HEIGHT, WIDTH, 3)).astype(np.float32)).to(dev)
     x1 = x48[:1].contiguous()
     forwards = 0
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
-        model = cls(M, K, dtype=dtype, device=dev, seed=0)
+        model = cls(*(widths or (M, K)), dtype=dtype, device=dev, seed=0)
         serve = make_serving_fn(model)
         torch.cuda.reset_peak_memory_stats(dev)
         before = (gdn_kernel.gdn.launches, gmm_kernel.gmm_logp.launches)
@@ -650,12 +698,12 @@ def serve_phase(dev, card: str, cls=JointAutoregressiveHierarchical,
         serve(x1)
         torch.cuda.synchronize()
         lat = []
-        for _ in range(LATENCY_ITERS):
+        for _ in range(latency_iters):
             t0 = time.perf_counter()
             serve(x1)
             torch.cuda.synchronize()
             lat.append(time.perf_counter() - t0)
-        forwards += 1 + LATENCY_ITERS
+        forwards += 1 + latency_iters
         name = str(dtype).replace("torch.", "")
         results[name] = dict(
             img_per_s=BATCH / statistics.median(times),
@@ -674,11 +722,11 @@ def serve_phase(dev, card: str, cls=JointAutoregressiveHierarchical,
 # --- phase 5: the training step -------------------------------------------------
 
 def train_run(dev, dtype, x, seed, steps, timed=False, cls=JointAutoregressiveHierarchical,
-              per_step=PER_STEP):
-    """``steps`` steps of a fresh model (weights from ``seed``) on batch x,
-    each launching ``per_step``. Returns the losses (tensors), per-step host
-    times and the peak memory."""
-    model = cls(M, K, dtype=dtype, device=dev, seed=seed)
+              per_step=PER_STEP, widths=None):
+    """``steps`` steps of a fresh model (``cls`` at ``widths``: M and K when
+    None; weights from ``seed``) on batch x, each launching ``per_step``.
+    Returns the losses (tensors), per-step host times and the peak memory."""
+    model = cls(*(widths or (M, K)), dtype=dtype, device=dev, seed=seed)
     opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
     step = make_train_step(model, opt, rd_loss, LAMBDA)
     gen = torch.Generator(device=dev).manual_seed(100 + seed)
@@ -703,19 +751,21 @@ def train_run(dev, dtype, x, seed, steps, timed=False, cls=JointAutoregressiveHi
 
 
 def train_phase(dev, card: str, cls=JointAutoregressiveHierarchical,
-                eval_flops=flops.joint_ar_eval_flops, per_step=PER_STEP):
+                eval_flops=flops.joint_ar_eval_flops, per_step=PER_STEP, widths=None):
     x = torch.rand((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
                    generator=torch.Generator(device=dev).manual_seed(7), device=dev)
-    flops_img = flops.train_step_flops(eval_flops(M, K, TRAIN_SIZE, TRAIN_SIZE)["total"])
+    flops_img = flops.train_step_flops(eval_flops(*(widths or (M, K)), TRAIN_SIZE,
+                                                  TRAIN_SIZE)["total"])
     steps = 0
     results = {}
     for dtype, peak_name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         name = str(dtype).replace("torch.", "")
         losses, times, peak_mem = train_run(dev, dtype, x, seed=0, steps=TRAIN_TIMED,
-                                            timed=True, cls=cls, per_step=per_step)
+                                            timed=True, cls=cls, per_step=per_step,
+                                            widths=widths)
         check(bool(torch.isfinite(losses).all()), f"{name}: a loss is not finite: {losses}")
         conv, _, _ = train_run(dev, dtype, x, seed=1, steps=TRAIN_CONVERGE, cls=cls,
-                               per_step=per_step)
+                               per_step=per_step, widths=widths)
         check(bool(torch.isfinite(conv).all()), f"{name}: a loss is not finite: {conv}")
         first, last = conv[:10].mean().item(), conv[20:30].mean().item()
         check(last < first, f"{name}: mean loss of steps 21-30 {last} not below steps 1-10 {first}")
@@ -777,34 +827,9 @@ def refine_kernel_cases(dev):
     and both mixture kernels at refinement's rows, against their plain
     versions, timed beside their bounds."""
     rng = np.random.default_rng(14)
-    c = M
-    gamma_t, beta_t = gdn_params(c, rng, dev)
-    records = []
-    for site, rows in CODEC_GDN_SITES.items():
-        x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
-        g32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            x, g = x32.to(dtype), g32.to(dtype)
-            dname = str(dtype).replace("torch.", "")
-            err = check_gdn_backward(x, gamma_t, beta_t, g, True, f"igdn-bwd dx refine {site} {dname}",
-                                     param_grads=False)
-            ms = median_ms(lambda: gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, True, False))
-            plain_ms = median_ms(
-                lambda: gdn_kernel.gdn_backward_reference(x, gamma_t, beta_t, g, True, False))
-            # x and g read, dx written, gamma and beta read; the two (N, C) x
-            # (C, C) products (the norm, t @ gamma^T), counted once
-            peak = "tf32_tensor_core"
-            bound_ms, bound_by = bound(3 * rows * c * x.element_size() + (c * c + c) * 4,
-                                       4.0 * rows * c * c + 10.0 * rows * c, peak)
-            records.append(dict(
-                name="gdn_backward", **KERNEL_INFO["gdn_backward"], path="refine", site=site,
-                inverse=True, param_grads=False, shape=[rows, c], dtype=dname, max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, peak=peak,
-                library_ms=None))
-            print(f"  igdn-bwd dx refine {site} rows={rows} {dname:8s} kernel {ms:.4f} ms  "
-                  f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}, "
-                  f"{100 * bound_ms / ms:.1f}% of it)", flush=True)
-        del x32, g32, x, g
+    gamma_t, beta_t = gdn_params(M, rng, dev)
+    records = gdn_backward_site_records("refine", CODEC_GDN_SITES, rng, gamma_t, beta_t, dev,
+                                        inverses=(True,), param_grads=False)
     records += gmm_case(dev, "refine", REFINE_GMM_ROWS, seed=15)
     records += gmm_backward_case(dev, "refine", REFINE_GMM_ROWS, seed=16)
     return records
@@ -906,8 +931,8 @@ def codec_round_trip(total, codec, x, ref, dname, iname, n_streams=None):
     Returns (stream, y_q, z_q, x_hat's max abs difference, its note, stream
     bits over analytic)."""
     label = f"{dname} {iname}" + ("" if n_streams is None else f" n_streams={n_streams}")
-    args = () if n_streams is None else (n_streams,)
-    data, _ = counted(total, CODEC_PER_CALL, codec.compress, x, *args)
+    kwargs = {} if n_streams is None else {"n_streams": n_streams}
+    data, _ = counted(total, CODEC_PER_CALL, functools.partial(codec.compress, **kwargs), x)
     (y_q, z_q), _ = counted(total, NO_LAUNCHES, codec.decode_latents, data)
     check(np.array_equal(y_q, ref["y_in"]) and np.array_equal(z_q, ref["z_in"]),
           f"{label}: decoded latents differ from the eval forward's y_in/z_in "
@@ -1128,14 +1153,15 @@ def codec_batch_case(total, codec, xs, refs, dname, iters=BATCH_ITERS):
 
 
 def refine_case(total, model, codec, x, dev, dname, per_call=REFINE_PER_CALL,
-                zero_steps=REFINE_ZERO_STEPS):
+                zero_steps=REFINE_ZERO_STEPS, iters=REFINE_ITERS):
     """REFINE_STEPS Adam steps on one image's latents: the loss falls, the
     refined latents round trip through the codec, the launches per call
     (``per_call``; ``zero_steps`` for a call of none), and ms a step (a call
-    of REFINE_STEPS steps less one of none)."""
+    of REFINE_STEPS steps less one of none: medians of ``iters`` calls
+    after the first; with iters 0, the first call and one of none)."""
     xd = torch.from_numpy(x).to(dev)
     refine = make_refiner(model, LAMBDA, steps=REFINE_STEPS, lr=REFINE_LR)
-    (y_q, z_q, m), _ = counted(total, per_call, refine, xd)
+    (y_q, z_q, m), first_s = counted(total, per_call, refine, xd)
     pre, post = m["pre_loss"].item(), m["post_loss"].item()
     check(np.isfinite(pre) and np.isfinite(post) and post <= pre,
           f"{dname} refine: loss {pre} -> {post}")
@@ -1146,10 +1172,10 @@ def refine_case(total, model, codec, x, dev, dname, per_call=REFINE_PER_CALL,
     check(np.array_equal(y_d, y_q[0].cpu().numpy()) and np.array_equal(z_d, z_q[0].cpu().numpy()),
           f"{dname} refine: the refined latents do not round trip")
     none = make_refiner(model, LAMBDA, steps=0, lr=REFINE_LR)
-    full_ms = 1e3 * statistics.median(counted(total, per_call, refine, xd)[1]
-                                      for _ in range(REFINE_ITERS))
+    full_ms = 1e3 * statistics.median([counted(total, per_call, refine, xd)[1]
+                                       for _ in range(iters)] or [first_s])
     zero_ms = 1e3 * statistics.median(counted(total, zero_steps, none, xd)[1]
-                                      for _ in range(REFINE_ITERS))
+                                      for _ in range(max(iters, 1)))
     r = dict(pre_loss=pre, post_loss=post, pre_bpp=m["pre_bpp_total"].item(),
              post_bpp=m["post_bpp_total"].item(), pre_psnr=m["pre_psnr"].item(),
              post_psnr=m["post_psnr"].item(), refine_ms=full_ms, no_steps_ms=zero_ms,
@@ -1164,12 +1190,12 @@ def refine_case(total, model, codec, x, dev, dname, per_call=REFINE_PER_CALL,
 
 def portable_case(total, model, x, ref, float_bytes, dname, codec_cls=JointARCodec,
                   coder=(portable.portable_ar_encode, portable.portable_ar_decode),
-                  card_type=(PortableCard.build, PortableCard.load)):
+                  card_type=(PortableCard.build, PortableCard.load), median=median_call_ms):
     """A card built here, saved and loaded (same hash); compress_portable's
     latents exact, its rate against the float stream's, encode and decode
-    latency; at 64x128 the native and numpy coders (``coder``: the card
-    family's encode and decode) write the same bytes. card_type: the
-    card's (build, load)."""
+    latency (``median``: the timer); at 64x128 the native and numpy coders
+    (``coder``: the card family's encode and decode) write the same bytes.
+    card_type: the card's (build, load)."""
     encode, decode = coder
     build, load = card_type
     t0 = time.perf_counter()
@@ -1187,8 +1213,8 @@ def portable_case(total, model, x, ref, float_bytes, dname, codec_cls=JointARCod
                   ref)
     r = dict(card_hash=card.hash.hex(), card_build_s=build_s, stream_bytes=len(data),
              bpp=8 * len(data) / (HEIGHT * WIDTH), over_float=len(data) / float_bytes,
-             encode_ms=median_call_ms(total, encode_only, codec.compress_portable, x),
-             decode_ms=median_call_ms(total, CODEC_PER_CALL, codec.decompress, data))
+             encode_ms=median(total, encode_only, codec.compress_portable, x),
+             decode_ms=median(total, CODEC_PER_CALL, codec.decompress, data))
     small = x[:, :PORTABLE_SMALL[0], :PORTABLE_SMALL[1]]
     small_data, _ = counted(total, encode_only, codec.compress_portable, small)
     y_s, z_s = counted(total, NO_LAUNCHES, codec.decode_latents, small_data)[0]
@@ -1566,14 +1592,16 @@ FAMILIES = {
                          (FactorizedCard.build, FactorizedCard.load), None, mixture=False),
 }
 FAMILY_STREAMS = (1, 8)
-# phase 8's repeats, cut to keep it near 45 s a family: medians of 3 codec
-# calls, the device and z stages timed at n_streams 1 only (N lanes change
-# the y rANS alone), one timed batch call
-FAMILY_CODEC_ITERS, FAMILY_BATCH_ITERS = 3, 1
+# phase 8's repeats, cut to keep it near 40 s a family (and the whole run
+# within 1.3x of its length before phase 9): medians of 2 codec calls after
+# one, the device and z stages timed at n_streams 1 only (N lanes change the
+# y rANS alone), one timed batch call
+FAMILY_CODEC_ITERS, FAMILY_BATCH_ITERS = 2, 1
 
 
 def family_median_ms(total, expect, fn, *args):
-    """Median host-clock ms of FAMILY_CODEC_ITERS calls after one."""
+    """Median host-clock ms of FAMILY_CODEC_ITERS calls after one (phases 8
+    and 9)."""
     counted(total, expect, fn, *args)
     return 1e3 * statistics.median(counted(total, expect, fn, *args)[1]
                                    for _ in range(FAMILY_CODEC_ITERS))
@@ -1831,6 +1859,167 @@ def family_phase(dev, card, family):
                           launches_per_forward=fam.forward, launches_per_step=fam.step)
 
 
+# --- phase 9: the residual family ------------------------------------------------
+
+RES_M, RES_K = 192, 1  # HierarchicalMixtureResidual's defaults, the reference's
+RES_WIDTHS = (RES_M, RES_K)
+# gains on the residual transforms' bottleneck convs (encoder.Conv2d_0,
+# hyper_encoder.Conv2d_4) and a seed whose latents keep a rounding margin
+# (checked at run time): at M=192 on 2x256x256, y's std 0.58 (6 values,
+# margin 3.6e-5 on a CPU) and z's 0.63 (5 values, margin 2.4e-5)
+RES_GAINS, RES_PARITY_SEED = (5.0, 40.0), 15
+# the four other families with transform="res3x3", card against CPU at a
+# small width (K=3 where they have a mixture); margins 1.2e-3 and 6.1e-3
+RES_SMALL_M, RES_SMALL_SEED, RES_SMALL_SHAPE = 32, 13, (1, 128, 128, 3)
+RES_FORWARD = dict(FORWARD, gmm_logp=0)  # K=1: the Gaussian rate, no mixture kernel
+RES_STEP = dict(PER_STEP, gmm_logp=0, gmm_logp_backward=0)
+RES_STREAMS = (1, 8)
+# the f32 batch-1 forward takes about a second (cuDNN's heuristic picks FFT
+# algorithms for some of its 3x3 convolutions): 3 timed calls, and one
+# refine call
+RES_LATENCY_ITERS = 3
+
+
+def residual_eval_flops(m, k, h, w):
+    return flops.joint_ar_eval_flops(m, k, h, w, "res3x3")
+
+
+def res3x3(cls):
+    """A family's constructor, called as cls(M, K, ...), with the residual
+    transforms."""
+    if cls is FactorizedPrior:
+        return lambda m, k, **kw: FactorizedPrior(m, "res3x3", **kw)
+    return lambda m, k, **kw: cls(m, k, transform="res3x3", **kw)
+
+
+RES_FAMILIES = {"hyperprior": MeanScaleHyperprior, "checkerboard": CheckerboardHierarchical,
+                "channel_cb": ChannelCheckerboardHierarchical, "factorized": FactorizedPrior}
+
+
+def residual_kernel_cases(dev):
+    """The GDN kernels at C=192, the residual transforms' width: the
+    forward at the serve's, the train step's and the codec's rows, the
+    backward at the train step's (with the dgamma/dbeta stage, and at H/2
+    dx alone) and, dx alone, at refinement's (the codec's rows, IGDN)."""
+    rng = np.random.default_rng(30)
+    gamma_t, beta_t = gdn_params(RES_M, rng, dev)
+    tag = f" C={RES_M}"
+    records = []
+    for path, sites in (("serve", GDN_SITES), ("train", TRAIN_GDN_SITES),
+                        ("codec", CODEC_GDN_SITES)):
+        records += gdn_site_records(path, sites, rng, gamma_t, beta_t, dev, tag)
+    records += gdn_backward_site_records("train", TRAIN_GDN_SITES, rng, gamma_t, beta_t, dev,
+                                         tag=tag)
+    records += gdn_backward_site_records("train", {"H/2": TRAIN_GDN_SITES["H/2"]}, rng, gamma_t,
+                                         beta_t, dev, param_grads=False, tag=tag)
+    records += gdn_backward_site_records("refine", CODEC_GDN_SITES, rng, gamma_t, beta_t, dev,
+                                         inverses=(True,), param_grads=False, tag=tag)
+    for r in records:
+        r["families"] = ["residual"]
+    return records
+
+
+def residual_parity(dev):
+    """The residual model against the CPU at M=192 on 2x256x256, then each
+    other family with transform="res3x3" at M=32 on 1x128x128."""
+    parity(dev, HierarchicalMixtureResidual, RES_WIDTHS, RES_PARITY_SEED, RES_GAINS)
+    for family, cls in RES_FAMILIES.items():
+        print(f"  -- {family}, transform res3x3, M={RES_SMALL_M}: card against CPU, eval "
+              f"forward {'x'.join(map(str, RES_SMALL_SHAPE[:3]))}", flush=True)
+        parity(dev, res3x3(cls), (RES_SMALL_M, K), RES_SMALL_SEED, RES_GAINS, RES_SMALL_SHAPE)
+
+
+def residual_codec_case(total, codec, x, ref, dname, n_streams, card):
+    """JointARCodec on the residual model, one image, one stream count:
+    correctness (codec_round_trip), then latency; at n_streams 1 also its
+    stages: device (analysis and psi; synthesis) and host (z and the
+    wavefront)."""
+    data, y_q, z_q, xhat_err, xhat_note, ratio = codec_round_trip(
+        total, codec, x, ref, dname, "float32", n_streams)
+    r = dict(encode_ms=family_median_ms(total, CODEC_PER_CALL, codec.compress, x, None,
+                                        n_streams),
+             decode_ms=family_median_ms(total, CODEC_PER_CALL, codec.decompress, data),
+             stream_bytes=len(data), bpp=8 * len(data) / (HEIGHT * WIDTH),
+             analytic_bpp=ref["bits"] / (HEIGHT * WIDTH), stream_over_analytic=ratio,
+             x_hat_max_abs_diff=xhat_err)
+    note = ""
+    if n_streams == 1:
+        img_h, img_w, y_s, z_s, psi = counted(total, CODEC_PER_CALL, codec._analyse_image, x)[0]
+        header = codec._header(data)
+        y_payload = data[codec_module._HEADER_SIZE + header[9]:]
+        h, w = HEIGHT // 16, WIDTH // 16
+        r["stages_ms"] = stages = dict(
+            encode_analysis_psi=family_median_ms(total, CODEC_PER_CALL, codec._analyse_image, x),
+            encode_host_z_and_wavefront=family_median_ms(total, NO_LAUNCHES, codec._encode_from,
+                                                         y_s, z_s, psi, img_h, img_w),
+            decode_host_z=family_median_ms(total, NO_LAUNCHES, codec._decode_z, data, header),
+            decode_psi=family_median_ms(total, NO_LAUNCHES, codec._psi, z_q[None]),
+            decode_host_wavefront=family_median_ms(total, NO_LAUNCHES,
+                                                   codec_module._ar_decode_latents,
+                                                   codec._host_nets, y_payload, psi, h, w),
+            decode_synthesis=family_median_ms(total, CODEC_PER_CALL, codec._synthesize,
+                                              y_q[None], HEIGHT, WIDTH))
+        note = (f" (device {stages['encode_analysis_psi']:.2f}, host "
+                f"{stages['encode_host_z_and_wavefront']:.2f}); decode device "
+                f"{stages['decode_psi'] + stages['decode_synthesis']:.2f}, host "
+                f"{stages['decode_host_z'] + stages['decode_host_wavefront']:.2f}")
+    print(f"  {dname} n_streams={n_streams}: encode {r['encode_ms']:.2f} ms, decode "
+          f"{r['decode_ms']:.2f} ms{note}; {len(data)} bytes, {r['bpp']:.5f} bpp, {ratio:.5f} of "
+          f"analytic; latents exact, x_hat {xhat_note} [{card}, {os.cpu_count()} host cores]",
+          flush=True)
+    return r
+
+
+def residual_phase(dev, card):
+    """HierarchicalMixtureResidual at M=192, K=1: card against CPU (and
+    the other families with transform="res3x3"), then the main path with
+    its launches counted from 0: serve, train, the codec (f32 and bf16, one
+    float32 image, n_streams 1 and 8), a portable round trip and a 20-step
+    refine call (f32), timed once. Returns (the main path's launches,
+    results)."""
+    t0 = time.perf_counter()
+    residual_parity(dev)
+    x = codec_images()["float32"]
+    models = {"float32": gained_model(dev, None, HierarchicalMixtureResidual, RES_WIDTHS,
+                                      RES_PARITY_SEED, RES_GAINS),
+              "bfloat16": gained_model(dev, torch.bfloat16, HierarchicalMixtureResidual,
+                                       RES_WIDTHS, RES_PARITY_SEED, RES_GAINS)}
+    refs = codec_references(dev, models, {"float32": x})
+    reset_launch_counts()
+    print(f"  -- serve {HEIGHT}x{WIDTH}", flush=True)
+    forwards, serve = serve_phase(dev, card, HierarchicalMixtureResidual, 0, widths=RES_WIDTHS,
+                                  latency_iters=RES_LATENCY_ITERS)
+    print(f"  -- train, batch {TRAIN_BATCH} of {TRAIN_SIZE}x{TRAIN_SIZE}", flush=True)
+    steps, train = train_phase(dev, card, HierarchicalMixtureResidual, residual_eval_flops,
+                               RES_STEP, RES_WIDTHS)
+    total = added(scaled(RES_FORWARD, forwards), scaled(RES_STEP, steps))
+    check(launch_counts() == total, f"residual: serve and train launched {launch_counts()}, "
+                                    f"not {total} ({forwards} forwards, {steps} steps)")
+    print(f"  -- codec, one {HEIGHT}x{WIDTH} image", flush=True)
+    codec = {}
+    for dname, model in models.items():
+        cod = JointARCodec(model)
+        codec[dname] = {f"n_streams={n}": residual_codec_case(total, cod, x, refs[dname, "float32"],
+                                                              dname, n, card)
+                        for n in RES_STREAMS}
+    model, ref = models["float32"], refs["float32", "float32"]
+    codec["float32"]["portable"] = portable_case(
+        total, model, x, ref, codec["float32"]["n_streams=1"]["stream_bytes"], "float32",
+        median=family_median_ms)
+    codec["float32"]["refine"] = refine_case(total, model, JointARCodec(model), x, dev, "float32",
+                                             refine_launches(REFINE_STEPS, False),
+                                             refine_launches(0, False), iters=0)
+    launches = launch_counts()
+    check(launches == total, f"residual: launches {launches}, its calls counted {total}")
+    seconds = time.perf_counter() - t0
+    print(f"main path (residual): {forwards} forwards, {steps} steps, the codec's and refine's "
+          f"calls: launches {launches} (a forward {RES_FORWARD}, a step {RES_STEP}); phase 9 "
+          f"took {seconds:.1f} s")
+    return launches, dict(serve=serve, train=train, codec=codec, seconds=seconds, M=RES_M,
+                          K=RES_K, transform="res3x3", launches_per_forward=RES_FORWARD,
+                          launches_per_step=RES_STEP)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1909,16 +2098,23 @@ def main() -> int:
         family_launches[family], family_results = family_phase(dev, card, family)
         print(json.dumps({family: family_results, "card": card, "cpu_count": os.cpu_count()}))
 
+    print(f"== phase 9: the residual family, HierarchicalMixtureResidual M={RES_M} K={RES_K} "
+          f"(transform res3x3) [{card}]", flush=True)
+    records += residual_kernel_cases(dev)
+    residual_launches, residual_results = residual_phase(dev, card)
+    print(json.dumps({"residual": residual_results, "card": card, "cpu_count": os.cpu_count()}))
+
     for r in records:
         r["launches"] = (serve_launches[r["name"]] + train_launches[r["name"]]
                          + codec_launches[r["name"]] + trainer_launches[r["name"]]
-                         + sum(f[r["name"]] for f in family_launches.values()))
+                         + sum(f[r["name"]] for f in family_launches.values())
+                         + residual_launches[r["name"]])
         # every family runs the GDN kernels at these shapes, the mixture
-        # kernels only the families with a mixture
-        r["families"] = ["joint_ar"] + ([f for f, fam in FAMILIES.items()
-                                         if fam.mixture or r["name"].startswith("gdn")]
-                                        if r.get("path") in ("serve", "train", "codec", "refine")
-                                        else [])
+        # kernels only the families with a mixture; phase 9's records (C=192)
+        # carry their own
+        r.setdefault("families", ["joint_ar"] + (
+            [f for f, fam in FAMILIES.items() if fam.mixture or r["name"].startswith("gdn")]
+            if r.get("path") in ("serve", "train", "codec", "refine") else []))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

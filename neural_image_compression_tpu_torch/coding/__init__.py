@@ -21,7 +21,8 @@ from neural_image_compression_tpu_torch.coding.codec import (
     MeanScaleHyperpriorCodec, bitstream_bpp, stream_size,
 )
 from neural_image_compression_tpu_torch.coding.portable import (
-    ChannelCBCards, FactorizedCard, PortableCard, build_channel_cb_cards,
+    ChannelCBCards, FactorizedCard, PortableCard, build_channel_cb_cards, portable_ar_decode,
+    portable_ar_encode, wavefront_order,
 )
 from neural_image_compression_tpu_torch.coding.refine import make_refiner, refine_latents
 
@@ -29,4 +30,5 @@ __all__ = ["RansDecoder", "encode_gaussian", "encode_indexed", "factorized_table
            "quantize_pmf_rows", "JointARCodec", "CheckerboardCodec",
            "MeanScaleHyperpriorCodec", "ChannelCheckerboardCodec", "FactorizedPriorCodec",
            "bitstream_bpp", "stream_size", "PortableCard", "ChannelCBCards", "FactorizedCard",
-           "build_channel_cb_cards", "make_refiner", "refine_latents"]
+           "build_channel_cb_cards", "portable_ar_decode", "portable_ar_encode",
+           "wavefront_order", "make_refiner", "refine_latents"]

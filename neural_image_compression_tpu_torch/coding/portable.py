@@ -254,15 +254,25 @@ def _integer_tables():
     return sigma_thr, sigma_fix, sigma2_fix, sigma_R, tables, exp_lut
 
 
-def _hyper_layers(params: Dict) -> List[Tuple[str, QuantLayer, Tuple]]:
-    """The 5x5 hyper-decoder as a quantized integer layer list, from the
-    flax-layout parameter tree (``utils.weights.joint_ar_params_to_jax``:
-    direct-conv HWIO kernels), each with its _int_conv2d/_int_deconv2d
-    geometry."""
+def _hyper_layers(model, params: Dict) -> List[Tuple[str, QuantLayer, Tuple]]:
+    """The model's hyper-decoder (its ``transform``: "conv5x5" or "res3x3")
+    as a quantized integer layer list, from the flax-layout parameter tree
+    (``utils.weights.joint_ar_params_to_jax``: direct-conv HWIO kernels),
+    each with its _int_conv2d/_int_deconv2d geometry."""
     hd = params["hyper_decoder"]
-    seq = [("deconv", hd["Deconv2d_0"], (2, 2, 1)),
-           ("deconv", hd["Deconv2d_1"], (2, 2, 1)),
-           ("conv", hd["Conv2d_0"], (1, 1))]
+    transform = getattr(model, "transform", "conv5x5")
+    if transform == "conv5x5":
+        seq = [("deconv", hd["Deconv2d_0"], (2, 2, 1)),
+               ("deconv", hd["Deconv2d_1"], (2, 2, 1)),
+               ("conv", hd["Conv2d_0"], (1, 1))]
+    elif transform == "res3x3":
+        seq = [("conv", hd["Conv2d_0"], (1, 1)),
+               ("deconv", hd["TransposedDeconv3x3_0"]["Deconv2d_0"], (2, 1, 1)),
+               ("conv", hd["Conv2d_1"], (1, 1)),
+               ("deconv", hd["TransposedDeconv3x3_1"]["Deconv2d_0"], (2, 1, 1)),
+               ("conv", hd["Conv2d_2"], (1, 1))]
+    else:
+        raise ValueError(f"unsupported transform {transform}")
     return [(kind, QuantLayer.quantize(np.asarray(sub["kernel"]), np.asarray(sub["bias"])), geom)
             for kind, sub, geom in seq]
 
@@ -419,7 +429,7 @@ class PortableCard:
                              + ("a ChannelCBCards set (build_channel_cb_cards)"
                                 if family == "channel_cb" else "a FactorizedCard"))
         nets = _HostParamNets(model, family)
-        hyper = _hyper_layers(joint_ar_params_to_jax(model))
+        hyper = _hyper_layers(model, joint_ar_params_to_jax(model))
         ctx = QuantLayer.quantize(nets.ctx_w, nets.ctx_bias)
         (w1, b1), (w2, b2), (w3, b3) = nets.ep
         ep1_phi, ep1_psi = _quantize_ep1_split(w1, b1, nets.ctx_w.shape[1])
@@ -1008,7 +1018,7 @@ def build_channel_cb_cards(model, zmin: int = -64, zmax: int = 64) -> ChannelCBC
         ep1_phi, ep1_psi = _quantize_ep1_split(np.vstack([w1[:2 * gi], w1[psi_lo:]]), b1,
                                                2 * gi)
         if i == 0:
-            hyper = _hyper_layers(params)
+            hyper = _hyper_layers(model, params)
         else:
             # the first conv's exactness bound, as the context GEMM's
             # Y_ABS_MAX argument: 25 taps x `off` channels of (|y| << F) * w

@@ -105,9 +105,8 @@ class ChannelCheckerboardHierarchical(HierarchicalModel):
 
     latent_channels: M (hyper channels == M). K: 1 -> mean-scale Gaussian;
     K > 1 -> K-component Gaussian mixture. groups: the channel split (must
-    sum to M); None -> ``default_groups(M)``. transform: "conv5x5" ("res3x3"
-    is not ported and raises NotImplementedError). dtype, device and seed as
-    the joint-AR model's."""
+    sum to M); None -> ``default_groups(M)``. transform: "conv5x5" or
+    "res3x3". dtype, device and seed as the joint-AR model's."""
 
     def __init__(self, latent_channels: int = 192, K: int = 1,
                  groups: Optional[Sequence[int]] = None, transform: str = "conv5x5",

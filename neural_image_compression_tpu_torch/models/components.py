@@ -1,5 +1,7 @@
-"""Analysis / synthesis / hyper transforms, port of models/components.py
-(the 5x5 conv/GDN set; the 3x3 residual variants come with their family).
+"""Analysis / synthesis / hyper transforms, port of models/components.py:
+the 5x5 conv/GDN set and the 3x3 residual-block set (``Encoder3x3``,
+``Decoder3x3``, ``HyperEncoder3x3``, ``HyperDecoder3x3``: the reference's
+HierarchicalMixtureResidual transforms).
 
 Modules take and return (B, C, H, W) tensors in channels_last memory.
 Submodule names follow the JAX package's parameter tree (``Conv2d_0``,
@@ -11,8 +13,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from neural_image_compression_tpu_torch.ops.blocks import leaky_relu
-from neural_image_compression_tpu_torch.ops.conv import Conv2d, Deconv2d
+from neural_image_compression_tpu_torch.ops.blocks import (
+    ResidualBlock, ResidualBlockUpsample, ResidualBlockWithStride, leaky_relu,
+)
+from neural_image_compression_tpu_torch.ops.conv import Conv2d, Deconv2d, TransposedDeconv3x3
 from neural_image_compression_tpu_torch.ops.gdn import GDN
 from neural_image_compression_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -95,3 +99,93 @@ class HyperDecoder5x5(nn.Module):
         z = leaky_relu(self.Deconv2d_0(z))
         z = leaky_relu(self.Deconv2d_1(z))
         return self.Conv2d_0(z)
+
+
+class Encoder3x3(nn.Module):
+    """Residual-block analysis (x16 downsample), 3 -> M: three strided
+    blocks with GDN, each followed by a plain block, then a stride-2 3x3
+    bottleneck conv."""
+
+    def __init__(self, latent_channels: int = 192, dtype: Optional[torch.dtype] = None,
+                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        m = latent_channels
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        for i in range(3):
+            setattr(self, f"ResidualBlockWithStride_{i}",
+                    ResidualBlockWithStride(3 if i == 0 else m, m, 2, **kw))
+            setattr(self, f"ResidualBlock_{i}", ResidualBlock(m, m, **kw))
+        self.Conv2d_0 = Conv2d(m, m, 3, 2, 1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(3):
+            x = getattr(self, f"ResidualBlockWithStride_{i}")(x)
+            x = getattr(self, f"ResidualBlock_{i}")(x)
+        return self.Conv2d_0(x)  # bottleneck
+
+
+class Decoder3x3(nn.Module):
+    """Residual-block synthesis (x16 upsample), M -> 3: plain blocks around
+    three upsampling blocks with IGDN, then a 3x3 transposed conv to 3."""
+
+    def __init__(self, latent_channels: int = 192, dtype: Optional[torch.dtype] = None,
+                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        m = latent_channels
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        for i in range(3):
+            setattr(self, f"ResidualBlock_{i}", ResidualBlock(m, m, **kw))
+            setattr(self, f"ResidualBlockUpsample_{i}", ResidualBlockUpsample(m, m, 2, **kw))
+        self.ResidualBlock_3 = ResidualBlock(m, m, **kw)
+        self.TransposedDeconv3x3_0 = TransposedDeconv3x3(m, 3, 2, **kw)
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        for i in range(3):
+            y = getattr(self, f"ResidualBlock_{i}")(y)
+            y = getattr(self, f"ResidualBlockUpsample_{i}")(y)
+        return self.TransposedDeconv3x3_0(self.ResidualBlock_3(y))
+
+
+class HyperEncoder3x3(nn.Module):
+    """y -> z with five 3x3 convs (two of stride 2, x4 downsample)."""
+
+    def __init__(self, latent_channels: int = 192, dtype: Optional[torch.dtype] = None,
+                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        m = latent_channels
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        for i, stride in enumerate((1, 1, 2, 1, 2)):
+            setattr(self, f"Conv2d_{i}", Conv2d(m, m, 3, stride, 1, **kw))
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        for i in range(4):
+            y = leaky_relu(getattr(self, f"Conv2d_{i}")(y))
+        return self.Conv2d_4(y)
+
+
+class HyperDecoder3x3(nn.Module):
+    """z -> psi with 2M output channels: 3x3 convs and two 3x3 transposed
+    convs (x4 upsample); middle width int(1.5 * M)."""
+
+    def __init__(self, latent_channels: int = 192, dtype: Optional[torch.dtype] = None,
+                 device: DeviceLike = None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        m = latent_channels
+        mid = int(1.5 * m)
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.Conv2d_0 = Conv2d(m, m, 3, 1, 1, **kw)
+        self.TransposedDeconv3x3_0 = TransposedDeconv3x3(m, m, 2, **kw)
+        self.Conv2d_1 = Conv2d(m, mid, 3, 1, 1, **kw)
+        self.TransposedDeconv3x3_1 = TransposedDeconv3x3(mid, mid, 2, **kw)
+        self.Conv2d_2 = Conv2d(mid, 2 * m, 3, 1, 1, **kw)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        z = leaky_relu(self.Conv2d_0(z))
+        z = leaky_relu(self.TransposedDeconv3x3_0(z))
+        z = leaky_relu(self.Conv2d_1(z))
+        z = leaky_relu(self.TransposedDeconv3x3_1(z))
+        return self.Conv2d_2(z)

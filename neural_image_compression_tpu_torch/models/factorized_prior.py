@@ -3,13 +3,14 @@ models/factorized_prior.py: encoder -> the factorized bottleneck on y ->
 decoder, the ladder's lower bound.
 
 It is not a hierarchical model: there is no hyper path, so H and W need only
-be multiples of 16. The output dict has the hierarchical families' keys,
-so ``rd_loss``, the Trainer, the evaluator and ``make_serving_fn`` run
-unchanged: z, z_in, p_z and logp_z are the JAX model's zero-rate
-placeholders of shape (B, 1, 1, 1) (z and z_in zeros, p_z ones, logp_z
-zeros). The transforms run the GDN kernel (3 GDN, 3 IGDN); there is no
-mixture, so the mixture kernel never runs. Training adds U(-0.5, 0.5)
-noise to y alone.
+be multiples of 16. The transforms are the 5x5 conv/GDN set or the 3x3
+residual blocks (``transform``). The output dict has the hierarchical
+families' keys, so ``rd_loss``, the Trainer, the evaluator and
+``make_serving_fn`` run unchanged: z, z_in, p_z and logp_z are the JAX
+model's zero-rate placeholders of shape (B, 1, 1, 1) (z and z_in zeros,
+p_z ones, logp_z zeros). The transforms run the GDN kernel (3 GDN, 3
+IGDN); there is no mixture, so the mixture kernel never runs. Training
+adds U(-0.5, 0.5) noise to y alone.
 """
 
 from typing import Dict, Optional
@@ -18,17 +19,17 @@ import torch
 from torch import nn
 
 from neural_image_compression_tpu_torch.entropy.factorized import FactorizedEntropyBottleneck
-from neural_image_compression_tpu_torch.models.components import Decoder5x5, Encoder5x5
-from neural_image_compression_tpu_torch.models.joint_ar import _nchw, _nhwc, quantize
+from neural_image_compression_tpu_torch.models.joint_ar import _TRANSFORMS, _nchw, _nhwc, quantize
 from neural_image_compression_tpu_torch.utils.device import DeviceLike, resolve_device
 
 __all__ = ["FactorizedPrior"]
 
 
 class FactorizedPrior(nn.Module):
-    """latent_channels: M. transform: "conv5x5" ("res3x3" is not ported and
-    raises NotImplementedError). dtype: the transforms' compute dtype; the
-    entropy math stays float32. device and seed as the joint-AR model's."""
+    """latent_channels: M. transform: "conv5x5" or "res3x3" (another name
+    raises KeyError, as the JAX package's lookup does). dtype: the
+    transforms' compute dtype; the entropy math stays float32. device and
+    seed as the joint-AR model's."""
 
     def __init__(self, latent_channels: int = 192, transform: str = "conv5x5",
                  dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
@@ -36,16 +37,13 @@ class FactorizedPrior(nn.Module):
         super().__init__()
         if latent_channels < 1:
             raise ValueError(f"latent_channels must be >= 1, got {latent_channels}")
-        if transform != "conv5x5":
-            raise NotImplementedError(
-                f"transform {transform!r} is not ported: this package has the 5x5 conv/GDN "
-                f"transforms ('conv5x5') only")
+        enc, dec = _TRANSFORMS[transform][:2]  # the analysis and synthesis alone
         device = resolve_device(device)
         self.latent_channels, self.dtype, self.transform = latent_channels, dtype, transform
         m = latent_channels
         kw = dict(dtype=dtype, device=device, generator=torch.Generator().manual_seed(seed))
-        self.encoder = Encoder5x5(m, **kw)
-        self.decoder = Decoder5x5(m, **kw)
+        self.encoder = enc(m, **kw)
+        self.decoder = dec(m, **kw)
         self.factorized_entropy_model = FactorizedEntropyBottleneck(
             m, device=device, generator=kw["generator"])
 

@@ -25,9 +25,8 @@ __all__ = ["MeanScaleHyperprior"]
 
 class MeanScaleHyperprior(HierarchicalModel):
     """latent_channels: M (hyper channels == M). K: 1 -> mean-scale Gaussian;
-    K > 1 -> K-component Gaussian mixture. transform: "conv5x5" ("res3x3"
-    is not ported and raises NotImplementedError). dtype, device and seed
-    as the joint-AR model's."""
+    K > 1 -> K-component Gaussian mixture. transform: "conv5x5" or
+    "res3x3". dtype, device and seed as the joint-AR model's."""
 
     def __init__(self, latent_channels: int = 192, K: int = 1, transform: str = "conv5x5",
                  dtype: Optional[torch.dtype] = None, device: DeviceLike = None,

@@ -1,10 +1,11 @@
 """Joint autoregressive + hierarchical-prior model (Minnen et al. 2018), port
-of models/joint_ar.py: the 5x5 conv/GDN transforms, factorized hyper-
-bottleneck, masked-conv context and entropy parameters, with a mean-scale
-Gaussian (K=1) or K-component Gaussian mixture conditional. The part every
-hierarchical family shares (transforms, quantization, the conditional
-likelihood, the forward's contract) is ``HierarchicalModel`` here; the
-hyperprior and checkerboard families (``models/hyperprior.py``,
+of models/joint_ar.py: the analysis/synthesis transforms (5x5 conv/GDN, or
+the 3x3 residual blocks of ``HierarchicalMixtureResidual``), factorized
+hyper-bottleneck, masked-conv context and entropy parameters, with a
+mean-scale Gaussian (K=1) or K-component Gaussian mixture conditional. The
+part every hierarchical family shares (transforms, quantization, the
+conditional likelihood, the forward's contract) is ``HierarchicalModel``
+here; the hyperprior and checkerboard families (``models/hyperprior.py``,
 ``models/checkerboard.py``) differ only in their entropy parameters.
 
 Quantization as in the JAX model: training adds U(-0.5, 0.5) noise to both
@@ -26,12 +27,19 @@ from torch import nn
 from neural_image_compression_tpu_torch.entropy.factorized import FactorizedEntropyBottleneck
 from neural_image_compression_tpu_torch.entropy.gaussian import gaussian_likelihood
 from neural_image_compression_tpu_torch.models.components import (
-    Decoder5x5, Encoder5x5, HyperDecoder5x5, HyperEncoder5x5,
+    Decoder3x3, Decoder5x5, Encoder3x3, Encoder5x5, HyperDecoder3x3, HyperDecoder5x5,
+    HyperEncoder3x3, HyperEncoder5x5,
 )
 from neural_image_compression_tpu_torch.models.parameters import EntropyParameters
 from neural_image_compression_tpu_torch.ops.kernels.gmm_kernel import gmm_logp
 from neural_image_compression_tpu_torch.ops.masked_conv import ContextModel
 from neural_image_compression_tpu_torch.utils.device import DeviceLike, resolve_device
+
+# transform name -> (encoder, decoder, hyper-encoder, hyper-decoder)
+_TRANSFORMS = {
+    "conv5x5": (Encoder5x5, Decoder5x5, HyperEncoder5x5, HyperDecoder5x5),
+    "res3x3": (Encoder3x3, Decoder3x3, HyperEncoder3x3, HyperDecoder3x3),
+}
 
 
 def noise_quantize(x: torch.Tensor,
@@ -42,12 +50,16 @@ def noise_quantize(x: torch.Tensor,
     return x + noise.uniform_(-0.5, 0.5, generator=generator)
 
 
+def round_quantize(x: torch.Tensor) -> torch.Tensor:
+    # torch.round rounds half to even, as jnp.round does
+    return torch.round(x)
+
+
 def quantize(x: torch.Tensor, training: bool,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     if training:
         return noise_quantize(x, generator)
-    # torch.round rounds half to even, as jnp.round does
-    return torch.round(x)
+    return round_quantize(x)
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -77,13 +89,14 @@ def conditional_likelihood(K: int, y_in: torch.Tensor, params_t):
 
 
 class HierarchicalModel(nn.Module):
-    """What the hierarchical families share: the 5x5 conv/GDN transforms,
-    the factorized hyper-bottleneck, quantization and the forward. A family
-    adds its entropy-parameter modules and ``_entropy_params(y_in, z_in)``.
+    """What the hierarchical families share: the transforms, the factorized
+    hyper-bottleneck, quantization and the forward. A family adds its
+    entropy-parameter modules and ``_entropy_params(y_in, z_in)``.
 
     latent_channels: M (hyper channels H == M). K: 1 -> mean-scale
-    Gaussian; K > 1 -> Gaussian mixture. transform: "conv5x5" (the 3x3
-    residual transforms are not ported). dtype: transform compute dtype
+    Gaussian; K > 1 -> Gaussian mixture. transform: "conv5x5" (5x5
+    conv/GDN) or "res3x3" (3x3 residual blocks); another name raises
+    KeyError, as the JAX package's lookup does. dtype: transform compute dtype
     (e.g. torch.bfloat16); entropy math stays float32. seed: the weights'
     init, drawn on the CPU so one seed gives one model on every device."""
 
@@ -96,19 +109,16 @@ class HierarchicalModel(nn.Module):
             raise ValueError(f"latent_channels must be >= 1, got {latent_channels}")
         if K < 1:
             raise ValueError(f"K must be >= 1, got {K}")
-        if transform != "conv5x5":
-            raise NotImplementedError(
-                f"transform {transform!r} is not ported: this package has the 5x5 conv/GDN "
-                f"transforms ('conv5x5') only")
+        enc, dec, henc, hdec = _TRANSFORMS[transform]
         device = resolve_device(device)
         self.latent_channels, self.K, self.dtype = latent_channels, K, dtype
         self.transform = transform
         m = latent_channels
         kw = dict(dtype=dtype, device=device, generator=torch.Generator().manual_seed(seed))
-        self.encoder = Encoder5x5(m, **kw)
-        self.decoder = Decoder5x5(m, **kw)
-        self.hyper_encoder = HyperEncoder5x5(m, **kw)
-        self.hyper_decoder = HyperDecoder5x5(m, **kw)
+        self.encoder = enc(m, **kw)
+        self.decoder = dec(m, **kw)
+        self.hyper_encoder = henc(m, **kw)
+        self.hyper_decoder = hdec(m, **kw)
         self.factorized_entropy_model = FactorizedEntropyBottleneck(
             m, device=device, generator=kw["generator"])
         return kw
@@ -170,11 +180,11 @@ class JointAutoregressiveHierarchical(HierarchicalModel):
     """The hierarchical prior with the masked 5x5 context (serial decode:
     the codec's host wavefront). Arguments as ``HierarchicalModel``'s."""
 
-    def __init__(self, latent_channels: int = 192, K: int = 1,
+    def __init__(self, latent_channels: int = 192, K: int = 1, transform: str = "conv5x5",
                  dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
                  seed: int = 0):
         super().__init__()
-        kw = self._build_transforms(latent_channels, K, "conv5x5", dtype, device, seed)
+        kw = self._build_transforms(latent_channels, K, transform, dtype, device, seed)
         m = latent_channels
         self.context_model = ContextModel(m, **kw)
         self.entropy_parameters = EntropyParameters(m, m, K, **kw)
@@ -188,3 +198,11 @@ class JointAutoregressiveHierarchical(HierarchicalModel):
         return self.entropy_parameters(combined)
 
     _entropy_params = entropy_params_from_latents
+
+
+def HierarchicalMixtureResidual(latent_channels: int = 192, K: int = 1,
+                                dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
+                                seed: int = 0) -> JointAutoregressiveHierarchical:
+    """The reference's residual variant: the joint-AR model with the 3x3
+    residual-block transforms (``transform="res3x3"``), same forward."""
+    return JointAutoregressiveHierarchical(latent_channels, K, "res3x3", dtype, device, seed)

@@ -15,3 +15,7 @@ def gaussian_cdf(x: torch.Tensor) -> torch.Tensor:
     """Standard normal CDF via erf, computed in float32."""
     x = x.float()
     return 0.5 * (1.0 + torch.erf(x * INV_SQRT2))
+
+
+def nats_to_bits(x: torch.Tensor) -> torch.Tensor:
+    return x / LOG2

@@ -36,6 +36,13 @@ def restore_checkpoint(path: str, map_location=None) -> Tuple[Any, Optional[dict
     return ckpt["state"], ckpt["aux"]
 
 
+def restore_raw(path: str, map_location=None) -> Any:
+    """The whole saved state tree (what ``save_checkpoint`` was given, as
+    nested dicts), without its aux: the JAX package's ``restore_raw``, which
+    restores without a template and keeps aux in a side file."""
+    return _load(path, map_location)["state"]
+
+
 def checkpoint_keys(path: str) -> set:
     """Top-level keys of a checkpoint's state, read through a memory map
     (no tensor data is copied). Lets a caller adapt to what the checkpoint

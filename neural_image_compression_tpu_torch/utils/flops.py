@@ -1,7 +1,7 @@
 """Analytic FLOP counts of the families' networks, the port's own copy of
 the JAX package's utils/flops.py (``joint_ar_eval_flops``,
-``hyperprior_eval_flops``, ``channel_cb_eval_flops`` and
-``factorized_prior_eval_flops`` for the 5x5 transforms,
+``hyperprior_eval_flops`` and ``channel_cb_eval_flops`` for either
+transform, ``factorized_prior_eval_flops`` for the 5x5 transforms,
 ``train_step_flops``, ``mfu``), with the card's peaks in place of the
 TPU's. The checkerboard model's count is ``joint_ar_eval_flops``: its
 context conv has the masked conv's shape.
@@ -32,29 +32,71 @@ def _gdn(h: int, w: int, c: int) -> int:
     return 2 * h * w * c * c  # the (BHW, C) x (C, C) norm product
 
 
-def joint_ar_eval_flops(M: int, K: int, H: int, W: int) -> Dict[str, int]:
+def _res_block(h: int, w: int, cin: int, cout: int, stride: int = 1,
+               gdn: bool = False) -> int:
+    """A residual block on an h x w input: two 3x3 convs, the GDN when it
+    has one, the 1x1 skip conv when the stride or the width changes."""
+    oh, ow = h // stride, w // stride
+    f = _conv(oh, ow, 3, cin, cout) + _conv(oh, ow, 3, cout, cout)
+    if gdn:
+        f += _gdn(oh, ow, cout)
+    if stride != 1 or cin != cout:
+        f += _conv(oh, ow, 1, cin, cout)
+    return f
+
+
+def _res_block_up(h: int, w: int, c: int, up: int = 2) -> int:
+    """An upsampling block on an h x w input: the main and the skip 3x3
+    transposed convs, the 3x3 conv and the IGDN."""
+    oh, ow = h * up, w * up
+    return 2 * _deconv(h, w, 3, c, c) + _conv(oh, ow, 3, c, c) + _gdn(oh, ow, c)
+
+
+def joint_ar_eval_flops(M: int, K: int, H: int, W: int,
+                        transform: str = "conv5x5") -> Dict[str, int]:
     """Per-image eval-forward FLOPs of JointAutoregressiveHierarchical with
-    the 5x5 conv/GDN transforms, by component. H, W: multiples of 64."""
+    the ``transform`` ("conv5x5" or "res3x3") transforms, by component. H,
+    W: multiples of 64."""
     h16, w16 = H // 16, W // 16
     h64, w64 = H // 64, W // 64
     out = {}
-    out["encoder"] = (
-        _conv(H // 2, W // 2, 5, 3, M) + _gdn(H // 2, W // 2, M)
-        + _conv(H // 4, W // 4, 5, M, M) + _gdn(H // 4, W // 4, M)
-        + _conv(H // 8, W // 8, 5, M, M) + _gdn(H // 8, W // 8, M)
-        + _conv(h16, w16, 5, M, M))
-    out["decoder"] = (
-        _deconv(h16, w16, 5, M, M) + _gdn(H // 8, W // 8, M)
-        + _deconv(H // 8, W // 8, 5, M, M) + _gdn(H // 4, W // 4, M)
-        + _deconv(H // 4, W // 4, 5, M, M) + _gdn(H // 2, W // 2, M)
-        + _deconv(H // 2, W // 2, 5, M, 3))
-    out["hyper_encoder"] = (
-        _conv(h16, w16, 3, M, M) + _conv(H // 32, W // 32, 5, M, M)
-        + _conv(h64, w64, 5, M, M))
-    out["hyper_decoder"] = (
-        _deconv(h64, w64, 5, M, M)
-        + _deconv(H // 32, W // 32, 5, M, int(1.5 * M))
-        + _conv(h16, w16, 3, int(1.5 * M), 2 * M))
+    if transform == "conv5x5":
+        out["encoder"] = (
+            _conv(H // 2, W // 2, 5, 3, M) + _gdn(H // 2, W // 2, M)
+            + _conv(H // 4, W // 4, 5, M, M) + _gdn(H // 4, W // 4, M)
+            + _conv(H // 8, W // 8, 5, M, M) + _gdn(H // 8, W // 8, M)
+            + _conv(h16, w16, 5, M, M))
+        out["decoder"] = (
+            _deconv(h16, w16, 5, M, M) + _gdn(H // 8, W // 8, M)
+            + _deconv(H // 8, W // 8, 5, M, M) + _gdn(H // 4, W // 4, M)
+            + _deconv(H // 4, W // 4, 5, M, M) + _gdn(H // 2, W // 2, M)
+            + _deconv(H // 2, W // 2, 5, M, 3))
+        out["hyper_encoder"] = (
+            _conv(h16, w16, 3, M, M) + _conv(H // 32, W // 32, 5, M, M)
+            + _conv(h64, w64, 5, M, M))
+        out["hyper_decoder"] = (
+            _deconv(h64, w64, 5, M, M)
+            + _deconv(H // 32, W // 32, 5, M, int(1.5 * M))
+            + _conv(h16, w16, 3, int(1.5 * M), 2 * M))
+    elif transform == "res3x3":
+        out["encoder"] = sum(
+            _res_block(H >> i, W >> i, 3 if i == 0 else M, M, stride=2, gdn=True)
+            + _res_block(H >> (i + 1), W >> (i + 1), M, M)
+            for i in range(3)) + _conv(h16, w16, 3, M, M)
+        out["decoder"] = sum(
+            _res_block(H >> (4 - i), W >> (4 - i), M, M)
+            + _res_block_up(H >> (4 - i), W >> (4 - i), M)
+            for i in range(3)) + _res_block(H // 2, W // 2, M, M) + _deconv(H // 2, W // 2, 3, M, 3)
+        m15 = int(1.5 * M)
+        out["hyper_encoder"] = (
+            2 * _conv(h16, w16, 3, M, M) + 2 * _conv(H // 32, W // 32, 3, M, M)
+            + _conv(h64, w64, 3, M, M))
+        out["hyper_decoder"] = (
+            _conv(h64, w64, 3, M, M) + _deconv(h64, w64, 3, M, M)
+            + _conv(H // 32, W // 32, 3, M, m15) + _deconv(H // 32, W // 32, 3, m15, m15)
+            + _conv(h16, w16, 3, m15, 2 * M))
+    else:
+        raise ValueError(transform)
     out["context"] = _conv(h16, w16, 5, M, 2 * M)
     ep_out = 2 * M if K == 1 else 3 * K * M
     out["entropy_parameters"] = (
@@ -66,11 +108,12 @@ def joint_ar_eval_flops(M: int, K: int, H: int, W: int) -> Dict[str, int]:
     return out
 
 
-def hyperprior_eval_flops(M: int, K: int, H: int, W: int) -> Dict[str, int]:
+def hyperprior_eval_flops(M: int, K: int, H: int, W: int,
+                          transform: str = "conv5x5") -> Dict[str, int]:
     """Per-image eval-forward FLOPs of MeanScaleHyperprior: the joint-AR
     count without the context conv, the entropy-parameter net contracting
     over psi's 2M channels instead of 4M."""
-    out = dict(joint_ar_eval_flops(M, K, H, W))
+    out = dict(joint_ar_eval_flops(M, K, H, W, transform))
     h16, w16 = H // 16, W // 16
     del out["context"]
     ep_out = 2 * M if K == 1 else 3 * K * M
@@ -81,7 +124,8 @@ def hyperprior_eval_flops(M: int, K: int, H: int, W: int) -> Dict[str, int]:
     return out
 
 
-def channel_cb_eval_flops(M: int, K: int, H: int, W: int, groups=None) -> Dict[str, int]:
+def channel_cb_eval_flops(M: int, K: int, H: int, W: int, groups=None,
+                          transform: str = "conv5x5") -> Dict[str, int]:
     """Per-image eval-forward FLOPs of ChannelCheckerboardHierarchical: the
     joint-AR transforms, with the context conv and entropy net replaced by
     each group's spatial-context conv, channel-context stack and entropy
@@ -90,7 +134,7 @@ def channel_cb_eval_flops(M: int, K: int, H: int, W: int, groups=None) -> Dict[s
     from neural_image_compression_tpu_torch.models.channel_cb import default_groups
 
     g = tuple(groups) if groups is not None else default_groups(M)
-    out = dict(joint_ar_eval_flops(M, K, H, W))
+    out = dict(joint_ar_eval_flops(M, K, H, W, transform))
     h16, w16 = H // 16, W // 16
     del out["context"]
     spatial = channel = ep = 0

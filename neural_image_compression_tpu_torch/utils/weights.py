@@ -3,11 +3,13 @@
 The port's modules are named after the JAX parameter tree (``encoder.
 Conv2d_0``, ``decoder.GDN_1``, ``context_model.MaskedConv2d_0``, the
 checkerboard's ``context_model.Conv2d_0``, the channel-conditional model's
-``spatial_ctx_0`` and ``channel_ctx_1.Conv2d_0``, ...), so a tree leaf at
-path ``a/b/leaf`` becomes the ``state_dict`` entry ``a.b.<name>`` with a
-layout change where the two frameworks differ. The walk goes by names alone,
-so it serves every family (joint-AR, checkerboard, hyperprior,
-channel-conditional checkerboard, factorized prior):
+``spatial_ctx_0`` and ``channel_ctx_1.Conv2d_0``, the residual transforms'
+``decoder.ResidualBlockUpsample_0.TransposedDeconv3x3_1.Deconv2d_0``, ...),
+so a tree leaf at path ``a/b/leaf`` becomes the ``state_dict`` entry
+``a.b.<name>`` with a layout change where the two frameworks differ, chosen
+by the leaf's immediate module. The walk goes by names alone, so it serves
+every family (joint-AR, checkerboard, hyperprior, channel-conditional
+checkerboard, factorized prior) with either transform:
 
 * conv kernel (HWIO, under ``Conv2d_*`` / ``MaskedConv2d_*``, or directly
   under a bare conv the model names itself, ``spatial_ctx_*``) -> ``weight``

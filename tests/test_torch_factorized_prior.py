@@ -167,8 +167,16 @@ def test_flops_match_jax():
 
 
 def test_constructor_checks():
-    with pytest.raises(NotImplementedError, match="res3x3"):
-        FactorizedPrior(M, transform="res3x3", device="cpu")
+    # res3x3 builds the residual analysis and synthesis; an unknown name
+    # raises KeyError, as the JAX package's transform lookup does
+    res = FactorizedPrior(M, transform="res3x3", device="cpu")
+    assert res.transform == "res3x3" and type(res.encoder).__name__ == "Encoder3x3"
+    assert type(res.decoder).__name__ == "Decoder3x3"
+    with pytest.raises(KeyError):
+        FactorizedPrior(M, transform="res5x5", device="cpu")
+    with pytest.raises(KeyError):
+        JFactorized(latent_channels=8, transform="res5x5").init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), training=False)
     with pytest.raises(ValueError, match="latent_channels"):
         FactorizedPrior(0, device="cpu")
     with pytest.raises(ValueError, match="multiples of 16"):

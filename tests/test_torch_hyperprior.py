@@ -197,9 +197,17 @@ def test_flops_match_jax(request):
 
 
 def test_constructor_checks(request):
-    cls = _family(request)[2]
-    with pytest.raises(NotImplementedError, match="res3x3"):
-        cls(M, 1, transform="res3x3", device="cpu")
+    jcls, _, cls, _ = _family(request)
+    # res3x3 builds the residual transforms; an unknown name raises KeyError,
+    # as the JAX package's transform lookup does
+    res = cls(M, 1, transform="res3x3", device="cpu")
+    assert res.transform == "res3x3" and type(res.encoder).__name__ == "Encoder3x3"
+    assert type(res.hyper_decoder).__name__ == "HyperDecoder3x3"
+    with pytest.raises(KeyError):
+        cls(M, 1, transform="res5x5", device="cpu")
+    with pytest.raises(KeyError):
+        jcls(latent_channels=8, K=1, transform="res5x5").init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), training=False)
     with pytest.raises(ValueError, match="K must be"):
         cls(M, 0, device="cpu")
     with pytest.raises(ValueError, match="multiples of 64"):

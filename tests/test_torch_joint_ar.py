@@ -13,10 +13,10 @@ import torch
 
 from neural_image_compression_tpu.models import JointAutoregressiveHierarchical as JModel
 from neural_image_compression_tpu.models.parameters import EntropyParameters as JEntropyParameters
-from neural_image_compression_tpu.utils.torch_import import joint_ar_params_from_torch
 from neural_image_compression_tpu_torch.models import (
     EntropyParameters, JointAutoregressiveHierarchical,
 )
+from neural_image_compression_tpu_torch.utils.torch_import import joint_ar_params_from_torch
 from neural_image_compression_tpu_torch.utils.weights import (
     joint_ar_params_to_jax, joint_ar_state_from_jax, load_jax_params,
 )

@@ -6,7 +6,9 @@ Profiles, with torch.profiler on one CUDA card, the flagship
 (JointAutoregressiveHierarchical, M=128, K=3), or with --family another
 family at the same widths (MeanScaleHyperprior, CheckerboardHierarchical,
 ChannelCheckerboardHierarchical with groups (16, 16, 32, 64), or
-FactorizedPrior, which has no K), in float32 and bfloat16 transforms: by
+FactorizedPrior, which has no K) or the residual family at its own
+(HierarchicalMixtureResidual, M=192, K=1: the 3x3 residual transforms), in
+float32 and bfloat16 transforms: by
 default the eval forward through make_serving_fn at 768x512,
 batch 48 and batch 1; with --train the training step through
 make_train_step (batch 16 of 256x256, rd_loss at lambda 0.005, Adam 1e-4);
@@ -22,10 +24,12 @@ the GDN kernels, the GDN backward split by launch: norm, mix, partials and
 reduce, the mixture-likelihood kernels, the optimizer, other) and
 the device's busy share of the profiled window and its host gap (wall less
 device time), then one JSON line with the same numbers. Imports only the
-port, never JAX; TF32 off as in chip_smoke.py.
+port, never JAX; TF32 off as in chip_smoke.py, and cuDNN's autotuning off
+(its heuristic picks each convolution's algorithm) unless --autotune.
 
     python3 tools/profile_torch_serve.py [--train | --trainer | --refine]
-        [--family joint_ar|hyperprior|checkerboard|channel_cb|factorized]
+        [--family joint_ar|hyperprior|checkerboard|channel_cb|factorized|residual]
+        [--autotune]
 """
 
 import argparse
@@ -46,7 +50,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from neural_image_compression_tpu_torch.coding import make_refiner  # noqa: E402
 from neural_image_compression_tpu_torch.models import (  # noqa: E402
     ChannelCheckerboardHierarchical, CheckerboardHierarchical, FactorizedPrior,
-    JointAutoregressiveHierarchical, MeanScaleHyperprior,
+    HierarchicalMixtureResidual, JointAutoregressiveHierarchical, MeanScaleHyperprior,
 )
 from neural_image_compression_tpu_torch.ops.kernels import gdn_kernel  # noqa: E402
 from neural_image_compression_tpu_torch.parallel import make_train_step  # noqa: E402
@@ -65,11 +69,20 @@ def factorized_prior(latent_channels, K, **kw):
 
 
 factorized_prior.__name__ = "FactorizedPrior"
-FAMILIES = {"joint_ar": JointAutoregressiveHierarchical, "hyperprior": MeanScaleHyperprior,
-            "checkerboard": CheckerboardHierarchical,
-            "channel_cb": ChannelCheckerboardHierarchical, "factorized": factorized_prior}
-# the profiled family's model class (--family)
-MODEL = JointAutoregressiveHierarchical
+# family -> (model constructor, (M, K))
+FAMILIES = {"joint_ar": (JointAutoregressiveHierarchical, (128, 3)),
+            "hyperprior": (MeanScaleHyperprior, (128, 3)),
+            "checkerboard": (CheckerboardHierarchical, (128, 3)),
+            "channel_cb": (ChannelCheckerboardHierarchical, (128, 3)),
+            "factorized": (factorized_prior, (128, 3)),
+            "residual": (HierarchicalMixtureResidual, (192, 1))}
+# the profiled family's model constructor and widths (--family)
+MODEL, WIDTHS = FAMILIES["joint_ar"]
+
+
+def build(dtype):
+    """The profiled family's model on the card, random weights from seed 0."""
+    return MODEL(*WIDTHS, dtype=dtype, device="cuda")
 
 
 def layer_of(kernel_name: str) -> str:
@@ -136,7 +149,7 @@ def profile_serve(card):
         size=(48, 512, 768, 3)).astype(np.float32)).cuda()
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
-        serve = make_serving_fn(MODEL(128, 3, dtype=dtype, device="cuda"))
+        serve = make_serving_fn(build(dtype))
         for batch in (48, 1):
             tag = f"{str(dtype).replace('torch.', '')} batch {batch}"
             results[tag] = profile_config(serve, x48[:batch].contiguous())
@@ -162,7 +175,7 @@ def profile_train(card):
     gdn_kernel._GDN.backward = staticmethod(tallied)
     try:
         for dtype in (torch.bfloat16, torch.float32):
-            model = MODEL(128, 3, dtype=dtype, device="cuda")
+            model = build(dtype)
             opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
             step = make_train_step(model, opt, rd_loss, 0.005)
             tag = f"{str(dtype).replace('torch.', '')} train step, batch 16 of 256x256"
@@ -242,13 +255,13 @@ def profile_trainer(card):
             name = str(dtype).replace("torch.", "")
 
             def bare():
-                model = MODEL(128, 3, dtype=dtype, device="cuda")
+                model = build(dtype)
                 opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
                 return make_train_step(model, opt, rd_loss, 0.005)
 
             def trainer(interval, loader=None, tensorboard=True):
                 log_dir = os.path.join(tmp, f"{name}_{interval}_{len(results)}")
-                t = Trainer(MODEL(128, 3, dtype=dtype, device="cuda"),
+                t = Trainer(build(dtype),
                             loader or [x], lambda_val=0.005, scalar_interval=interval,
                             log_interval=10 ** 9, img_interval=10 ** 9, log_dir=log_dir,
                             checkpoint_path=None)
@@ -299,7 +312,7 @@ def profile_refine(card):
         size=(1, 512, 768, 3)).astype(np.float32)).cuda()
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
-        refine = make_refiner(MODEL(128, 3, dtype=dtype, device="cuda"),
+        refine = make_refiner(build(dtype),
                               0.005, steps=20, lr=1e-2)
         tag = f"{str(dtype).replace('torch.', '')} refine, 20 steps, 1x768x512"
         results[tag] = profile_config(refine, x)
@@ -318,22 +331,27 @@ def main() -> int:
                       help="profile latent refinement instead of the serving forward")
     parser.add_argument("--family", choices=sorted(FAMILIES), default="joint_ar",
                         help="the model family to profile (M=128, K=3 where it has a "
-                             "mixture)")
+                             "mixture; residual: M=192, K=1)")
+    parser.add_argument("--autotune", action="store_true",
+                        help="turn on cuDNN's autotuning (torch.backends.cudnn.benchmark)")
     args = parser.parse_args()
-    global MODEL
-    MODEL = FAMILIES[args.family]
+    global MODEL, WIDTHS
+    MODEL, WIDTHS = FAMILIES[args.family]
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = args.autotune
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {card}, family {args.family} ({MODEL.__name__})")
+    print(f"card: {card}, family {args.family} ({MODEL.__name__}), cuDNN autotuning "
+          f"{'on' if args.autotune else 'off'}")
     results = (profile_train(card) if args.train else
                profile_trainer(card) if args.trainer else
                profile_refine(card) if args.refine else profile_serve(card))
-    print(json.dumps({"card": card, "family": args.family, "profile": results}))
+    print(json.dumps({"card": card, "family": args.family, "autotune": args.autotune,
+                      "profile": results}))
     return 0
 
 
