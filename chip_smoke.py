@@ -70,9 +70,27 @@ Phases, in order; any failure exits non-zero:
      round trip (a card with the res3x3 integer hyper-decoder) and a
      20-step refine call. No mixture kernel: 6/0/0/0 a forward, 6/6/0/0 a
      step, 69/60/0/0 a refine call.
-Phases 4, 5, 6, 7, each family of phase 8 and phase 9 are the main paths: the
-kernels' launch counts are set to 0 just before each and read just after
-it, and the kernels' record adds them up.
+  10. the variable-rate families: GainedJointAR at M = 128, K = 3 (the
+     default ladder of 5 levels; random gain tables from a seed, gain_y
+     growing 4x a level, the inverse gains shrinking 4x): card-vs-CPU parity of its eval forward
+     (2x256x256) at levels 0, 1.5 and 4, and of GainedHyperprior,
+     GainedCheckerboard and GainedChannelCheckerboard at 1.5; the fold on
+     the card at levels 0, 1.3 and 4 against the gained forward (rounded
+     latents differ only at round() ties, counted; on the same latents
+     x_hat and the rates agree); then its main path: serve (the gained
+     forward at level 2 and the model folded there, as phase 4, beside
+     phase 4's numbers), train with a level drawn each step (as phase 5,
+     every level drawn over the timed steps, the loss falling over 30
+     steps level by level), JointARCodec on the folds at levels 1 and 3 (f32 and bf16:
+     exact latents, decompress, bits against the analytic rate, the level-3
+     stream longer), level_for_bpp on one image, gained_rd_curve over 4
+     images at 6 levels (bpp rising with the level), a Trainer validating
+     at the middle level, and each sibling folded through its own codec
+     (exact latents) and 5 steps. 6/0/1/0 launches a forward, 6/6/1/1 a
+     step.
+Phases 4, 5, 6, 7, each family of phase 8, phase 9 and phase 10 are the main
+paths: the kernels' launch counts are set to 0 just before each and read just
+after it, and the kernels' record adds them up.
 The last lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -104,19 +122,24 @@ from neural_image_compression_tpu_torch.coding import portable
 from neural_image_compression_tpu_torch.coding import backend as rans_backend
 from neural_image_compression_tpu_torch.coding import codec as codec_module
 from neural_image_compression_tpu_torch.data import BatchLoader
+from neural_image_compression_tpu_torch.entropy import mixture_likelihood
 from neural_image_compression_tpu_torch.evaluation import (
     CompressionEvaluator, ms_ssim, rgb_to_luma,
 )
 from neural_image_compression_tpu_torch.models import (
     ChannelCheckerboardHierarchical, CheckerboardHierarchical, FactorizedPrior,
-    HierarchicalMixtureResidual, JointAutoregressiveHierarchical, MeanScaleHyperprior, joint_ar,
+    GainedChannelCheckerboard, GainedCheckerboard, GainedHyperprior, GainedJointAR,
+    HierarchicalMixtureResidual, JointAutoregressiveHierarchical, MeanScaleHyperprior, fold_gains,
+    folded_model, joint_ar, level_for_bpp,
 )
 from neural_image_compression_tpu_torch.ops.kernels import (
     _build, gdn_kernel, gmm_kernel, launch_counts, reset_launch_counts,
 )
 from neural_image_compression_tpu_torch.parallel import make_train_step
 from neural_image_compression_tpu_torch.serving import make_serving_fn
-from neural_image_compression_tpu_torch.train import Trainer, msssim_rd_loss, rd_loss
+from neural_image_compression_tpu_torch.train import (
+    Trainer, gained_rd_curve, msssim_rd_loss, rd_loss,
+)
 from neural_image_compression_tpu_torch.utils import flops
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device memory, TF32
@@ -2020,6 +2043,500 @@ def residual_phase(dev, card):
                           launches_per_step=RES_STEP)
 
 
+# --- phase 10: the variable-rate (gained) families ---------------------------------
+
+GAINED_SEED, GAIN_TABLE_SEED = PARITY_SEED, 40
+# gain_y grows 4x a level (as the JAX package's tests draw it), so higher
+# levels code more bits at random init; z grows with it through the
+# hyper-analysis, so gain_z does not (4x more a level would put z near 2e5
+# at level 4, beyond the codec header's int16 z range); igain_y and
+# igain_z shrink 4x a level, so the decoders see inputs of one scale at
+# every level, as a trained ladder's inverse gains make them
+GAIN_GROWTH = 4.0
+GAIN_EXPONENTS = {"gain_y": 1, "igain_y": -1, "gain_z": 0, "igain_z": -1}
+GAINED_PARITY_LEVELS, GAINED_FOLD_LEVELS = (0, 1.5, 4), (0, 1.3, 4)
+GAINED_SERVE_LEVEL, GAINED_CODEC_LEVELS = 2, (1, 3)
+GAINED_CURVE_LEVELS, GAINED_CURVE_IMAGES = (0, 1, 2, 3, 4, 2.5), 4
+GAINED_TIMED = 30  # steps; with 5 levels each is drawn in 30 with probability 0.994
+GAINED_RATE_TOL = 0.01
+GAINED_TRAINER_STEPS, GAINED_TRAINER_VAL_INTERVAL = 4, 3
+SIBLING_LEVEL, SIBLING_CODEC_LEVEL, SIBLING_STEPS = 1.5, 1, 5
+GAINED_SIBLINGS = {"hyperprior": (GainedHyperprior, MeanScaleHyperpriorCodec),
+                   "checkerboard": (GainedCheckerboard, CheckerboardCodec),
+                   "channel_cb": (GainedChannelCheckerboard, ChannelCheckerboardCodec)}
+# Where p_y lies within a few float32 steps of 0 (a latent far in the upper
+# tail of its Gaussians), it is a sum of differences of two CDF values that
+# round to neighbouring floats near 1, and the card's erf and the CPU's
+# round them differently: p_y is held to four float32 steps of 1, logp_y
+# where p_y > 1e-3 (the tails' count printed).
+GAINED_P_Y_ATOL, GAINED_LOGP_BODY = 4.8e-7, 1e-3
+# At high levels y and the mixture's means are hundreds while its scales
+# are not, so the entropy parameters' 1e-6 relative differences between two
+# forwards (card and CPU, folded and gained) move p_y by more than
+# rounding: each side's rate is held against the plain mixture on its own
+# parameters, and the two sides' total bits against each other to 1e-3
+# (measured: printed).
+GAINED_BITS_RTOL = 1e-3
+
+
+def variable_rate_model(device, dtype=None, cls=GainedJointAR, seed=GAINED_SEED):
+    """``cls`` at M and K from ``seed``, with random gain tables: 0.3 + 2U
+    from GAIN_TABLE_SEED (all-ones gains would make every level the same
+    model and the fold trivially exact), times GAIN_GROWTH to the power
+    GAIN_EXPONENTS[table] a level; and the conv gains of gained_model
+    (another meaning of "gained": scales on the last analysis and
+    hyper-analysis convs) so that y spreads over several integers at level
+    0 too."""
+    model = gained_model(device, dtype, cls, seed=seed)
+    rng = np.random.default_rng(GAIN_TABLE_SEED)
+    with torch.no_grad():
+        for name, exponent in GAIN_EXPONENTS.items():
+            table = getattr(model, name)
+            r = 0.3 + 2.0 * rng.uniform(size=tuple(table.shape)).astype(np.float32)
+            r *= GAIN_GROWTH ** (exponent * np.arange(table.shape[0], dtype=np.float32))[:, None]
+            table.copy_(torch.from_numpy(r))
+    return model
+
+
+def folded_at(model, level):
+    """The fixed-rate model of ``model``'s family with its gains folded at
+    ``level``."""
+    fm = folded_model(model)
+    fm.load_state_dict(fold_gains(model.state_dict(), level))
+    return fm
+
+
+class AtLevel(torch.nn.Module):
+    """A gained model's forward at one level, for make_serving_fn."""
+
+    def __init__(self, model, level):
+        super().__init__()
+        self.model, self.level = model, level
+
+    def forward(self, x, training=False):
+        return self.model(x, training=training, level=self.level)
+
+
+@contextlib.contextmanager
+def given_latents(latents):
+    """The model's quantize returns these tensors, in order (z_in, then
+    y_in), on whatever device it runs: a second forward on the rounded
+    latents of a first."""
+    it = iter(latents)
+    rounded = joint_ar.quantize
+    joint_ar.quantize = lambda v, training, generator=None: next(it).to(v.device)
+    try:
+        yield
+    finally:
+        joint_ar.quantize = rounded
+
+
+def tie_flips(label, pre, rounded, window):
+    """Rounded latents against round(pre): one step apart at most, and only
+    where pre lies within ``window`` (the two forwards' largest difference
+    before rounding) of a .5 tie. Returns the count of such flips."""
+    want = torch.round(pre.float())
+    mism = rounded != want
+    flips = int(mism.sum())
+    if flips:
+        check((rounded[mism] - want[mism]).abs().max().item() <= 1.0,
+              f"{label}: a rounded latent more than one step off")
+        f = pre.double()[mism]
+        dist = (f - f.floor() - 0.5).abs().max().item()
+        check(dist <= window, f"{label}: {flips} rounded latents differ, one {dist:.3e} from a "
+                              f"tie (the forwards differ by {window:.3e})")
+    return flips
+
+
+def same_rounding(label, got, ref, keys=("z", "y")):
+    """The rounding of ``got``'s latents against ``ref``'s pre-round
+    values: phase 3's margin rule where the margin exceeds the difference,
+    else flips at ties only. Returns a printable note."""
+    notes = []
+    for key in keys:
+        diff = (got[key].float() - ref[key].float()).abs().max().item()
+        margin = rounding_margin(ref[key])
+        flips = tie_flips(f"{label} {key}", ref[key], got[key + "_in"], diff)
+        rule = "margin above the difference" if margin > diff else f"{flips} tie flips"
+        notes.append(f"{key}: margin {margin:.3e}, max diff {diff:.3e}, {rule}")
+    return "; ".join(notes)
+
+
+def rates_close(label, got, ref):
+    """Given the same rounded latents: the entropy parameters; got's p_y
+    against the plain mixture on got's parameters (p_y to GAINED_P_Y_ATOL,
+    logp_y where p_y > GAINED_LOGP_BODY); logp_z; and the total bits
+    against ref's (GAINED_BITS_RTOL). Returns (tail latents, bits' relative
+    difference)."""
+    for key, tol in (("weights", 1e-5), ("mus", 1e-4), ("sigmas", 1e-4)):
+        err = (got[key] - ref[key]).abs().max().item()
+        check(torch.allclose(got[key], ref[key], rtol=tol, atol=tol),
+              f"{label}: {key} max diff {err:.3e}")
+    plain = mixture_likelihood(got["y_in"], got["weights"], got["mus"], got["sigmas"])
+    check(torch.allclose(got["p_y"], plain, rtol=1e-4, atol=GAINED_P_Y_ATOL),
+          f"{label}: p_y against the plain mixture, max diff "
+          f"{(got['p_y'] - plain).abs().max().item():.3e}")
+    body = plain > GAINED_LOGP_BODY
+    check(torch.allclose(got["logp_y"][body], torch.log(plain)[body], rtol=1e-4, atol=1e-4),
+          f"{label}: logp_y against the plain mixture")
+    check(torch.allclose(got["logp_z"], ref["logp_z"], rtol=1e-4, atol=1e-4),
+          f"{label}: logp_z differs")
+    bits = [-(o["logp_y"].double().sum() + o["logp_z"].double().sum()).item() for o in (got, ref)]
+    rel = abs(bits[0] - bits[1]) / abs(bits[1])
+    check(rel <= GAINED_BITS_RTOL, f"{label}: bits {bits[0]} vs {bits[1]}")
+    return int((~body).sum()), rel
+
+
+def gained_parity(dev, cls, levels, shape=(2, 256, 256, 3)):
+    """The card's gained eval forward against the CPU's at each level: the
+    rounding (same_rounding), then, on the card's rounded latents, x_hat,
+    the entropy parameters and the rates (rates_close)."""
+    cpu_model = variable_rate_model("cpu", cls=cls)
+    card_model = cls(M, K, device=dev, seed=GAINED_SEED)
+    card_model.load_state_dict(cpu_model.state_dict())
+    x = torch.from_numpy(np.random.default_rng(GAINED_SEED).uniform(size=shape)
+                         .astype(np.float32))
+    for level in levels:
+        got = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+               for k, v in card_model(x.to(dev), training=False, level=level).items()}
+        with given_latents([got["z_in"], got["y_in"]]):
+            ref = cpu_model(x, training=False, level=level)
+        note = same_rounding(f"level {level}", got, ref)
+        check(int((got["y_in"] != 0).sum()) > 0, f"level {level}: y_in is all zeros")
+        err = (got["x_hat"] - ref["x_hat"]).abs().max().item()
+        check(torch.allclose(got["x_hat"], ref["x_hat"], rtol=1e-4, atol=1e-4),
+              f"level {level}: x_hat max diff {err:.3e}")
+        tails, rel = rates_close(f"level {level}", got, ref)
+        print(f"  {cls.__name__} level {level}: {note}; on the card's latents x_hat within "
+              f"{err:.2e}, entropy parameters agree, the card's rate is the plain mixture's on "
+              f"its parameters ({tails} tail latents), bits {rel:.2e} apart; bpp "
+              f"{rd_loss(got, x, LAMBDA)['bpp_total'].item():.5f}", flush=True)
+
+
+def fold_check(dev, model, levels, x):
+    """On the card: the model folded at each level against its gained
+    forward; the rounding, then x_hat and the rates on the gained forward's
+    rounded latents. Returns the flips a level."""
+    flips = {}
+    for level in levels:
+        want = model(x, training=False, level=level)
+        fm = folded_at(model, level)
+        got = fm(x, training=False)
+        note = same_rounding(f"fold at {level}", got, want)
+        flips[level] = int((got["y_in"] != want["y_in"]).sum() + (got["z_in"] != want["z_in"]).sum())
+        with given_latents([want["z_in"], want["y_in"]]):
+            same = fm(x, training=False)
+        err = (same["x_hat"] - want["x_hat"]).abs().max().item()
+        check(err <= 1e-4, f"fold at {level}: x_hat differs by {err:.3e}")
+        tails, rel = rates_close(f"fold at {level}", same, want)
+        print(f"  fold at level {level}: {note}; on the gained latents x_hat within {err:.2e}, "
+              f"entropy parameters agree, bits {rel:.2e} apart ({tails} tail latents)",
+              flush=True)
+    return flips
+
+
+def gained_step_runs(dev, dtype, x, seed, steps, timed):
+    """``steps`` level-sampled steps of a fresh gained model (after
+    TRAIN_WARMUP when ``timed``), each launching PER_STEP; returns the
+    losses, the levels drawn (replayed from the generator's state before
+    each step, after the run), the host times and the peak memory above
+    what was allocated before the model was built (phase 10 keeps its
+    other models on the card)."""
+    resident = torch.cuda.memory_allocated(dev)
+    model = variable_rate_model(dev, dtype, seed=seed)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
+    step = make_train_step(model, opt, rd_loss, LAMBDA, levels=model.levels)
+    gen = torch.Generator(device=dev).manual_seed(200 + seed)
+    if timed:
+        for _ in range(TRAIN_WARMUP):
+            step(x, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, times, states = [], [], []
+    for _ in range(steps):
+        states.append(gen.get_state())
+        before = launch_counts()
+        t0 = time.perf_counter()
+        losses.append(step(x, gen)["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        after = launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        check(launched == PER_STEP, f"one gained step launched {launched}, not {PER_STEP}")
+    peak = (torch.cuda.max_memory_allocated(dev) - resident) / 2 ** 30
+    drawn = []
+    for state in states:
+        replay = torch.Generator(device=dev)
+        replay.set_state(state)
+        drawn.append(int(torch.randint(0, len(model.levels), (1,), device=dev,
+                                       generator=replay)[0]))
+    return torch.stack(losses).cpu(), drawn, times, peak
+
+
+def gained_train(dev, card, flagship):
+    """make_train_step(levels=...) at batch 16 of 256^2, bf16 and f32:
+    steps/s, MFU and peak memory over GAINED_TIMED steps (every level drawn
+    there), and the loss falling over TRAIN_CONVERGE steps on one batch at
+    each level drawn both early and late."""
+    x = torch.rand((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+                   generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    flops_img = flops.train_step_flops(flops.joint_ar_eval_flops(M, K, TRAIN_SIZE,
+                                                                 TRAIN_SIZE)["total"])
+    steps, results = 0, {}
+    for dtype, peak_name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        name = str(dtype).replace("torch.", "")
+        losses, drawn, times, peak_mem = gained_step_runs(dev, dtype, x, 0, GAINED_TIMED, True)
+        check(bool(torch.isfinite(losses).all()), f"{name}: a loss is not finite")
+        counts = [drawn.count(n) for n in range(5)]
+        check(min(counts) > 0, f"{name}: levels drawn {counts} times over {GAINED_TIMED} steps")
+        conv, conv_drawn, _, _ = gained_step_runs(dev, dtype, x, 1, TRAIN_CONVERGE, False)
+        check(bool(torch.isfinite(conv).all()), f"{name}: a loss is not finite")
+        falls = {}
+        for n in range(5):
+            early = [conv[i].item() for i in range(10) if conv_drawn[i] == n]
+            late = [conv[i].item() for i in range(20, 30) if conv_drawn[i] == n]
+            if early and late:
+                falls[n] = (statistics.mean(early), statistics.mean(late))
+        # the levels' losses differ by their lambdas: the geometric mean of
+        # each level's late-to-early ratio
+        ratio = statistics.geometric_mean(b / a for a, b in falls.values()) if falls else 1.0
+        check(len(falls) >= 2 and ratio < 1.0,
+              f"{name}: mean loss by level, steps 1-10 against 21-30: {falls}")
+        steps += TRAIN_WARMUP + GAINED_TIMED + TRAIN_CONVERGE
+        ms = 1e3 * statistics.median(times)
+        peak = flops.H100_PEAK_TFLOPS[peak_name]
+        results[name] = dict(
+            steps_per_s=1e3 / ms, ms_per_step=ms, peak_mem_gib=peak_mem,
+            mfu=flops.mfu(1e3 / ms * TRAIN_BATCH, flops_img, peak),
+            mfu_peak=f"{peak_name} {peak:g} TFLOP/s", levels_drawn_timed=counts,
+            flagship_steps_per_s=flagship[name]["steps_per_s"],
+            loss_falls_by_level={str(n): list(v) for n, v in falls.items()},
+            loss_ratio_late_to_early=ratio)
+        r = results[name]
+        print(f"  {name}: {r['steps_per_s']:.3f} steps/s ({ms:.3f} ms a step; the flagship "
+              f"{r['flagship_steps_per_s']:.3f} in phase 5), peak memory {peak_mem:.2f} GiB, MFU "
+              f"{100 * r['mfu']:.2f}% of the {r['mfu_peak']} peak; levels drawn {counts} over "
+              f"{GAINED_TIMED} timed steps; one batch, 30 steps, mean loss by level (1-10 -> "
+              f"21-30): " + ", ".join(f"{n}: {a:.2f} -> {b:.2f}" for n, (a, b) in falls.items())
+              + f" (geometric mean ratio {ratio:.4f}) [{card}]", flush=True)
+    return steps, results
+
+
+def gained_codec(total, models, refs, x, card):
+    """JointARCodec on each folded model (f32 and bf16, GAINED_CODEC_LEVELS):
+    codec_round_trip's checks, latency, and a longer stream at the higher
+    level."""
+    results = {}
+    for (dname, level), fm in models.items():
+        codec = JointARCodec(fm)
+        data, _, _, _, xhat_note, ratio = codec_round_trip(total, codec, x, refs[dname, level],
+                                                           dname, f"level {level}")
+        r = dict(level=level, stream_bytes=len(data), bpp=8 * len(data) / (HEIGHT * WIDTH),
+                 analytic_bpp=refs[dname, level]["bits"] / (HEIGHT * WIDTH),
+                 stream_over_analytic=ratio,
+                 encode_ms=family_median_ms(total, CODEC_PER_CALL, codec.compress, x),
+                 decode_ms=family_median_ms(total, CODEC_PER_CALL, codec.decompress, data))
+        results[f"{dname} level {level}"] = r
+        print(f"  {dname} folded at level {level}: encode {r['encode_ms']:.2f} ms, decode "
+              f"{r['decode_ms']:.2f} ms; {len(data)} bytes, {r['bpp']:.5f} bpp, {ratio:.5f} of "
+              f"analytic; latents exact, x_hat {xhat_note} [{card}]", flush=True)
+    for dname in ("float32", "bfloat16"):
+        lo, hi = (results[f"{dname} level {lv}"]["stream_bytes"] for lv in GAINED_CODEC_LEVELS)
+        check(hi > lo, f"{dname}: the stream at level {GAINED_CODEC_LEVELS[1]} ({hi} bytes) is "
+                       f"not longer than at level {GAINED_CODEC_LEVELS[0]} ({lo})")
+    return results
+
+
+def gained_rate_control(total, model, x):
+    """level_for_bpp on one image, at a target between the ladder's ends:
+    its bpp within GAINED_RATE_TOL of the target; its probes counted."""
+    xd = torch.from_numpy(x).to(model.gain_y.device)
+
+    def bpp_at(level):
+        out = model(xd, training=False, level=level)
+        return rd_loss(out, xd, LAMBDA)["bpp_total"].item()
+
+    (lo, hi), _ = counted(total, scaled(FORWARD, 2), lambda: (bpp_at(0), bpp_at(4)))
+    target = (lo * hi) ** 0.5
+    before = launch_counts()
+    t0 = time.perf_counter()
+    level, bpp = level_for_bpp(model, x, target, tol=GAINED_RATE_TOL)
+    seconds = time.perf_counter() - t0
+    after = launch_counts()
+    got = {k: after[k] - before[k] for k in after}
+    probes = got["gdn"] // GDN_PER_FORWARD
+    check(got == scaled(FORWARD, probes), f"level_for_bpp launched {got}")
+    for k, v in got.items():
+        total[k] += v
+    check(0 < level < 4 and abs(bpp - target) <= GAINED_RATE_TOL * target,
+          f"level_for_bpp: level {level}, bpp {bpp} against {target}")
+    print(f"  level_for_bpp: target {target:.5f} bpp (between {lo:.5f} at level 0 and {hi:.5f} "
+          f"at 4) -> level {level:.6f}, {bpp:.5f} bpp in {probes} probes, {1e3 * seconds:.1f} ms",
+          flush=True)
+    return dict(target_bpp=target, bpp_level_0=lo, bpp_level_4=hi, level=level, bpp=bpp,
+                probes=probes, ms=1e3 * seconds)
+
+
+def gained_curve(total, model, card):
+    """gained_rd_curve over GAINED_CURVE_IMAGES random 768x512 images at
+    GAINED_CURVE_LEVELS: bpp rises with the level."""
+    rng = np.random.default_rng(GAINED_SEED + 5)
+    imgs = [rng.uniform(size=(1, HEIGHT, WIDTH, 3)).astype(np.float32)
+            for _ in range(GAINED_CURVE_IMAGES)]
+    expect = scaled(FORWARD, len(GAINED_CURVE_LEVELS) * GAINED_CURVE_IMAGES)
+    points, seconds = counted(total, expect, gained_rd_curve, model, imgs, GAINED_CURVE_LEVELS)
+    check([p["level"] for p in points] == sorted(float(v) for v in GAINED_CURVE_LEVELS),
+          f"bpp does not rise with the level: {points}")
+    check(all(np.isfinite(p[k]) for p in points for k in ("bpp", "psnr", "msssim")),
+          f"curve: {points}")
+    print(f"  gained_rd_curve, {GAINED_CURVE_IMAGES} images {HEIGHT}x{WIDTH}, levels "
+          f"{GAINED_CURVE_LEVELS}: " + ", ".join(f"{p['level']:g}: {p['bpp']:.4f} bpp "
+                                               f"{p['psnr']:.3f} dB" for p in points)
+          + f"; {seconds:.2f} s [{card}]", flush=True)
+    return dict(points=points, seconds=seconds)
+
+
+def gained_trainer(dev, total, card):
+    """A Trainer on the gained model: each step's launches (PER_STEP), each
+    validation forward and the diagnostic forward (FORWARD); validation at
+    the middle level and its lambda, its last logged loss recomputed."""
+    patches, val = trainer_data()
+    model = variable_rate_model(dev, seed=TRAINER_SEED)
+    mid = len(model.levels) // 2
+    calls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = instrument(Trainer(model, trainer_loader(patches), val_loader=val,
+                                     max_steps=GAINED_TRAINER_STEPS,
+                                     val_interval=GAINED_TRAINER_VAL_INTERVAL,
+                                     log_interval=10 ** 9, img_interval=10 ** 9, log_dir=tmp,
+                                     checkpoint_path=None), total, calls)
+        check(trainer._val_kwargs == {"level": mid} and trainer._val_lambda == model.levels[mid],
+              f"validation at {trainer._val_kwargs}, lambda {trainer._val_lambda}")
+        t0 = time.perf_counter()
+        trainer.train()
+        seconds = time.perf_counter() - t0
+        logged = [r["value"] for r in jsonl(os.path.join(tmp, "metrics.jsonl"))
+                  if r["tag"] == "validation/validation_loss"]
+    val_steps = list(range(0, GAINED_TRAINER_STEPS, GAINED_TRAINER_VAL_INTERVAL))
+    check(calls == {"step": GAINED_TRAINER_STEPS, "validation": len(val_steps),
+                    "diagnostics": 1} and len(logged) == len(val_steps), f"calls {calls}")
+
+    def recomputed():
+        losses = []
+        for v in val:
+            xv = torch.from_numpy(v).to(dev)
+            losses.append(rd_loss(model(xv, training=False, level=mid), xv,
+                                  model.levels[mid])["loss"].item())
+        return statistics.mean(losses)
+
+    want, _ = counted(total, scaled(FORWARD, len(val)), recomputed)
+    check(abs(logged[-1] - want) <= 1e-5 * abs(want),
+          f"validation loss {logged[-1]} against {want} at level {mid}")
+    print(f"  Trainer: {GAINED_TRAINER_STEPS} steps in {seconds:.2f} s, validation at steps "
+          f"{val_steps} at level {mid} (lambda {model.levels[mid]}): {logged}, the last "
+          f"recomputed {want:.5f}; launches a step {PER_STEP}, a validation forward and the "
+          f"diagnostic forward {FORWARD} [{card}]", flush=True)
+    return dict(seconds=seconds, validation_loss=logged, validation_level=mid)
+
+
+def sibling_main_path(dev, total, family, model, fm, ref, x, card):
+    """A sibling's folded model through its own codec (exact latents), then
+    SIBLING_STEPS level-sampled steps, each launching PER_STEP."""
+    codec_cls = GAINED_SIBLINGS[family][1]
+    data, _, _, _, xhat_note, ratio = codec_round_trip(total, codec_cls(fm), x, ref, "float32",
+                                                       f"{family} level {SIBLING_CODEC_LEVEL}")
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    step = make_train_step(model, opt, rd_loss, LAMBDA, levels=model.levels)
+    gen = torch.Generator(device=dev).manual_seed(300)
+    xt = torch.rand((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+                    generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    losses = [counted(total, PER_STEP, step, xt, gen)[0]["loss"].item()
+              for _ in range(SIBLING_STEPS)]
+    check(all(np.isfinite(losses)), f"{family}: losses {losses}")
+    print(f"  {family}: folded at level {SIBLING_CODEC_LEVEL}, {codec_cls.__name__}: "
+          f"{len(data)} bytes, {ratio:.5f} of analytic, latents exact, x_hat {xhat_note}; "
+          f"{SIBLING_STEPS} steps with levels: losses "
+          + ", ".join(f"{v:.3f}" for v in losses) + f" [{card}]", flush=True)
+    return dict(stream_bytes=len(data), stream_over_analytic=ratio, losses=losses)
+
+
+def gained_phase(dev, card, flagship_serve, flagship_train):
+    """GainedJointAR at M=128, K=3 (the default ladder), random weights and
+    gains from seeds: card against CPU at GAINED_PARITY_LEVELS, the fold on
+    the card at GAINED_FOLD_LEVELS, and the three siblings' parity; then the
+    main path with its launches counted from 0: serve (the gained forward at
+    level 2 and its fold), train with levels, the codec on the folds at
+    levels 1 and 3, rate control, the RD curve, a Trainer, and each
+    sibling's codec and steps. Returns (the main path's launches, results)."""
+    t0 = time.perf_counter()
+    print(f"  -- card against CPU, eval forward 2x256x256 at levels {GAINED_PARITY_LEVELS}",
+          flush=True)
+    gained_parity(dev, GainedJointAR, GAINED_PARITY_LEVELS)
+    model = variable_rate_model(dev)
+    x_fold = torch.from_numpy(np.random.default_rng(GAINED_SEED + 1).uniform(
+        size=(2, 256, 256, 3)).astype(np.float32)).to(dev)
+    print(f"  -- the fold on the card at levels {GAINED_FOLD_LEVELS}", flush=True)
+    fold_flips = fold_check(dev, model, GAINED_FOLD_LEVELS, x_fold)
+    for family, (cls, _) in GAINED_SIBLINGS.items():
+        print(f"  -- {cls.__name__}: card against CPU at level {SIBLING_LEVEL}", flush=True)
+        gained_parity(dev, cls, (SIBLING_LEVEL,))
+    x = codec_images()["float32"]
+    models = {(dname, level): folded_at(variable_rate_model(dev, dtype), level)
+              for dname, dtype in (("float32", None), ("bfloat16", torch.bfloat16))
+              for level in GAINED_CODEC_LEVELS}
+    refs = {key: codec_references(dev, {key[0]: fm}, {"float32": x})[key[0], "float32"]
+            for key, fm in models.items()}
+    siblings = {}
+    for family, (cls, _) in GAINED_SIBLINGS.items():
+        sib = variable_rate_model(dev, cls=cls)
+        fm = folded_at(sib, SIBLING_CODEC_LEVEL)
+        siblings[family] = (sib, fm, codec_references(dev, {"float32": fm},
+                                                      {"float32": x})["float32", "float32"])
+    reset_launch_counts()
+    results = dict(fold_flips=fold_flips)
+    print(f"  -- serve {HEIGHT}x{WIDTH}: the gained forward at level {GAINED_SERVE_LEVEL}",
+          flush=True)
+    factory = lambda m, k, dtype=None, device=None, seed=0: AtLevel(  # noqa: E731
+        variable_rate_model(device, dtype), GAINED_SERVE_LEVEL)
+    forwards, results["serve_gained"] = serve_phase(dev, card, factory)
+    print(f"  -- serve {HEIGHT}x{WIDTH}: the model folded at level {GAINED_SERVE_LEVEL}",
+          flush=True)
+    folded_factory = lambda m, k, dtype=None, device=None, seed=0: folded_at(  # noqa: E731
+        variable_rate_model(device, dtype), GAINED_SERVE_LEVEL)
+    n, results["serve_folded"] = serve_phase(dev, card, folded_factory)
+    forwards += n
+    for kind in ("serve_gained", "serve_folded"):
+        for dname, r in results[kind].items():
+            r["over_flagship"] = r["img_per_s"] / flagship_serve[dname]["img_per_s"]
+            print(f"  {kind} {dname}: {r['over_flagship']:.4f}x the flagship's img/s (phase 4), "
+                  f"batch-1 latency {r['batch1_latency_ms']:.3f} ms against "
+                  f"{flagship_serve[dname]['batch1_latency_ms']:.3f}", flush=True)
+    print(f"  -- train, batch {TRAIN_BATCH} of {TRAIN_SIZE}x{TRAIN_SIZE}, levels sampled",
+          flush=True)
+    steps, results["train"] = gained_train(dev, card, flagship_train)
+    total = added(scaled(FORWARD, forwards), scaled(PER_STEP, steps))
+    check(launch_counts() == total, f"gained: serve and train launched {launch_counts()}, "
+                                    f"not {total} ({forwards} forwards, {steps} steps)")
+    print(f"  -- codec: JointARCodec on the folds at levels {GAINED_CODEC_LEVELS}, one "
+          f"{HEIGHT}x{WIDTH} image", flush=True)
+    results["codec"] = gained_codec(total, models, refs, x, card)
+    results["rate_control"] = gained_rate_control(total, model, x)
+    results["curve"] = gained_curve(total, model, card)
+    results["trainer"] = gained_trainer(dev, total, card)
+    results["siblings"] = {family: sibling_main_path(dev, total, family, *siblings[family], x,
+                                                     card)
+                           for family in GAINED_SIBLINGS}
+    launches = launch_counts()
+    check(launches == total, f"gained: launches {launches}, its calls counted {total}")
+    seconds = time.perf_counter() - t0
+    print(f"main path (gained): {forwards} serve forwards, {steps} steps, the codec's, rate "
+          f"control's, the curve's, the Trainer's and the siblings' calls: launches {launches} "
+          f"(a forward {FORWARD}, a step {PER_STEP}); phase 10 took {seconds:.1f} s")
+    results.update(seconds=seconds, launches_per_forward=FORWARD, launches_per_step=PER_STEP,
+                   M=M, K=K, levels=list(model.levels))
+    return launches, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2104,16 +2621,23 @@ def main() -> int:
     residual_launches, residual_results = residual_phase(dev, card)
     print(json.dumps({"residual": residual_results, "card": card, "cpu_count": os.cpu_count()}))
 
+    print(f"== phase 10: the variable-rate families, GainedJointAR M={M} K={K} and its three "
+          f"siblings [{card}]", flush=True)
+    gained_launches, gained_results = gained_phase(dev, card, serve_results, train_results)
+    print(json.dumps({"gained": gained_results, "card": card, "cpu_count": os.cpu_count()}))
+
     for r in records:
         r["launches"] = (serve_launches[r["name"]] + train_launches[r["name"]]
                          + codec_launches[r["name"]] + trainer_launches[r["name"]]
                          + sum(f[r["name"]] for f in family_launches.values())
-                         + residual_launches[r["name"]])
+                         + residual_launches[r["name"]] + gained_launches[r["name"]])
         # every family runs the GDN kernels at these shapes, the mixture
-        # kernels only the families with a mixture; phase 9's records (C=192)
-        # carry their own
+        # kernels only the families with a mixture, the gained families (the
+        # flagship's shapes) all of them; phase 9's records (C=192) carry
+        # their own
         r.setdefault("families", ["joint_ar"] + (
             [f for f, fam in FAMILIES.items() if fam.mixture or r["name"].startswith("gdn")]
+            + ["gained_" + f for f in ("joint_ar", *GAINED_SIBLINGS)]
             if r.get("path") in ("serve", "train", "codec", "refine") else []))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

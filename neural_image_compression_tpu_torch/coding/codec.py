@@ -416,6 +416,9 @@ class _DeviceCodec:
     MULTIPLE = _MULTIPLE
 
     def __init__(self, model, portable_card=None):
+        if hasattr(model, "levels"):  # the codec calls the transforms, which skip the gains
+            raise TypeError(f"{type(model).__name__} is a variable-rate model: code its "
+                            f"fixed-rate fold at a level (models.folded_model, fold_gains)")
         self.model = model
         self.M = model.latent_channels
         self.device = next(model.parameters()).device

@@ -9,6 +9,10 @@ from neural_image_compression_tpu_torch.models.components import (
     HyperEncoder3x3, HyperEncoder5x5,
 )
 from neural_image_compression_tpu_torch.models.factorized_prior import FactorizedPrior
+from neural_image_compression_tpu_torch.models.gained import (
+    GainedChannelCheckerboard, GainedCheckerboard, GainedHyperprior, GainedJointAR, fold_gains,
+    folded_model, interp_gain, level_for_bpp,
+)
 from neural_image_compression_tpu_torch.models.hyperprior import MeanScaleHyperprior
 from neural_image_compression_tpu_torch.models.joint_ar import (
     HierarchicalMixtureResidual, HierarchicalModel, JointAutoregressiveHierarchical,
@@ -21,5 +25,6 @@ __all__ = ["CB_CTX_POSITIONS", "ChannelCheckerboardHierarchical", "CheckerboardC
            "Decoder5x5", "Encoder3x3", "Encoder5x5", "FactorizedPrior", "HyperDecoder3x3",
            "HyperDecoder5x5", "HyperEncoder3x3", "HyperEncoder5x5",
            "HierarchicalMixtureResidual", "HierarchicalModel", "JointAutoregressiveHierarchical",
-           "MeanScaleHyperprior", "EntropyParameters", "noise_quantize", "quantize",
-           "round_quantize"]
+           "MeanScaleHyperprior", "EntropyParameters", "GainedJointAR", "GainedHyperprior",
+           "GainedCheckerboard", "GainedChannelCheckerboard", "fold_gains", "folded_model",
+           "interp_gain", "level_for_bpp", "noise_quantize", "quantize", "round_quantize"]

@@ -72,6 +72,12 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def _scaled(t: torch.Tensor, g: Optional[torch.Tensor]) -> torch.Tensor:
+    """t (..., C) times the channel scale g (C,) in t's dtype; t itself when
+    g is None."""
+    return t if g is None else t * g.to(t.dtype)
+
+
 def conditional_likelihood(K: int, y_in: torch.Tensor, params_t):
     """(params, p_y, logp_y) of y_in (B, h, w, M) under the entropy
     parameters params_t: {mu, sigma} and the Gaussian likelihood (K=1), or
@@ -135,30 +141,47 @@ class HierarchicalModel(nn.Module):
         """x: (B, H, W, 3) in [0, 1], H and W multiples of 64. training:
         noise quantization, recorded by autograd; else rounding under
         no_grad. generator: the noise's torch.Generator (on x's device)."""
+        return self._run(x, training, generator, None)
+
+    def _gains(self, level):
+        """The channel scales at ``level`` (``_forward``'s gains): none for
+        a fixed-rate model."""
+        return None
+
+    def _run(self, x: torch.Tensor, training: bool, generator: Optional[torch.Generator],
+             level) -> Dict[str, torch.Tensor]:
         if x.shape[1] % 64 or x.shape[2] % 64:
             raise ValueError(
                 f"H and W must be multiples of 64 (x16 transform + x4 hyper "
                 f"downsampling), got {x.shape[1]}x{x.shape[2]}; pad first "
                 f"and crop the output")
         if training:
-            return self._forward(x, True, generator)
+            return self._forward(x, True, generator, self._gains(level))
         with torch.no_grad():
-            return self._forward(x, False, None)
+            return self._forward(x, False, None, self._gains(level))
 
-    def _forward(self, x: torch.Tensor, training: bool,
-                 generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        y = _nhwc(self.encoder(_nchw(x)))
-        z = _nhwc(self.hyper_encoder(_nchw(y)))
+    def _forward(self, x: torch.Tensor, training: bool, generator: Optional[torch.Generator],
+                 gains=None) -> Dict[str, torch.Tensor]:
+        """gains: None, or the variable-rate families' (g_y, ig_y, g_z, ig_z)
+        at one level (``models.gained``), each (M,) float32: y and z are
+        scaled into the coded domain by g_y and g_z (in the transforms'
+        dtype), and only the decoders see y_in * ig_y and z_in * ig_z; the
+        context and entropy nets and both likelihoods work in the coded
+        domain."""
+        g_y, ig_y, g_z, ig_z = gains if gains is not None else (None,) * 4
+        y = _scaled(_nhwc(self.encoder(_nchw(x))), g_y)
+        z = _scaled(_nhwc(self.hyper_encoder(_nchw(y))), g_z)
         # z first, then y: the order of the JAX model's noise keys (rng_z, rng_y)
         z_in = quantize(z.float(), training, generator)
         y_in = quantize(y.float(), training, generator)
 
-        params, p_y, logp_y = conditional_likelihood(self.K, y_in,
-                                                     self._entropy_params(y_in, z_in))
+        # every family's hyper-decoder is the only consumer of its z argument
+        params, p_y, logp_y = conditional_likelihood(
+            self.K, y_in, self._entropy_params(y_in, _scaled(z_in, ig_z)))
         p_z = self.factorized_entropy_model(z_in)
         logp_z = torch.log(p_z)
 
-        x_hat = _nhwc(self.decoder(_nchw(y_in))).float()
+        x_hat = _nhwc(self.decoder(_nchw(_scaled(y_in, ig_y)))).float()
 
         out = {
             "x_hat": x_hat,

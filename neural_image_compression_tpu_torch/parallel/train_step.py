@@ -5,11 +5,11 @@ backward kernels on a card) and the caller's optimizer.
 
 PyTorch's idiom replaces the JAX step's pure (params, opt_state) threading:
 the step updates the model and the optimizer in place and returns only the
-metrics. The JAX step's ``mesh`` (data parallelism) and ``levels`` (the
-variable-rate family) have no counterpart here yet.
+metrics. The JAX step's ``mesh`` (data parallelism) has no counterpart here
+yet.
 """
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -41,7 +41,8 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> torch.Ten
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, rd_loss: Callable,
                     lambda_val: float, ema_decay: Optional[float] = None,
-                    clip_grad_norm: Optional[float] = None):
+                    clip_grad_norm: Optional[float] = None,
+                    levels: Optional[Sequence[float]] = None):
     """Build step(batch, generator=None) -> metrics.
 
     batch: (B, H, W, 3) float in [0, 1] or uint8, moved to the model's
@@ -60,6 +61,13 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, rd_loss:
     average of the parameters, e <- e + (1 - d) * (p - e) after each update,
     starting from the parameters as they are now: ``step.ema_params``, a
     dict name -> tensor (None without ema_decay).
+
+    With levels (the lambda ladder of a variable-rate model, ``models.
+    gained``), each step draws one level n uniformly in [0, N) on the
+    device from ``generator``, before the noise (the JAX step splits its
+    level key first), forwards at that level and weights the loss with
+    levels[n], read from a device tensor (lambda_val is unused): the host
+    never waits for the draw.
     """
     if ema_decay is not None and not (0.0 < ema_decay < 1.0):
         raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
@@ -67,6 +75,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, rd_loss:
         raise ValueError(f"clip_grad_norm must be > 0, got {clip_grad_norm}")
     named = list(model.named_parameters())
     device = named[0][1].device
+    lam_table = None if levels is None else torch.tensor(levels, dtype=torch.float32,
+                                                         device=device)
     ema: Optional[Dict[str, torch.Tensor]] = None
     if ema_decay is not None:
         ema = {name: p.detach().clone() for name, p in named}
@@ -75,7 +85,12 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, rd_loss:
 
     def step(batch, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         x = batch_to_device(batch, device)
-        metrics = rd_loss(model(x, training=True, generator=generator), x, lambda_val)
+        if lam_table is None:
+            kwargs, lam = {}, lambda_val
+        else:
+            n = torch.randint(0, lam_table.shape[0], (1,), device=device, generator=generator)
+            kwargs, lam = {"level": n[0]}, lam_table.index_select(0, n)[0]
+        metrics = rd_loss(model(x, training=True, generator=generator, **kwargs), x, lam)
         metrics["loss"].backward()
         if clip_grad_norm is not None:
             clip_by_global_norm([p.grad for _, p in named if p.grad is not None],

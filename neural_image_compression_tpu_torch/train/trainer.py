@@ -29,8 +29,13 @@ and returns.
 Schedulers set ``lr`` in every param group of the optimizer, so any torch
 optimizer takes them (JAX needs ``optax.inject_hyperparams`` for that and
 raises without it; nothing here can be missing). The JAX Trainer's
-``mesh`` (data parallelism across processes) and ``levels`` (the
-variable-rate family) are not ported.
+``mesh`` (data parallelism across processes) is not ported.
+
+A variable-rate model (one with ``levels``, ``models.gained``) trains at a
+level drawn each step (``make_train_step(levels=...)``); validation pins
+the middle level and its lambda, so the plateau scheduler follows one
+objective. The diagnostic forward and ``eval_params``' users run the
+default level, as in the JAX Trainer.
 """
 
 import math
@@ -112,8 +117,15 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.optimizer = optimizer or torch.optim.Adam(
             model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        levels = getattr(model, "levels", None)
         self._train_step = make_train_step(model, self.optimizer, self.rd_loss, lambda_val,
-                                           ema_decay=ema_decay, clip_grad_norm=clip_grad_norm)
+                                           ema_decay=ema_decay, clip_grad_norm=clip_grad_norm,
+                                           levels=levels)
+        if levels:
+            self._val_kwargs = {"level": len(levels) // 2}
+            self._val_lambda = float(levels[len(levels) // 2])
+        else:
+            self._val_kwargs, self._val_lambda = {}, lambda_val
         # name -> tensor, updated in place by the step; None without EMA
         self.ema_params = self._train_step.ema_params
 
@@ -244,10 +256,10 @@ class Trainer:
         for k, v in host_scalars(metrics).items():
             self.logger.scalar(f"losses/{k}", v, self.step)
 
-    def _eval_forward(self, x: torch.Tensor):
+    def _eval_forward(self, x: torch.Tensor, **kwargs):
         if self.ema_params is None:
-            return self.model(x, training=False)
-        return functional_call(self.model, self.ema_params, (x,), {"training": False})
+            return self.model(x, training=False, **kwargs)
+        return functional_call(self.model, self.ema_params, (x,), {"training": False, **kwargs})
 
     @torch.no_grad()
     def _validate(self) -> float:
@@ -255,7 +267,7 @@ class Trainer:
         n = 0
         for imgs in self.val_loader:
             x = batch_to_device(imgs, self.device)
-            m = self.rd_loss(self._eval_forward(x), x, self.lambda_val)
+            m = self.rd_loss(self._eval_forward(x, **self._val_kwargs), x, self._val_lambda)
             m = host_scalars({k: m[k] for k in ("loss", "bpp_total", "psnr")})
             total_loss += m["loss"]
             bpp += m["bpp_total"]

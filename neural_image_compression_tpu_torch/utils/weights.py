@@ -9,7 +9,8 @@ so a tree leaf at path ``a/b/leaf`` becomes the ``state_dict`` entry
 ``a.b.<name>`` with a layout change where the two frameworks differ, chosen
 by the leaf's immediate module. The walk goes by names alone, so it serves
 every family (joint-AR, checkerboard, hyperprior, channel-conditional
-checkerboard, factorized prior) with either transform:
+checkerboard, factorized prior, and the gained variants of the first four)
+with either transform:
 
 * conv kernel (HWIO, under ``Conv2d_*`` / ``MaskedConv2d_*``, or directly
   under a bare conv the model names itself, ``spatial_ctx_*``) -> ``weight``
@@ -17,8 +18,10 @@ checkerboard, factorized prior) with either transform:
 * deconv kernel (under ``Deconv2d_*``: a direct-conv HWIO kernel, the
   spatial flip of torch's) -> ``weight`` in ConvTranspose2d's (in, out, kh,
   kw) with the flip undone;
-* conv biases, GDN ``beta``/``gamma`` (gamma stays (C_in, C_out)) and the
-  factorized ``matrix_i``/``bias_i``/``factor_i`` -> the same name, as is.
+* conv biases, GDN ``beta``/``gamma`` (gamma stays (C_in, C_out)), the
+  factorized ``matrix_i``/``bias_i``/``factor_i`` and the gained families'
+  top-level (N, M) ``gain_y``/``igain_y``/``gain_z``/``igain_z`` -> the
+  same name, as is.
 
 Leaves are numpy arrays (or anything ``np.asarray`` takes). Each leaf maps
 to exactly one key; a key the model lacks, or one it has that the tree does
@@ -33,6 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
+# the variable-rate families' (N, M) gain tables: top-level leaves, as they are
+_GAIN_LEAVES = ("gain_y", "igain_y", "gain_z", "igain_z")
 # module names whose kernels are direct convolutions: flax's auto-named conv
 # modules, and the bare convs a model names itself (channel_cb.py's
 # spatial_ctx_{i})
@@ -40,6 +45,8 @@ _CONV_MODULES = ("Conv2d_", "MaskedConv2d_", "spatial_ctx_")
 
 
 def _convert(path: str, module: str, leaf: str, value: np.ndarray):
+    if module == "" and leaf in _GAIN_LEAVES:
+        return leaf, value
     if leaf == "kernel":
         if module.startswith("Deconv2d_"):
             # (kh, kw, in, out) direct-conv kernel -> torch (in, out, kh, kw), unflipped
@@ -79,6 +86,8 @@ def joint_ar_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 def _to_jax(key: str, value: np.ndarray):
     path = key.split(".")
     module, leaf = (path[-2] if len(path) > 1 else ""), path[-1]
+    if module == "" and leaf in _GAIN_LEAVES:
+        return leaf, value
     if leaf == "weight":
         if module.startswith("Deconv2d_"):
             # torch (in, out, kh, kw) -> the flipped direct-conv kernel (kh, kw, in, out)
