@@ -1,10 +1,15 @@
 """Real bitstream codecs of the model families, port of coding/codec.py's
 ``JointARCodec``, ``CheckerboardCodec``, ``MeanScaleHyperpriorCodec``,
-``ChannelCheckerboardCodec`` and ``FactorizedPriorCodec``.
+``ChannelCheckerboardCodec``, ``FactorizedPriorCodec`` and
+``ScalableCodec``.
 
   * z (hyper-latents), every family: per-channel quantized CDF tables from
     the factorized bottleneck (``cdf_tables.factorized_tables``), one
     indexed rANS stream.
+  * y, scalable model (``ScalableCodec``): the base latents y1 and the
+    enhancement latents y2 each as a joint-AR wavefront stream under their
+    own context and entropy nets and the shared psi, one after the other;
+    the enhancement stream can be cut off (``truncate_base``).
   * y (latents), joint-AR (``JointARCodec``): coded under the per-symbol
     Gaussian (K=1) or Gaussian mixture that the hyper-synthesis psi and the
     masked 5x5 context predict, by the native wavefront codec
@@ -33,7 +38,7 @@
   * y, factorized prior (``FactorizedPriorCodec``): no z and no device
     pass; one indexed rANS stream under the bottleneck's tables for y's
     range, as the z stream of the others.
-  * portable streams (kinds 4, 5, 8, 10, 12): the integer path of
+  * portable streams (kinds 4, 5, 6, 8, 10, 12): the integer path of
     ``coding.portable``, for streams that must decode on another machine or
     in the JAX package.
 
@@ -60,10 +65,13 @@ read the same bytes.
 
 Bitstream layout (version 1), the JAX package's:
   header ``<4sBBHHHHhhII``: magic 'NIC1', kind (1 joint-AR, 2 factorized,
-  7 checkerboard, 9 hyperprior, 11 channel-conditional checkerboard; 4, 5,
-  8, 10 and 12 their portable streams), K, M, H, W (the true image size),
-  layout, zmin, zmax, len_z, len_y; for a portable kind the card's 8-byte
-  hash; then the z stream, then the y payload. Layout, joint-AR:
+  3 scalable, 7 checkerboard, 9 hyperprior, 11 channel-conditional
+  checkerboard; 4, 5, 6, 8, 10 and 12 their portable streams), K, M, H, W
+  (the true image size), layout, zmin, zmax, len_z, len_y; for a portable
+  kind the card's 8-byte hash (the scalable stream's two cards': 16 bytes);
+  then the z stream, then the y payload. The scalable stream puts M1 in
+  the layout field and the base stream's length in len_y; the enhancement
+  stream fills the rest. Layout, joint-AR:
   (ta << 8) | tb for ta x tb tiles (1 x 1: one stream, also of a portable
   stream; more: a ``<nI`` length table, then the tiles' streams in raster
   order), or 0x8000 | N for N interleaved streams. Checkerboard, hyperprior
@@ -101,8 +109,10 @@ _HEADER = "<4sBBHHHHhhII"
 _HEADER_SIZE = struct.calcsize(_HEADER)
 _KIND_JOINT = 1
 _KIND_FACTORIZED = 2
+_KIND_SCALABLE = 3
 _KIND_JOINT_PORTABLE = 4
 _KIND_FACTORIZED_PORTABLE = 5
+_KIND_SCALABLE_PORTABLE = 6
 _KIND_CHECKERBOARD = 7
 _KIND_CHECKERBOARD_PORTABLE = 8
 _KIND_HYPERPRIOR = 9
@@ -238,19 +248,24 @@ class _HostParamNets:
     last layer's columns go from the model's (kind, k, m) order to
     (kind, m, k), so the mixture parameters come out (n, M, K)-contiguous.
     The wavefront codec codes with these; the portable cards quantize them.
+    ctx_name, ep_name and M pick the model's pair of nets and their latent
+    width (the scalable model's ``context_model_1`` and
+    ``entropy_parameters_1`` at M1, or its ``_2`` pair at M - M1).
     ``ep_only`` and ``context_taps`` build the parts from other modules (the
     channel-conditional model's per-group nets)."""
 
-    def __init__(self, model, family: str = "wavefront"):
+    def __init__(self, model, family: str = "wavefront", ctx_name: str = "context_model",
+                 ep_name: str = "entropy_parameters", M: Optional[int] = None):
         if family == "hyperprior":
             self.ctx_w = np.zeros((0, 0), np.float32)
             self.ctx_bias = np.zeros((0,), np.float32)
         else:
-            ctx, positions = ((model.context_model.MaskedConv2d_0, CTX_POSITIONS)
-                              if family == "wavefront"
-                              else (model.context_model.Conv2d_0, CB_CTX_POSITIONS))
+            ctx_model = getattr(model, ctx_name)
+            ctx, positions = ((ctx_model.MaskedConv2d_0, CTX_POSITIONS) if family == "wavefront"
+                              else (ctx_model.Conv2d_0, CB_CTX_POSITIONS))
             self.ctx_w, self.ctx_bias = self.context_taps(ctx, positions)
-        self._init_ep(model.entropy_parameters, model.latent_channels, model.K)
+        self._init_ep(getattr(model, ep_name), model.latent_channels if M is None else M,
+                      model.K)
 
     @staticmethod
     def context_taps(conv, positions) -> Tuple[np.ndarray, np.ndarray]:
@@ -775,6 +790,218 @@ class JointARCodec(_Codec):
 
         y_all = np.stack(_pool_map(one, range(len(datas)), workers))
         return self._synthesize(y_all, img_h, img_w, as_uint8)
+
+
+class ScalableCodec(_Codec):
+    """Layered bitstream for ``models.ScalableImageCoding``: header | z |
+    y1 (the base layer) | y2 (the enhancement layer). Each layer codes with
+    the wavefront AR coder under its own context and entropy nets and the
+    shared psi; the two layers encode and decode on two host threads.
+    ``truncate_base`` drops y2: the base stream alone decodes to y1 and the
+    LatentSpaceTransform's F_tilde (``decompress_base``), the input of a
+    vision head; the full stream decodes to the image. Kind 3 (float, the
+    parameters from the device's psi as ``JointARCodec``'s) and kind 6
+    (portable: one ``PortableCard`` a layer, both hashes after the header).
+    The header's layout field holds M1, len_y the base stream's length.
+    portable_cards: the (base, enhancement) card pair (built from the model
+    at first use when None; ``portable.save_scalable_cards`` /
+    ``load_scalable_cards`` carry it). Devices as ``JointARCodec``'s."""
+
+    KINDS = (_KIND_SCALABLE, _KIND_SCALABLE_PORTABLE)
+    NAME = "scalable"
+
+    def __init__(self, model, portable_cards=None):
+        super().__init__(model)
+        self.M1 = model.base_channels
+        self.M2 = self.M - self.M1
+        self._nets1 = _HostParamNets(model, "wavefront", "context_model_1",
+                                     "entropy_parameters_1", self.M1)
+        self._nets2 = _HostParamNets(model, "wavefront", "context_model_2",
+                                     "entropy_parameters_2", self.M2)
+        self._portable_cards = portable_cards
+
+    # the joint-AR codec's device programs: the analysis and psi, one hyper-decoder
+    _psi_device = JointARCodec._psi_device
+    _psi = JointARCodec._psi
+    _analyse_image = JointARCodec._analyse_image
+
+    def portable_cards(self) -> Tuple[PortableCard, PortableCard]:
+        """The (base, enhancement) cards of this codec's portable streams,
+        built from the model at first use (see ``JointARCodec.portable_card``)."""
+        if self._portable_cards is None:
+            self._portable_cards = tuple(
+                PortableCard.build(self.model, ctx_name=f"context_model_{i}",
+                                   ep_name=f"entropy_parameters_{i}", M=m)
+                for i, m in ((1, self.M1), (2, self.M2)))
+        return self._portable_cards
+
+    def _pack_layers(self, kind: int, img_h: int, img_w: int, zmin: int, zmax: int,
+                     z_bytes: bytes, y1_bytes: bytes, y2_bytes: bytes,
+                     hashes: bytes = b"") -> bytes:
+        return struct.pack(_HEADER, _MAGIC, kind, self.K, self.M, img_h, img_w, self.M1, zmin,
+                           zmax, len(z_bytes), len(y1_bytes)) + hashes + z_bytes + y1_bytes + y2_bytes
+
+    # -- encode ----------------------------------------------------------
+    def compress(self, x) -> bytes:
+        """x: (1, H, W, 3) float32 in [0, 1] or uint8, any size (padded to
+        multiples of 64 here, cropped back by decompress)."""
+        img_h, img_w, y_q, z_q, psi = self._analyse_image(x)
+        return self._encode_from(y_q, z_q, psi, img_h, img_w)
+
+    def compress_latents(self, y_q, z_q, img_h: int, img_w: int) -> bytes:
+        """Encode given integer latent grids (e.g. from ``coding.refine``'s
+        scalable mode): compress()'s stream for the same latents, which
+        truncates the same way."""
+        y_q, z_q = _as_latent_grids(y_q, z_q, img_h, img_w, self.M)
+        return self._encode_from(y_q, z_q, self._psi(z_q[None]), img_h, img_w)
+
+    def _encode_from(self, y_q: np.ndarray, z_q: np.ndarray, psi: np.ndarray,
+                     img_h: int, img_w: int) -> bytes:
+        zmin, zmax, z_bytes = self._encode_z(z_q)
+        with ThreadPoolExecutor(2) as pool:
+            y1 = pool.submit(_ar_encode_latents, self._nets1,
+                             np.ascontiguousarray(y_q[..., :self.M1]), psi)
+            y2 = pool.submit(_ar_encode_latents, self._nets2,
+                             np.ascontiguousarray(y_q[..., self.M1:]), psi)
+            y1_bytes, y2_bytes = y1.result(), y2.result()
+        return self._pack_layers(_KIND_SCALABLE, img_h, img_w, zmin, zmax, z_bytes, y1_bytes,
+                                 y2_bytes)
+
+    def compress_portable(self, x) -> bytes:
+        """A portable layered stream (kind 6) of one image; truncate_base
+        applies to it too."""
+        img_h, img_w, x_dev, y16, z_dev = self._analyse_device(x)
+        y_q, z_q = self._fetch_latents(x_dev, y16, z_dev)
+        return self._encode_portable_from(y_q, z_q, img_h, img_w)
+
+    def compress_latents_portable(self, y_q, z_q, img_h: int, img_w: int) -> bytes:
+        """Given integer latent grids as a portable layered stream; z_q is
+        clipped to the cards' [zmin, zmax]."""
+        card1, _ = self.portable_cards()
+        y_q, z_q = _as_latent_grids(y_q, z_q, img_h, img_w, self.M)
+        return self._encode_portable_from(y_q, np.clip(z_q, card1.zmin, card1.zmax), img_h,
+                                          img_w)
+
+    def _encode_portable_from(self, y_q: np.ndarray, z_q: np.ndarray, img_h: int,
+                              img_w: int) -> bytes:
+        card1, card2 = self.portable_cards()
+        _, _, z_bytes = self._encode_z(z_q, (card1.z_cdfs, card1.z_offsets, card1.z_sizes))
+        psi_fix = card1.hyper_forward(z_q)  # card2's hyper-decoder is the same
+        y1_bytes = portable_ar_encode(card1, np.ascontiguousarray(y_q[..., :self.M1]), psi_fix)
+        y2_bytes = portable_ar_encode(card2, np.ascontiguousarray(y_q[..., self.M1:]), psi_fix)
+        return self._pack_layers(_KIND_SCALABLE_PORTABLE, img_h, img_w, card1.zmin, card1.zmax,
+                                 z_bytes, y1_bytes, y2_bytes, card1.hash + card2.hash)
+
+    def truncate_base(self, data: bytes) -> bytes:
+        """The stream without its enhancement layer: decompress_base reads
+        it; decompress raises."""
+        header, start = self._layered_header(data, check_cards=False)
+        return data[:start + header[9] + header[10]]
+
+    # -- decode ----------------------------------------------------------
+    def _layered_header(self, data: bytes, check_cards: bool = True):
+        """(header, offset of the z stream), checked: the kind, this codec's
+        K, M and M1, the image size, z's range, a portable stream's card
+        hashes (with check_cards), and a length that holds at least z and
+        the base layer."""
+        if len(data) < _HEADER_SIZE:
+            raise ValueError(f"truncated stream: {len(data)} bytes, header needs {_HEADER_SIZE}")
+        header = struct.unpack(_HEADER, data[:_HEADER_SIZE])
+        magic, kind, K, M, img_h, img_w, M1, zmin, zmax, len_z, len_y1 = header
+        if magic != _MAGIC:
+            raise ValueError(f"not a NIC1 stream (magic {magic!r})")
+        if kind not in self.KINDS:
+            raise ValueError(f"stream kind {kind} is not a scalable stream (kind "
+                             f"{self.KINDS[0]}, or {self.KINDS[1]} portable)")
+        if (K, M, M1) != (self.K, self.M, self.M1):
+            raise ValueError(f"stream is for K={K}, M={M}, M1={M1}; this codec's model has "
+                             f"K={self.K}, M={self.M}, M1={self.M1}")
+        if img_h == 0 or img_w == 0:
+            raise ValueError(f"corrupt header: image size {img_h}x{img_w}")
+        if zmin > zmax:
+            raise ValueError(f"corrupt header: zmin {zmin} > zmax {zmax}")
+        start = _HEADER_SIZE
+        if kind == _KIND_SCALABLE_PORTABLE and check_cards:
+            card1, card2 = self.portable_cards()
+            if data[start:start + 2 * _CARD_HASH_SIZE] != card1.hash + card2.hash:
+                raise ValueError("portable stream was encoded with different cards — load the "
+                                 "encoder's card file (portable.load_scalable_cards) and pass "
+                                 "it via ScalableCodec(portable_cards=...)")
+        if kind == _KIND_SCALABLE_PORTABLE:
+            start += 2 * _CARD_HASH_SIZE
+        if len(data) < start + len_z + len_y1:
+            raise ValueError(f"stream is {len(data)} bytes, its header says at least "
+                             f"{start + len_z + len_y1} (truncated)")
+        return header, start
+
+    def _decode_common(self, data: bytes):
+        """(y1 bytes, y2 bytes, psi, z_q, h, w, portable)."""
+        header, start = self._layered_header(data)
+        kind, img_h, img_w, zmin, zmax, len_z, len_y1 = (header[1], header[4], header[5],
+                                                         header[7], header[8], header[9],
+                                                         header[10])
+        portable = kind == _KIND_SCALABLE_PORTABLE
+        ph, pw = _round_up(img_h, _MULTIPLE), _round_up(img_w, _MULTIPLE)
+        if portable:
+            card = self.portable_cards()[0]
+            tables = (card.z_cdfs, card.z_offsets, card.z_sizes)
+        else:
+            tables = self._z_tables(zmin, zmax)
+        hz, wz = ph // 64, pw // 64
+        z_index = np.tile(np.arange(self.M, dtype=np.int32), hz * wz)
+        z_q = _decode_indexed_checked(data[start:start + len_z], z_index, *tables).reshape(
+            hz, wz, self.M).astype(np.float32)
+        psi = card.hyper_forward(z_q) if portable else self._psi(z_q[None])
+        body = start + len_z
+        return (data[body:body + len_y1], data[body + len_y1:], psi, z_q, ph // 16, pw // 16,
+                portable)
+
+    def _decode_layer(self, layer: int, payload: bytes, psi, h: int, w: int,
+                      portable: bool) -> np.ndarray:
+        if portable:
+            return portable_ar_decode(self.portable_cards()[layer - 1], payload, psi, h, w)
+        return _ar_decode_latents(self._nets1 if layer == 1 else self._nets2, payload, psi, h, w)
+
+    def decode_latents(self, data: bytes) -> Tuple[np.ndarray, np.ndarray]:
+        """(y_q (h, w, M), z_q (hz, wz, M)) float32 of a full stream, float or
+        portable: both layers decoded on two host threads."""
+        y1_bytes, y2_bytes, psi, z_q, h, w, portable = self._decode_common(data)
+        if not y2_bytes:
+            raise ValueError("enhancement stream missing (truncated bitstream); use "
+                             "decompress_base")
+        return self._decode_layers(y1_bytes, y2_bytes, psi, h, w, portable), z_q
+
+    def _decode_layers(self, y1_bytes: bytes, y2_bytes: bytes, psi, h: int, w: int,
+                       portable: bool) -> np.ndarray:
+        """Both layers' wavefronts on two host threads: y (h, w, M) float32."""
+        with ThreadPoolExecutor(2) as pool:
+            jobs = [pool.submit(self._decode_layer, layer, payload, psi, h, w, portable)
+                    for layer, payload in ((1, y1_bytes), (2, y2_bytes))]
+            y1, y2 = (job.result() for job in jobs)
+        return np.concatenate([y1, y2], axis=-1).astype(np.float32)
+
+    def decompress(self, data: bytes, as_uint8: bool = False) -> np.ndarray:
+        """The full stream's image, (1, H, W, 3) at its true size (float32
+        in [0, 1], or uint8 with as_uint8). A base-only stream raises."""
+        y_hat, _ = self.decode_latents(data)
+        img_h, img_w = stream_size(data)
+        return self._synthesize(y_hat[None], img_h, img_w, as_uint8)
+
+    def decompress_base(self, data: bytes) -> Tuple[np.ndarray, np.ndarray]:
+        """Base-layer decode of a full or truncated stream: (y1 (h, w, M1)
+        float32, F_tilde (1, 2h, 2w, 2 M1) float32 for the default LST), both
+        over the padded latent grid when the image size is not a multiple of
+        64 (``stream_size`` gives the true size)."""
+        y1_bytes, _, psi, _, h, w, portable = self._decode_common(data)
+        y1 = self._decode_layer(1, y1_bytes, psi, h, w, portable).astype(np.float32)
+        return y1, self._lst(y1)
+
+    def _lst(self, y1: np.ndarray) -> np.ndarray:
+        """The LatentSpaceTransform of integer base latents (h, w, M1) on the
+        device: F_tilde (1, ...) float32 on the host."""
+        y_dev = _latents_to_device(y1[None], self.device)
+        with torch.inference_mode():
+            return _nhwc(self.model.LST(_nchw(y_dev.float()))).float().cpu().numpy()
 
 
 def _image_batch(xs) -> np.ndarray:

@@ -54,7 +54,7 @@ import numpy as np
 from neural_image_compression_tpu_torch.coding import backend
 from neural_image_compression_tpu_torch.models import (
     CB_CTX_POSITIONS, ChannelCheckerboardHierarchical, CheckerboardHierarchical, FactorizedPrior,
-    JointAutoregressiveHierarchical, MeanScaleHyperprior, checkerboard_mask,
+    JointAutoregressiveHierarchical, MeanScaleHyperprior, ScalableImageCoding, checkerboard_mask,
 )
 
 F_BITS = 12                 # activation fractional bits
@@ -86,11 +86,13 @@ FAMILIES = {"wavefront": 0, "checkerboard": 1, "hyperprior": 2}
 
 
 def model_family(model) -> str:
-    """The portable family of a model: "wavefront" (joint-AR),
-    "checkerboard" or "hyperprior" (a ``PortableCard`` of that family),
+    """The portable family of a model: "wavefront" (joint-AR, and each layer
+    of the scalable model), "checkerboard" or "hyperprior" (a
+    ``PortableCard`` of that family),
     "channel_cb" (a ``ChannelCBCards`` set, ``build_channel_cb_cards``) or
     "factorized" (a ``FactorizedCard``)."""
     for cls, family in ((JointAutoregressiveHierarchical, "wavefront"),
+                        (ScalableImageCoding, "wavefront"),
                         (CheckerboardHierarchical, "checkerboard"),
                         (MeanScaleHyperprior, "hyperprior"),
                         (ChannelCheckerboardHierarchical, "channel_cb"),
@@ -410,15 +412,22 @@ class PortableCard:
 
     # -- build -----------------------------------------------------------------
     @classmethod
-    def build(cls, model, zmin: int = -64, zmax: int = 64, family: str = None) -> "PortableCard":
+    def build(cls, model, zmin: int = -64, zmax: int = 64, family: str = None,
+              ctx_name: str = "context_model", ep_name: str = "entropy_parameters",
+              M: int = None, K: int = None) -> "PortableCard":
         """Quantize a hierarchical model's coding-path weights and
         precompute every integer table: the only float computation of
         portable mode. family: "wavefront", "checkerboard" or "hyperprior"
-        (default: the model's own, ``model_family``). The hyper-decoder's
-        kernels are quantized in the flax layout, the context (its 12 live
-        taps) and entropy nets in the native coder's layout
-        (``codec._HostParamNets``), and the z tables come from
-        ``cdf_tables.factorized_tables`` on the model's device."""
+        (default: the model's own, ``model_family``). ctx_name, ep_name, M
+        and K pick the context and entropy-parameter pair the card covers
+        and its widths (default: the model's one pair at its own M and K);
+        the scalable model builds one card a layer (``context_model_1`` and
+        ``entropy_parameters_1`` at M1, the ``_2`` pair at M - M1), each with
+        the shared hyper-decoder and z tables. The hyper-decoder's kernels
+        are quantized in the flax layout, the context (its 12 live taps) and
+        entropy nets in the native coder's layout (``codec._HostParamNets``),
+        and the z tables come from ``cdf_tables.factorized_tables`` on the
+        model's device."""
         from neural_image_compression_tpu_torch.coding.cdf_tables import factorized_tables
         from neural_image_compression_tpu_torch.coding.codec import _HostParamNets
         from neural_image_compression_tpu_torch.utils.weights import joint_ar_params_to_jax
@@ -428,7 +437,9 @@ class PortableCard:
             raise ValueError(f"a {family} model takes "
                              + ("a ChannelCBCards set (build_channel_cb_cards)"
                                 if family == "channel_cb" else "a FactorizedCard"))
-        nets = _HostParamNets(model, family)
+        M = model.latent_channels if M is None else M
+        K = model.K if K is None else K
+        nets = _HostParamNets(model, family, ctx_name, ep_name, M)
         hyper = _hyper_layers(model, joint_ar_params_to_jax(model))
         ctx = QuantLayer.quantize(nets.ctx_w, nets.ctx_bias)
         (w1, b1), (w2, b2), (w3, b3) = nets.ep
@@ -437,7 +448,7 @@ class PortableCard:
         ep3 = QuantLayer.quantize(w3, b3)
         sigma_thr, sigma_fix, sigma2_fix, sigma_R, tables, exp_lut = _integer_tables()
         z_cdfs, z_offsets, z_sizes = factorized_tables(model, zmin, zmax)
-        return cls(model.latent_channels, model.K, hyper, ctx, ep1_phi, ep1_psi, ep2, ep3,
+        return cls(M, K, hyper, ctx, ep1_phi, ep1_psi, ep2, ep3,
                    sigma_thr, sigma_fix, sigma2_fix, sigma_R, tables, exp_lut,
                    z_cdfs.astype(np.uint32), np.asarray(z_offsets, np.int32),
                    np.asarray(z_sizes, np.int32), zmin, zmax, FAMILIES[family])
@@ -1120,3 +1131,25 @@ class FactorizedCard:
         with np.load(path) as d:
             ymin, ymax = (int(v) for v in d["meta"])
             return cls(d["cdfs"], d["offsets"], d["sizes"], ymin, ymax)
+
+
+def save_scalable_cards(path: str, cards) -> None:
+    """One file for ``ScalableCodec``'s two cards (base, enhancement): each
+    card's arrays under the prefix ``l1_`` or ``l2_`` in one npz, the JAX
+    package's format."""
+    arrays = {}
+    for prefix, card in zip(("l1_", "l2_"), cards):
+        arrays.update({prefix + k: v for k, v in card._arrays()})
+    np.savez_compressed(path, **arrays)
+
+
+def load_scalable_cards(path: str) -> Tuple[PortableCard, PortableCard]:
+    """``save_scalable_cards``' inverse: (base card, enhancement card)."""
+    d = np.load(path)
+    cards = []
+    for prefix in ("l1_", "l2_"):
+        sub = {k[len(prefix):]: d[k] for k in d.files if k.startswith(prefix)}
+        if not sub:
+            raise ValueError(f"{path} is not a scalable card pair (missing {prefix}* arrays)")
+        cards.append(PortableCard._from_mapping(sub))
+    return cards[0], cards[1]

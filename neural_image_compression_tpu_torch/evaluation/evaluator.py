@@ -10,6 +10,8 @@ bitstream and reports the measured rate beside the analytic one.
 'BPP' is the true total (y and z). 'BPP(reference_reported)' repeats the
 reference's field, the mean of bpp_y alone, so results can be held against
 its published artifact; 'BPP(y)' and 'BPP(z)' give the split.
+``VisionCompressionEvaluator`` evaluates the scalable model: per-layer bpp
+('BPP(y1)', 'BPP(y2)') and, with a distillation-aware loss, 'VisionMSE'.
 
 ``params`` (e.g. the Trainer's ``eval_params``, an EMA) is a dict name ->
 tensor that the forward uses in place of the model's own parameters,
@@ -33,6 +35,7 @@ from neural_image_compression_tpu_torch.evaluation.msssim import ms_ssim, rgb_to
 from neural_image_compression_tpu_torch.evaluation.viz import render_panel_grid
 from neural_image_compression_tpu_torch.parallel.train_step import batch_to_device
 from neural_image_compression_tpu_torch.train.loss import rd_loss as default_rd_loss
+from neural_image_compression_tpu_torch.train.loss import vision_rd_loss as default_vision_rd_loss
 from neural_image_compression_tpu_torch.train.metrics_logger import host_scalars
 
 _LN2 = math.log(2.0)
@@ -308,3 +311,118 @@ class CompressionEvaluator:
                 f.write(f"{k}: {v:.6f}\n")
         print(f"Results saved to {path}")
         return path
+
+
+class VisionCompressionEvaluator(CompressionEvaluator):
+    """The scalable model's evaluator: per-layer bpp, and the vision MSE
+    when the loss given to ``evaluate`` distils (``functools.partial(
+    train.vision_rd_loss, frozen_activation=..., V=...)``); the loss is
+    called as loss(out, x, lambda_val, gamma)."""
+
+    def __init__(self, model, dataloader, lambda_val: float, gamma: float,
+                 save_dir: Optional[str] = "./eval_results",
+                 params: Optional[Dict[str, torch.Tensor]] = None):
+        super().__init__(model, dataloader, lambda_val, save_dir, params)
+        self.gamma = gamma
+
+    @torch.no_grad()
+    def evaluate(self, vision_rd_loss_fn: Optional[Callable] = None
+                 ) -> Tuple[Dict[str, float], List[np.ndarray], List[np.ndarray]]:
+        loss_fn = vision_rd_loss_fn or default_vision_rd_loss
+        stats = {k: [] for k in ("bpp_y", "bpp_y1", "bpp_y2", "bpp_z", "bpp_total",
+                                 "vision_mse")}
+        total_metrics, imgs_list, recon_list = [], [], []
+        for imgs in self.dataloader:
+            x = batch_to_device(imgs, self.device)
+            out = self._forward(x)
+            results = loss_fn(out, x, self.lambda_val, self.gamma)
+            recon = torch.clamp(out["x_hat"], 0.0, 1.0)
+            scalars = dict(compute_metrics(x, recon))
+            scalars.update({k: results[k] for k in stats})
+            scalars = host_scalars(scalars)
+            for k in stats:
+                stats[k].append(scalars.pop(k))
+            total_metrics.append(scalars)
+            imgs = np.asarray(imgs)
+            imgs_list.append(imgs[0] if imgs.ndim == 4 else imgs)
+            recon_list.append(recon[0].cpu().numpy())
+
+        if not total_metrics:
+            raise ValueError("evaluation dataloader yielded no images "
+                             "(empty/misnamed data_dir?)")
+        avg = _mean_of(total_metrics)
+        avg["BPP"] = float(np.mean(stats["bpp_total"]))         # the true total
+        avg["BPP(y)"] = float(np.mean(stats["bpp_y"]))
+        avg["BPP(y1)"] = float(np.mean(stats["bpp_y1"]))
+        avg["BPP(y2)"] = float(np.mean(stats["bpp_y2"]))
+        avg["BPP(z)"] = float(np.mean(stats["bpp_z"]))
+        avg["BPP(reference_reported)"] = avg["BPP(y)"]
+        if any(v > 0 for v in stats["vision_mse"]):  # a distillation-aware loss
+            avg["VisionMSE"] = float(np.mean(stats["vision_mse"]))
+
+        print("\n--- Evaluation Results ---")
+        for k, v in avg.items():
+            print(f"{k}: {v:.6f}")
+        return avg, imgs_list, recon_list
+
+    def plot_samples(self, imgs_list, recon_list, rd_loss_fn=None, n: int = 3,
+                     seed: Optional[int] = None):
+        loss_fn = rd_loss_fn or default_vision_rd_loss
+        return super().plot_samples(
+            imgs_list, recon_list, lambda out, img, lam: loss_fn(out, img, lam, self.gamma), n,
+            seed)
+
+    @torch.no_grad()
+    def plot_high_entropy_channel(self, imgs_list, latent_idx: int = 1,
+                                  seed: Optional[int] = None):
+        """Busiest-channel maps of one layer: the base (latent_idx=1) or the
+        enhancement (latent_idx=2), with its prediction-error panels."""
+        rng = random.Random(seed)
+        idx = rng.randint(0, len(imgs_list) - 1)
+        img = np.asarray(imgs_list[idx])[None]
+        out = {k: v[0].float().cpu().numpy() for k, v in self._forward(
+            batch_to_device(img, self.device)).items() if isinstance(v, torch.Tensor)}
+        sfx = str(latent_idx)
+        layer = "base" if latent_idx == 1 else "enh"
+
+        logp = out["logp_y" + sfx]
+        c = self._busiest_channel(logp)
+        y_c = out["y" + sfx][:, :, c]
+        bits = -logp[:, :, c] / _LN2
+        logp_z = out["logp_z"]
+        cz = min(c, logp_z.shape[-1] - 1)
+        hyper_panel = (f"hyper bits[{cz}]", -logp_z[:, :, cz] / _LN2)
+
+        if ("mu" + sfx) in out:
+            mu = out["mu" + sfx][:, :, c]
+            rows = [[("input", img[0]),
+                     (f"{layer} y[{c}]", y_c),
+                     (f"{layer} mu", mu),
+                     (f"{layer} y-mu", y_c - mu),
+                     (f"{layer} sigma", out["sigma" + sfx][:, :, c]),
+                     (f"{layer} bits[{c}]", bits),
+                     hyper_panel]]
+        elif ("weights" + sfx) in out:
+            w = out["weights" + sfx][:, :, :, c]   # (H, W, K)
+            mus = out["mus" + sfx][:, :, :, c]
+            sigmas = out["sigmas" + sfx][:, :, :, c]
+            mix_mu = (w * mus).sum(axis=-1)
+            mix_var = (w * (sigmas ** 2 + mus ** 2)).sum(axis=-1) - mix_mu ** 2
+            mix_sigma = np.sqrt(np.clip(mix_var, 1e-9, None))
+            rows = [[(f"{layer} w[{k}]", w[:, :, k]),
+                     (f"{layer} mu[{k}]", mus[:, :, k]),
+                     (f"{layer} y-mu[{k}]", y_c - mus[:, :, k]),
+                     (f"{layer} sigma[{k}]", sigmas[:, :, k]),
+                     (f"{layer} bits[{c}]", bits)]
+                    for k in range(w.shape[-1])]
+            rows.append([("input", img[0]),
+                         (f"{layer} mixture mu", mix_mu),
+                         (f"{layer} mixture sigma", mix_sigma),
+                         (f"{layer} y-mix mu", y_c - mix_mu),
+                         hyper_panel])
+        else:
+            return None
+
+        return render_panel_grid(
+            rows, os.path.join(self.save_dir, f"high_entropy_channel_layer{latent_idx}_{idx}.png"),
+            suptitle=f"{layer} layer, busiest channel c={c}")

@@ -1,14 +1,15 @@
 """Analysis / synthesis / hyper transforms, port of models/components.py:
-the 5x5 conv/GDN set and the 3x3 residual-block set (``Encoder3x3``,
+the 5x5 conv/GDN set, the 3x3 residual-block set (``Encoder3x3``,
 ``Decoder3x3``, ``HyperEncoder3x3``, ``HyperDecoder3x3``: the reference's
-HierarchicalMixtureResidual transforms).
+HierarchicalMixtureResidual transforms) and the scalable model's
+``LatentSpaceTransform``.
 
 Modules take and return (B, C, H, W) tensors in channels_last memory.
 Submodule names follow the JAX package's parameter tree (``Conv2d_0``,
 ``GDN_0``, ...), so carrying weights across is a walk over matching names.
 """
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -189,3 +190,41 @@ class HyperDecoder3x3(nn.Module):
         z = leaky_relu(self.Conv2d_1(z))
         z = leaky_relu(self.TransposedDeconv3x3_1(z))
         return self.Conv2d_2(z)
+
+
+class LatentSpaceTransform(nn.Module):
+    """Residual and upsampling tower from the base latents y1 (M1 channels)
+    toward a frozen vision backbone's feature space: three stages of a
+    ``ResidualBlock`` and a ``ResidualBlockUpsample`` (by
+    upsampling_factors[i]), a last ``ResidualBlock`` and a 3x3 conv. The
+    width m starts at M1 and grows by each stage's factor after its
+    upsampling block, so a stage's ``ResidualBlock`` bridges the previous
+    width to m through its 1x1 skip; the conv maps m to
+    m * upsampling_factors[3]. The default (2, 1, 1, 1) gives 2 * M1
+    channels at twice y1's grid (H/8), one IGDN at M1 and two at 2 * M1.
+    An upsampling factor of 1 keeps the transposed conv (stride 1)."""
+
+    def __init__(self, latent_channels: int = 192,
+                 upsampling_factors: Sequence[int] = (2, 1, 1, 1),
+                 dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        ups = tuple(upsampling_factors)
+        if len(ups) != 4:
+            raise ValueError(f"upsampling_factors needs 4 entries, got {ups}")
+        self.upsampling_factors = ups
+        c = m = latent_channels
+        for i, u in enumerate(ups[:3]):
+            setattr(self, f"ResidualBlock_{i}", ResidualBlock(c, m, **kw))
+            setattr(self, f"ResidualBlockUpsample_{i}", ResidualBlockUpsample(m, m, u, **kw))
+            c, m = m, m * u
+        self.ResidualBlock_3 = ResidualBlock(c, m, **kw)
+        self.Conv2d_0 = Conv2d(m, m * ups[3], 3, 1, 1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(3):
+            x = getattr(self, f"ResidualBlock_{i}")(x)
+            x = getattr(self, f"ResidualBlockUpsample_{i}")(x)
+        return self.Conv2d_0(self.ResidualBlock_3(x))

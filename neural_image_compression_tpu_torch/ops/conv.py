@@ -31,11 +31,12 @@ def uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch.
 
 
 def cast(dtype: Optional[torch.dtype], x: torch.Tensor, weight: torch.Tensor,
-         bias: torch.Tensor):
-    """x, weight and bias in the compute dtype (unchanged when it is None)."""
+         bias: Optional[torch.Tensor]):
+    """x, weight and bias (if any) in the compute dtype (unchanged when it is
+    None)."""
     if dtype is None:
         return x, weight, bias
-    return x.to(dtype), weight.to(dtype), bias.to(dtype)
+    return x.to(dtype), weight.to(dtype), None if bias is None else bias.to(dtype)
 
 
 def _param(t: torch.Tensor, device: torch.device) -> nn.Parameter:
@@ -45,19 +46,21 @@ def _param(t: torch.Tensor, device: torch.device) -> nn.Parameter:
 
 
 class Conv2d(nn.Module):
-    """Conv with torch-default init. dtype: compute dtype (params stay f32)."""
+    """Conv with torch-default init. dtype: compute dtype (params stay f32).
+    use_bias=False: no bias parameter (the backbones' convs before a
+    BatchNorm)."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
                  dtype: Optional[torch.dtype] = None, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, use_bias: bool = True):
         super().__init__()
         device = resolve_device(device)
         k = kernel_size
         self.stride, self.padding, self.dtype = stride, padding, dtype
         bound = 1.0 / math.sqrt(k * k * in_channels)
         self.weight = _param(uniform((features, in_channels, k, k), bound, generator), device)
-        self.bias = _param(uniform((features,), bound, generator), device)
+        self.bias = _param(uniform((features,), bound, generator), device) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, weight, bias = cast(self.dtype, x, self.weight, self.bias)

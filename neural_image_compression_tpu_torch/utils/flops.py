@@ -2,8 +2,8 @@
 the JAX package's utils/flops.py (``joint_ar_eval_flops``,
 ``hyperprior_eval_flops`` and ``channel_cb_eval_flops`` for either
 transform, ``factorized_prior_eval_flops`` for the 5x5 transforms,
-``train_step_flops``, ``mfu``), with the card's peaks in place of the
-TPU's. The checkerboard model's count is ``joint_ar_eval_flops``: its
+``scalable_eval_flops``, ``train_step_flops``, ``mfu``), with the card's
+peaks in place of the TPU's. The checkerboard model's count is ``joint_ar_eval_flops``: its
 context conv has the masked conv's shape.
 
 Multiply-accumulates count 2 for every conv, deconv and GDN product on the
@@ -162,6 +162,38 @@ def factorized_prior_eval_flops(M: int, H: int, W: int) -> Dict[str, int]:
     base = joint_ar_eval_flops(M, 1, H, W)
     out = {"encoder": base["encoder"], "decoder": base["decoder"],
            "elementwise": 100 * (H // 16) * (W // 16) * M}
+    out["total"] = sum(out.values())
+    return out
+
+
+def scalable_eval_flops(M: int, M1: int, K: int, H: int, W: int,
+                        lst_upsampling=(2, 1, 1, 1)) -> Dict[str, int]:
+    """Per-image eval-forward FLOPs of ScalableImageCoding: the 5x5
+    transforms, one context conv and one entropy net a layer (M1 and
+    M - M1 channels, each net over its context and psi's 2M), and the
+    LatentSpaceTransform on y1: each stage's residual block bridges the
+    previous stage's width c to m (its 1x1 skip when they differ), the
+    upsampling block runs at m, and m grows by the stage's factor after
+    it; the last conv maps m to m * lst_upsampling[3]."""
+    base = joint_ar_eval_flops(M, K, H, W, "conv5x5")
+    h16, w16 = H // 16, W // 16
+    M2 = M - M1
+    out = {k: base[k] for k in ("encoder", "decoder", "hyper_encoder", "hyper_decoder")}
+    out["context"] = _conv(h16, w16, 5, M1, 2 * M1) + _conv(h16, w16, 5, M2, 2 * M2)
+    out["entropy_parameters"] = 0
+    for m in (M1, M2):
+        ep_out = 2 * m if K == 1 else 3 * K * m
+        out["entropy_parameters"] += (_conv(h16, w16, 1, 2 * m + 2 * M, 640)
+                                      + _conv(h16, w16, 1, 640, 640)
+                                      + _conv(h16, w16, 1, 640, ep_out))
+    h, w, c, m = h16, w16, M1, M1
+    lst = 0
+    for u in lst_upsampling[:3]:
+        lst += _res_block(h, w, c, m) + _res_block_up(h, w, m, u)
+        h, w, c = h * u, w * u, m
+        m *= u
+    out["lst"] = lst + _res_block(h, w, c, m) + _conv(h, w, 3, m, m * lst_upsampling[3])
+    out["elementwise"] = 100 * (h16 * w16 * M * K + (H // 64) * (W // 64) * M)
     out["total"] = sum(out.values())
     return out
 

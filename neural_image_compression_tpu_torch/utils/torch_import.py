@@ -1,13 +1,17 @@
 """Import the reference's (PyTorch) checkpoints, port of utils/torch_import.py.
 
 Maps a state_dict of the reference's JointAutoregressiveHierarchical or
-HierarchicalMixtureResidual onto the flax-layout parameter tree that
-``utils.weights.load_jax_params`` takes (``joint_ar_params_from_torch``),
-so a reference checkpoint loads into the port's
-``JointAutoregressiveHierarchical(transform=...)`` without the JAX package:
+HierarchicalMixtureResidual (``joint_ar_params_from_torch``), or of its
+ScalableImageCoding (``scalable_params_from_torch``), onto the flax-layout
+parameter tree that ``utils.weights.load_jax_params`` takes, so a reference
+checkpoint loads into the port's model without the JAX package:
 
     params = load_reference_checkpoint("ckpt.pth", transform="res3x3")
     load_jax_params(HierarchicalMixtureResidual(M, K), params)
+
+A YOLOv5-family state_dict (ultralytics naming) maps onto the variables of
+``models.build_yolo_backbone`` (``yolo_backbone_variables_from_torch``),
+which ``utils.weights.load_jax_variables`` takes.
 
 Layouts, as the JAX package's importer converts them:
 
@@ -18,8 +22,8 @@ Layouts, as the JAX package's importer converts them:
   transposed to (C_in, C_out).
 * The factorized bottleneck's ``matrices.i`` / ``biases.i`` / ``factors.i``
   -> ``matrix_i`` / ``bias_i`` / ``factor_i``, shapes unchanged.
-
-The scalable model's and the YOLO backbone's mappings are not ported.
+* BatchNorm ``weight`` / ``bias`` -> ``scale`` / ``bias`` (params),
+  ``running_mean`` / ``running_var`` -> ``mean`` / ``var`` (batch_stats).
 """
 
 from typing import Callable, Dict, Mapping
@@ -191,16 +195,107 @@ def joint_ar_params_from_torch(sd: StateDict, transform: str = "conv5x5") -> Dic
     }
 
 
+def _lst(sd: StateDict, prefix: str) -> Dict[str, Array]:
+    """The reference's LatentSpaceTransform (attributes RB1..RB4,
+    URB1..URB3, conv) -> the flax creation-order names."""
+    out = {}
+    for i in range(3):
+        out[f"ResidualBlock_{i}"] = _residual_block(sd, f"{prefix}.RB{i + 1}")
+        out[f"ResidualBlockUpsample_{i}"] = _residual_block_upsample(sd, f"{prefix}.URB{i + 1}")
+    out["ResidualBlock_3"] = _residual_block(sd, prefix + ".RB4")
+    out["Conv2d_0"] = _conv(sd, prefix + ".conv")
+    return out
+
+
+def scalable_params_from_torch(sd: StateDict) -> Dict:
+    """A reference ScalableImageCoding state_dict (numpy values) -> the
+    flax-layout tree of ``models.ScalableImageCoding``."""
+    return {
+        "encoder": _encoder5x5(sd, "encoder"),
+        "decoder": _decoder5x5(sd, "decoder"),
+        "hyper_encoder": _hyper_encoder5x5(sd, "hyper_encoder"),
+        "hyper_decoder": _hyper_decoder5x5(sd, "hyper_decoder"),
+        "factorized_entropy_model": _factorized(sd, "factorized_entropy_model"),
+        "context_model_1": _context(sd, "context_model_1"),
+        "context_model_2": _context(sd, "context_model_2"),
+        "entropy_parameters_1": _entropy_parameters(sd, "entropy_parameters_1"),
+        "entropy_parameters_2": _entropy_parameters(sd, "entropy_parameters_2"),
+        "LST": _lst(sd, "LST"),
+    }
+
+
 def load_reference_checkpoint(path: str, transform: str = "conv5x5",
                               scalable: bool = False) -> Dict:
     """A reference Trainer checkpoint (a .pth of {'model_state_dict': ...,
     'optimizer_state_dict': ..., 'step': ...}, or a bare state_dict) -> the
-    flax-layout tree of the matching model (``joint_ar_params_from_torch``).
-    Loaded with ``weights_only=True``: tensors and plain containers only."""
-    if scalable:
-        raise NotImplementedError(
-            "the scalable model's checkpoint mapping is not ported yet (ROADMAP A4)")
+    flax-layout tree of the matching model (``scalable_params_from_torch``
+    with scalable=True, else ``joint_ar_params_from_torch``). Loaded with
+    ``weights_only=True``: tensors and plain containers only."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
     sd = blob.get("model_state_dict", blob) if isinstance(blob, dict) else blob
     sd = {k: v.numpy() for k, v in sd.items()}
+    if scalable:
+        return scalable_params_from_torch(sd)
     return joint_ar_params_from_torch(sd, transform)
+
+
+# --- the YOLO-family frozen backbone (models/backbones.py) ------------------------
+
+def _conv_bn_silu(sd: StateDict, prefix: str):
+    """YOLO's 'Conv' (conv without bias, BatchNorm, SiLU) -> a ConvBNSiLU's
+    (params, batch_stats)."""
+    params = {"Conv2d_0": {"kernel": _conv_kernel(sd[prefix + ".conv.weight"])},
+              "BatchNorm_0": {"scale": np.asarray(sd[prefix + ".bn.weight"]),
+                              "bias": np.asarray(sd[prefix + ".bn.bias"])}}
+    stats = {"BatchNorm_0": {"mean": np.asarray(sd[prefix + ".bn.running_mean"]),
+                             "var": np.asarray(sd[prefix + ".bn.running_var"])}}
+    return params, stats
+
+
+def _c3(sd: StateDict, prefix: str, depth: int):
+    """YOLO's C3: cv1 -> the bottlenecks, cv2 the bypass, cv3 the fuse."""
+    params, stats = {}, {}
+    for ours, theirs in (("ConvBNSiLU_0", "cv1"), ("ConvBNSiLU_1", "cv2"),
+                         ("ConvBNSiLU_2", "cv3")):
+        params[ours], stats[ours] = _conv_bn_silu(sd, f"{prefix}.{theirs}")
+    for j in range(depth):
+        bp, bs = {}, {}
+        for ours, theirs in (("ConvBNSiLU_0", "cv1"), ("ConvBNSiLU_1", "cv2")):
+            bp[ours], bs[ours] = _conv_bn_silu(sd, f"{prefix}.m.{j}.{theirs}")
+        params[f"Bottleneck_{j}"], stats[f"Bottleneck_{j}"] = bp, bs
+    return params, stats
+
+
+def _sppf(sd: StateDict, prefix: str):
+    params, stats = {}, {}
+    for ours, theirs in (("ConvBNSiLU_0", "cv1"), ("ConvBNSiLU_1", "cv2")):
+        params[ours], stats[ours] = _conv_bn_silu(sd, f"{prefix}.{theirs}")
+    return params, stats
+
+
+# the yolov5 yaml's layers 0-17 with parameters (11/15 upsample, 12/16 concat)
+_YOLO_LAYERS = {0: "conv", 1: "conv", 2: "c3", 3: "conv", 4: "c3", 5: "conv", 6: "c3",
+                7: "conv", 8: "c3", 9: "sppf", 10: "conv", 13: "c3", 14: "conv", 17: "c3"}
+
+
+def yolo_backbone_variables_from_torch(sd: StateDict, depth: int = 1,
+                                       prefix: str = "model.") -> Dict:
+    """A YOLOv5-family state_dict (numpy values; ultralytics naming:
+    ``model.{i}.conv/bn`` for Conv layers, ``model.{i}.cv1/cv2/cv3`` and
+    ``model.{i}.m.{j}.cv1/cv2`` for C3, ``model.{i}.cv1/cv2`` for SPPF) ->
+    the variables ({'params', 'batch_stats'}) of
+    ``models.build_yolo_backbone(width, depth)``. Layers past 17 (the
+    detection head) are ignored; C3 depths follow the yaml ladder times
+    ``depth``."""
+    from neural_image_compression_tpu_torch.models.backbones import _C3_DEPTH
+
+    params, stats = {}, {}
+    for i, kind in _YOLO_LAYERS.items():
+        name, p = f"layers_{i}_0", f"{prefix}{i}"
+        if kind == "conv":
+            params[name], stats[name] = _conv_bn_silu(sd, p)
+        elif kind == "c3":
+            params[name], stats[name] = _c3(sd, p, _C3_DEPTH[i] * depth)
+        else:
+            params[name], stats[name] = _sppf(sd, p)
+    return {"params": params, "batch_stats": stats}

@@ -19,9 +19,15 @@ with either transform:
   spatial flip of torch's) -> ``weight`` in ConvTranspose2d's (in, out, kh,
   kw) with the flip undone;
 * conv biases, GDN ``beta``/``gamma`` (gamma stays (C_in, C_out)), the
-  factorized ``matrix_i``/``bias_i``/``factor_i`` and the gained families'
-  top-level (N, M) ``gain_y``/``igain_y``/``gain_z``/``igain_z`` -> the
-  same name, as is.
+  factorized ``matrix_i``/``bias_i``/``factor_i``, the gained families'
+  top-level (N, M) ``gain_y``/``igain_y``/``gain_z``/``igain_z`` and the
+  backbones' BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
+  (batch_stats) -> the same name, as is.
+
+The scalable model's tree (``context_model_1``/``_2``,
+``entropy_parameters_1``/``_2``, ``LST``) walks the same way. A backbone's
+flax variables (``{"params", "batch_stats"}`` under ``layers_{i}_0``) go
+through ``load_jax_variables`` and come back from ``variables_to_jax``.
 
 Leaves are numpy arrays (or anything ``np.asarray`` takes). Each leaf maps
 to exactly one key; a key the model lacks, or one it has that the tree does
@@ -40,8 +46,12 @@ from torch import nn
 _GAIN_LEAVES = ("gain_y", "igain_y", "gain_z", "igain_z")
 # module names whose kernels are direct convolutions: flax's auto-named conv
 # modules, and the bare convs a model names itself (channel_cb.py's
-# spatial_ctx_{i})
-_CONV_MODULES = ("Conv2d_", "MaskedConv2d_", "spatial_ctx_")
+# spatial_ctx_{i}, a GraphBackbone's layers_{i}_0)
+_CONV_MODULES = ("Conv2d_", "MaskedConv2d_", "spatial_ctx_", "layers_")
+# leaves that carry across as they are (BatchNorm's mean and var are flax's
+# batch_stats collection; everything else is its params)
+_AS_IS = ("bias", "beta", "gamma", "scale", "mean", "var")
+_BATCH_STATS = ("mean", "var")
 
 
 def _convert(path: str, module: str, leaf: str, value: np.ndarray):
@@ -54,7 +64,7 @@ def _convert(path: str, module: str, leaf: str, value: np.ndarray):
         if module.startswith(_CONV_MODULES):
             return "weight", np.transpose(value, (3, 2, 0, 1))
         raise KeyError(f"{path}: kernel under an unknown module kind {module!r}")
-    if leaf in ("bias", "beta", "gamma") or leaf.startswith(("matrix_", "bias_", "factor_")):
+    if leaf in _AS_IS or leaf.startswith(("matrix_", "bias_", "factor_")):
         return leaf, value
     raise KeyError(f"{path}: unknown parameter name {leaf!r}")
 
@@ -95,7 +105,7 @@ def _to_jax(key: str, value: np.ndarray):
         if module.startswith(_CONV_MODULES):
             return "kernel", np.transpose(value, (2, 3, 1, 0))
         raise KeyError(f"{key}: weight under an unknown module kind {module!r}")
-    if leaf in ("bias", "beta", "gamma") or leaf.startswith(("matrix_", "bias_", "factor_")):
+    if leaf in _AS_IS or leaf.startswith(("matrix_", "bias_", "factor_")):
         return leaf, value
     raise KeyError(f"{key}: unknown parameter name {leaf!r}")
 
@@ -129,3 +139,39 @@ def load_jax_params(model: nn.Module, params: Mapping, strict: bool = True) -> n
                              f"shape {tuple(expected[key].shape)}")
     model.load_state_dict(state, strict=strict)
     return model
+
+
+def _merged(a: Mapping, b: Mapping) -> Dict:
+    out = dict(a)
+    for name, sub in b.items():
+        out[name] = _merged(out.get(name, {}), sub) if isinstance(sub, Mapping) else sub
+    return out
+
+
+def load_jax_variables(model: nn.Module, variables: Mapping, strict: bool = True) -> nn.Module:
+    """Copy a flax variables dict (collection name -> tree: a backbone's
+    ``params`` and ``batch_stats``) into ``model``: the collections merge
+    into one tree, which ``load_jax_params`` loads."""
+    merged: Dict = {}
+    for tree in variables.values():
+        merged = _merged(merged, tree)
+    return load_jax_params(model, merged, strict)
+
+
+def variables_to_jax(model: nn.Module) -> Dict:
+    """The model's weights as flax variables: {"params": ..., "batch_stats":
+    ...}, BatchNorm's mean and var in the second (``joint_ar_params_to_jax``
+    split by leaf name)."""
+    def split(tree: Mapping, stats: bool) -> Dict:
+        out = {}
+        for name, sub in tree.items():
+            if isinstance(sub, Mapping):
+                sub = split(sub, stats)
+                if sub:
+                    out[name] = sub
+            elif (name in _BATCH_STATS) == stats:
+                out[name] = sub
+        return out
+
+    tree = joint_ar_params_to_jax(model)
+    return {"params": split(tree, False), "batch_stats": split(tree, True)}

@@ -18,30 +18,24 @@ from neural_image_compression_tpu_torch.utils import restore_raw, save_checkpoin
 
 torch.set_num_threads(1)
 
-A4, A5, A6 = ("A4: scalable coding and vision", "A5: parallel and sweep",
-              "A6: serving export, config, CLI and data")
+A5, A6 = "A5: parallel and sweep", "A6: serving export, config, CLI and data"
 
 NOT_PORTED = {
     "": {"config": A6, "Config": A6, "build_model": A6},
-    "coding": {"ScalableCodec": A4},
+    "coding": {},
     "data": {"shard_for_process": A5, "add_quantization_noise": A6, "is_saturated": A6,
              "preprocess_images": A6, "random_downsample_crop": A6,
              "download_coco_subset": A6},
     "entropy": {},
-    "evaluation": {"VisionCompressionEvaluator": A4},
-    "models": {n: A4 for n in ("LatentSpaceTransform", "ScalableImageCoding", "FirstHalf",
-                               "SecondHalf", "GraphBackbone", "FrozenActivationBlock",
-                               "ConvBNSiLU", "C3", "SPPF", "Concat", "build_yolo_backbone",
-                               "frozen_activation_from_conv", "save_backbone", "load_backbone",
-                               "distillation_targets")},
+    "evaluation": {},
+    "models": {},
     "ops": {},
     "parallel": {n: A5 for n in ("batch_sharding", "init_distributed", "make_eval_step",
                                  "make_mesh", "replicate", "replicated", "shard_batch",
                                  "shard_params", "spatial_sharding", "tp_shardings")},
     "serving": {"export_model": A6, "save_exported": A6, "load_exported": A6},
-    "train": {"vision_rd_loss": A4, "vmapped_lambda_sweep": A5},
-    "utils": {"scalable_eval_flops": A4, "scalable_params_from_torch": A4,
-              "yolo_backbone_variables_from_torch": A4},
+    "train": {"vmapped_lambda_sweep": A5},
+    "utils": {},
 }
 
 

@@ -184,7 +184,7 @@ def test_load_rejects_missing_and_unexpected_keys(jax_pair):
     with pytest.raises(KeyError, match="unexpected"):
         load_jax_params(model, extra)
     with pytest.raises(KeyError, match="unknown parameter"):
-        joint_ar_state_from_jax({"encoder": {"Conv2d_0": {"scale": np.ones(3)}}})
+        joint_ar_state_from_jax({"encoder": {"Conv2d_0": {"embedding": np.ones(3)}}})
 
 
 @pytest.mark.parametrize("name,K", [("joint5x5_k1", 1), ("joint5x5_k3", 3)])

@@ -6,8 +6,12 @@ Profiles, with torch.profiler on one CUDA card, the flagship
 (JointAutoregressiveHierarchical, M=128, K=3), or with --family another
 family at the same widths (MeanScaleHyperprior, CheckerboardHierarchical,
 ChannelCheckerboardHierarchical with groups (16, 16, 32, 64), or
-FactorizedPrior, which has no K) or the residual family at its own
-(HierarchicalMixtureResidual, M=192, K=1: the 3x3 residual transforms), in
+FactorizedPrior, which has no K), the residual family at its own
+(HierarchicalMixtureResidual, M=192, K=1: the 3x3 residual transforms) or
+the scalable family at its own (ScalableImageCoding, M=192, M1=128, K=1:
+the LatentSpaceTransform on y1; its step and Trainer run vision_rd_loss at
+lambda 0.01 with the vision term, gamma 1, against a frozen width-64
+YOLOv5 teacher cut at layer 3), in
 float32 and bfloat16 transforms: by
 default the eval forward through make_serving_fn at 768x512,
 batch 48 and batch 1; with --train the training step through
@@ -28,11 +32,12 @@ port, never JAX; TF32 off as in chip_smoke.py, and cuDNN's autotuning off
 (its heuristic picks each convolution's algorithm) unless --autotune.
 
     python3 tools/profile_torch_serve.py [--train | --trainer | --refine]
-        [--family joint_ar|hyperprior|checkerboard|channel_cb|factorized|residual]
+        [--family joint_ar|hyperprior|checkerboard|channel_cb|factorized|residual|scalable]
         [--autotune]
 """
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -51,12 +56,15 @@ from neural_image_compression_tpu_torch.coding import make_refiner  # noqa: E402
 from neural_image_compression_tpu_torch.models import (  # noqa: E402
     ChannelCheckerboardHierarchical, CheckerboardHierarchical, FactorizedPrior,
     HierarchicalMixtureResidual, JointAutoregressiveHierarchical, MeanScaleHyperprior,
+    ScalableImageCoding, build_yolo_backbone, distillation_targets,
 )
 from neural_image_compression_tpu_torch.ops.kernels import gdn_kernel  # noqa: E402
 from neural_image_compression_tpu_torch.parallel import make_train_step  # noqa: E402
 from neural_image_compression_tpu_torch.serving import make_serving_fn  # noqa: E402
 from neural_image_compression_tpu_torch.data import BatchLoader  # noqa: E402
-from neural_image_compression_tpu_torch.train import MetricsLogger, Trainer, rd_loss  # noqa: E402
+from neural_image_compression_tpu_torch.train import (  # noqa: E402
+    MetricsLogger, Trainer, rd_loss, vision_rd_loss,
+)
 from neural_image_compression_tpu_torch.train import trainer as trainer_module  # noqa: E402
 
 ITERS = 3
@@ -75,7 +83,8 @@ FAMILIES = {"joint_ar": (JointAutoregressiveHierarchical, (128, 3)),
             "checkerboard": (CheckerboardHierarchical, (128, 3)),
             "channel_cb": (ChannelCheckerboardHierarchical, (128, 3)),
             "factorized": (factorized_prior, (128, 3)),
-            "residual": (HierarchicalMixtureResidual, (192, 1))}
+            "residual": (HierarchicalMixtureResidual, (192, 1)),
+            "scalable": (ScalableImageCoding, (192, 128, 1))}
 # the profiled family's model constructor and widths (--family)
 MODEL, WIDTHS = FAMILIES["joint_ar"]
 
@@ -83,6 +92,17 @@ MODEL, WIDTHS = FAMILIES["joint_ar"]
 def build(dtype):
     """The profiled family's model on the card, random weights from seed 0."""
     return MODEL(*WIDTHS, dtype=dtype, device="cuda")
+
+
+def objective():
+    """(loss, lambda) of the profiled family's step: rd_loss at 0.005, or
+    for the scalable family vision_rd_loss at 0.01 with the vision term
+    (gamma 1) against a frozen YOLOv5 teacher of width M1/2 cut at layer 3
+    (seed 42, float32)."""
+    if MODEL is not ScalableImageCoding:
+        return rd_loss, 0.005
+    act, V = distillation_targets(build_yolo_backbone(WIDTHS[1] // 2, device="cuda", seed=42), 3)
+    return functools.partial(vision_rd_loss, gamma=1.0, frozen_activation=act, V=V), 0.01
 
 
 def layer_of(kernel_name: str) -> str:
@@ -174,10 +194,11 @@ def profile_train(card):
     results = {}
     gdn_kernel._GDN.backward = staticmethod(tallied)
     try:
+        loss, lam = objective()
         for dtype in (torch.bfloat16, torch.float32):
             model = build(dtype)
             opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
-            step = make_train_step(model, opt, rd_loss, 0.005)
+            step = make_train_step(model, opt, loss, lam)
             tag = f"{str(dtype).replace('torch.', '')} train step, batch 16 of 256x256"
             results[tag] = profile_config(step, x, warmup=3)
             report(tag, results[tag], card, "step")
@@ -250,6 +271,7 @@ def profile_trainer(card):
     patches = list(np.random.default_rng(7).integers(0, 256, size=(64, 256, 256, 3),
                                                      dtype=np.uint8))
     results = {}
+    loss, lam = objective()
     with tempfile.TemporaryDirectory() as tmp:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).replace("torch.", "")
@@ -257,12 +279,12 @@ def profile_trainer(card):
             def bare():
                 model = build(dtype)
                 opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
-                return make_train_step(model, opt, rd_loss, 0.005)
+                return make_train_step(model, opt, loss, lam)
 
             def trainer(interval, loader=None, tensorboard=True):
                 log_dir = os.path.join(tmp, f"{name}_{interval}_{len(results)}")
                 t = Trainer(build(dtype),
-                            loader or [x], lambda_val=0.005, scalar_interval=interval,
+                            loader or [x], rd_loss=loss, lambda_val=lam, scalar_interval=interval,
                             log_interval=10 ** 9, img_interval=10 ** 9, log_dir=log_dir,
                             checkpoint_path=None)
                 if not tensorboard:
@@ -312,8 +334,7 @@ def profile_refine(card):
         size=(1, 512, 768, 3)).astype(np.float32)).cuda()
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
-        refine = make_refiner(build(dtype),
-                              0.005, steps=20, lr=1e-2)
+        refine = make_refiner(build(dtype), objective()[1], steps=20, lr=1e-2)
         tag = f"{str(dtype).replace('torch.', '')} refine, 20 steps, 1x768x512"
         results[tag] = profile_config(refine, x)
         report(tag, results[tag], card, "call")
@@ -331,7 +352,7 @@ def main() -> int:
                       help="profile latent refinement instead of the serving forward")
     parser.add_argument("--family", choices=sorted(FAMILIES), default="joint_ar",
                         help="the model family to profile (M=128, K=3 where it has a "
-                             "mixture; residual: M=192, K=1)")
+                             "mixture; residual: M=192, K=1; scalable: M=192, M1=128, K=1)")
     parser.add_argument("--autotune", action="store_true",
                         help="turn on cuDNN's autotuning (torch.backends.cudnn.benchmark)")
     args = parser.parse_args()
