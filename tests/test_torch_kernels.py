@@ -1,8 +1,9 @@
 """PyTorch port, kernel wrappers: input checks, plain versions (forward and
 backward, the backward held against autograd of the plain forward) and the
 autograd plumbing on the CPU and, on a CUDA card only, each hand-written
-kernel against its plain version. This file imports no JAX, so it also runs where only the port is
-installed:
+kernel against its plain version, and the scalable model's kernel launches,
+its LatentSpaceTransform against the CPU and its codec's round trip. This
+file imports no JAX, so it also runs where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from neural_image_compression_tpu_torch.ops.kernels import gdn_kernel, gmm_kernel
+from neural_image_compression_tpu_torch.ops.kernels import launch_counts
 
 torch.set_num_threads(1)
 
@@ -547,3 +549,94 @@ def test_gmm_backward_kernel_matches_plain_on_card(cuda_device, n, k, m):
         # both use CUDA's erff and expf; the K-sum and divisions may round apart
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * float(b.abs().max()), msg=name)
     assert torch.count_nonzero(got[0][0]) == 0
+
+
+# --- on the card only: the scalable model's paths through the kernels -------------
+
+def _scalable(device, K, seed=3):
+    """ScalableImageCoding(16, 10, K), a gain on the analysis bottleneck so
+    that y spreads over several integers."""
+    from neural_image_compression_tpu_torch.models import ScalableImageCoding
+
+    model = ScalableImageCoding(16, 10, K, device=device, seed=seed)
+    with torch.no_grad():
+        model.encoder.Conv2d_3.weight.mul_(12.0)
+        model.encoder.Conv2d_3.bias.mul_(12.0)
+    return model
+
+
+def _launched(fn):
+    before = launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3])
+def test_scalable_model_launches_on_card(cuda_device, K):
+    """The eval forward launches the GDN kernel 9 times (3 GDN, 3 IGDN and
+    the LatentSpaceTransform's 3 IGDN) and, at K > 1, the mixture kernel
+    once a layer; a step with the vision term runs every GDN backward with
+    its dgamma/dbeta stage, and each layer's mixture backward."""
+    from neural_image_compression_tpu_torch.models import build_yolo_backbone, distillation_targets
+    from neural_image_compression_tpu_torch.train import vision_rd_loss
+
+    model = _scalable(cuda_device, K)
+    act, V = distillation_targets(build_yolo_backbone(5, device=cuda_device), 3)
+    x = torch.rand((2, 64, 128, 3), generator=torch.Generator(device=cuda_device).manual_seed(0),
+                   device=cuda_device)
+    mix = 2 if K > 1 else 0
+    assert _launched(lambda: model(x, training=False)) == {
+        "gdn": 9, "gmm_logp": mix, "gdn_backward": 0, "gmm_logp_backward": 0,
+        "gdn_backward_params": 0}
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    assert _launched(lambda: vision_rd_loss(model(x, training=True, generator=gen), x, 0.01, 1.0,
+                                            act, V)["loss"].backward()) == {
+        "gdn": 9, "gmm_logp": mix, "gdn_backward": 9, "gmm_logp_backward": mix,
+        "gdn_backward_params": 9}
+
+
+@pytest.mark.cuda
+def test_latent_space_transform_matches_cpu_on_card(cuda_device, monkeypatch):
+    from neural_image_compression_tpu_torch.models import LatentSpaceTransform
+
+    # convolutions in full float32 on the card, as on the CPU (cuDNN's TF32
+    # is on by default)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cpu = LatentSpaceTransform(16, device="cpu", generator=torch.Generator().manual_seed(4))
+    card = LatentSpaceTransform(16, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    y1 = torch.round(3 * torch.randn((2, 16, 4, 8), generator=torch.Generator().manual_seed(5)))
+    y1 = y1.contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        want = cpu(y1)
+        got = card(y1.to(cuda_device)).cpu()
+    assert got.shape == want.shape == (2, 32, 8, 16)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_scalable_codec_round_trip_on_card(cuda_device):
+    """compress, the full decode and the base layer alone: the eval
+    forward's latents exactly, its F_tilde from the base stream, 3 GDN
+    launches a call."""
+    from neural_image_compression_tpu_torch.coding import ScalableCodec
+
+    model = _scalable(cuda_device, 1)
+    codec = ScalableCodec(model)
+    x = np.random.default_rng(0).uniform(size=(1, 64, 128, 3)).astype(np.float32)
+    with torch.no_grad():
+        out = model(torch.from_numpy(x).to(cuda_device), training=False)
+    data = codec.compress(x)
+    y_q, z_q = codec.decode_latents(data)
+    np.testing.assert_array_equal(y_q, out["y_in"][0].cpu().numpy())
+    np.testing.assert_array_equal(z_q, out["z_in"][0].cpu().numpy())
+    base = codec.truncate_base(data)
+    assert _launched(lambda: codec.decompress_base(base))["gdn"] == 3
+    y1, f_tilde = codec.decompress_base(base)
+    np.testing.assert_array_equal(y1, out["y1"][0].cpu().numpy())
+    np.testing.assert_allclose(f_tilde, out["F_tilde"].cpu().numpy(), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="enhancement stream missing"):
+        codec.decompress(base)
