@@ -12,8 +12,11 @@ Phases, in order; any failure exits non-zero:
      serve's shapes (batch 48 at 768x512, M = 128, K = 3) and at the train
      step's (batch 16 at 256x256), the backwards at the train step's (the
      GDN backward also beside its design's floor, the bytes its four
-     launches move); GDN forward and backward also at a ragged row count,
-     at 192 and 256 channels and at 10.
+     launches move, and its dgamma/dbeta partials launch alone: profiler
+     device time beside that launch's bytes floor and torch.mm's time for
+     the same product); GDN forward and backward also at a ragged row
+     count, at 192 and 256 channels and at 10, the backward also at 1 and
+     63 rows, a last chunk of 3 rows and 200 channels.
   3. cross-device parity: the M=128, K=3 eval forward, and one float32
      training step's loss and parameter gradients (batch 1 at 256x256, the
      noise drawn once on the CPU), on the card against the same weights on
@@ -195,6 +198,13 @@ PER_STEP = {"gdn": 6, "gdn_backward": 6, "gdn_backward_params": 6, "gmm_logp": 1
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_CONVERGE = 3, 20, 30
 # GDN correctness beyond the main path: (rows, channels)
 GDN_EXTRA_CASES = ((100_003, 128), (65_536, 192), (65_536, 256), (65_536, 10))
+# and for the backward also the dgamma/dbeta partials launch's edges: fewer
+# rows than one 32-row tile, a ragged second tile, a last chunk of 3 rows
+# (16,387: 64 chunks of 256, then 3), a width that leaves half of a dgamma
+# tile empty
+GDN_BWD_EXTRA_CASES = GDN_EXTRA_CASES + ((1, 128), (63, 128), (16_387, 128), (4_099, 200))
+PARTIALS_CALLS = 5  # backward calls profiled for the partials launch's device time
+PROFILE_ATTEMPTS = 3
 # bf16 GDN against its plain version: at most one bf16 step apart, and only
 # where the float32 norm sits on a rounding boundary of the output
 BF16_MAX_DIFFERING_SHARE = 0.01
@@ -479,6 +489,55 @@ def gdn_backward_design_bytes(rows, c, esz):
     return norm + mix + partials + reduce
 
 
+def partials_stage(x, gamma_t, beta_t, g, inverse, label):
+    """The backward's dgamma/dbeta partials launch at these rows: its device
+    time from torch.profiler over PARTIALS_CALLS backward calls (beside the
+    other three launches'), its bytes floor (x and t read once, the chunks'
+    partials written) and the same stage as one PyTorch call,
+    torch.mm((x.float() ** 2).T, t) with TF32 off, timed with CUDA events
+    and never called by the port."""
+    rows, c = x.shape
+    for _ in range(2):
+        gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, inverse)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    # a profile that missed launches (CUPTI has dropped some, or a whole
+    # session, after many sessions in one process) is taken again
+    for _ in range(PROFILE_ATTEMPTS):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PARTIALS_CALLS):
+                gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, inverse)
+            torch.cuda.synchronize()
+        launch_ms, counts = {}, {}
+        for evt in prof.key_averages():
+            if "gdn_bwd_" in evt.key and evt.self_device_time_total > 0:
+                launch = evt.key.split("gdn_bwd_", 1)[1].split("_kernel", 1)[0]
+                launch_ms[launch] = (launch_ms.get(launch, 0.0)
+                                     + evt.self_device_time_total / 1e3 / PARTIALS_CALLS)
+                counts[launch] = counts.get(launch, 0) + evt.count
+        if launch_ms and all(n == PARTIALS_CALLS for n in counts.values()):
+            break
+        launch_ms = {}
+    check(not launch_ms or set(launch_ms) == {"norm", "mix", "partials", "reduce"},
+          f"{label}: the profile's backward launches {launch_ms}")
+    chunks = gdn_kernel._chunking(rows)[1]
+    floor_bytes = rows * c * (x.element_size() + 4) + chunks * c * (c + 1) * 4
+    floor_ms = floor_bytes / HBM_BYTES_PER_S * 1e3
+    xf, gf = x.float(), g.float()
+    norm = torch.matmul(xf * xf, gamma_t) + beta_t
+    t = gf * xf / torch.sqrt(norm) if inverse else gf * xf * torch.rsqrt(norm) ** 3
+    library_ms = median_ms(lambda: torch.mm((x.float() ** 2).T, t))
+    ms = launch_ms.get("partials")
+    print(f"  {label} partials launch "
+          + (f"{ms:.4f} ms (profiler)  floor {floor_ms:.4f} ms ({100 * floor_ms / ms:.1f}% of it)"
+             if ms else f"not measured (launches missing in {PROFILE_ATTEMPTS} profiles)  "
+             f"floor {floor_ms:.4f} ms")
+          + f"  library_ms {library_ms:.4f} (torch.mm)  "
+          + "  ".join(f"{k} {v:.4f}" for k, v in sorted(launch_ms.items()) if k != "partials"),
+          flush=True)
+    return dict(ms=ms, floor_ms=floor_ms, library_ms=library_ms, launches_ms=launch_ms)
+
+
 def gdn_backward_site_records(path, sites, rng, gamma_t, beta_t, dev, inverses=(False, True),
                               param_grads=True, tag=""):
     """The GDN backward kernel at each site's rows against its plain
@@ -516,7 +575,12 @@ def gdn_backward_site_records(path, sites, rng, gamma_t, beta_t, dev, inverses=(
                                 / HBM_BYTES_PER_S * 1e3)
                     floor_note = (f"  design floor {floor_ms:.4f} ms "
                                   f"({100 * floor_ms / ms:.1f}% of it)")
+                    # the partials launch computes the same function either way
+                    stage = ({"partials": partials_stage(x, gamma_t, beta_t, g, inverse,
+                                                         f"{prefix} {site} {dname}")}
+                             if inverse == inverses[0] else {})
                 else:
+                    stage = {}
                     # x and g read, dx written, gamma and beta read; the two
                     # (N, C) x (C, C) products (the norm, t @ gamma^T), counted once
                     bound_ms, bound_by = bound(3 * rows * c * x.element_size() + (c * c + c) * 4,
@@ -526,7 +590,7 @@ def gdn_backward_site_records(path, sites, rng, gamma_t, beta_t, dev, inverses=(
                     name="gdn_backward", **KERNEL_INFO["gdn_backward"], path=path, site=site,
                     inverse=inverse, **({} if param_grads else {"param_grads": False}),
                     shape=[rows, c], dtype=dname, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by, peak=peak, library_ms=None))
+                    bound_ms=bound_ms, bound_by=bound_by, peak=peak, library_ms=None, **stage))
                 print(f"  {prefix} {site} rows={rows} {dname:8s} kernel {ms:.4f} ms  "
                       f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}, "
                       f"{100 * bound_ms / ms:.1f}% of it){floor_note}", flush=True)
@@ -538,7 +602,7 @@ def gdn_backward_cases(dev):
     rng = np.random.default_rng(3)
     gamma_t, beta_t = gdn_params(M, rng, dev)
     records = gdn_backward_site_records("train", TRAIN_GDN_SITES, rng, gamma_t, beta_t, dev)
-    for rows, c in GDN_EXTRA_CASES:
+    for rows, c in GDN_BWD_EXTRA_CASES:
         gamma_c, beta_c = gdn_params(c, rng, dev)
         x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
         g32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)

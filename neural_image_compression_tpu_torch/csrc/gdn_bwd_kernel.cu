@@ -1,5 +1,5 @@
-// GDN / IGDN backward for Hopper (sm_90a): two tensor-core launches for the
-// rows, then dgamma and dbeta in two CUDA-core launches.
+// GDN / IGDN backward for Hopper (sm_90a): four launches, all but the last
+// on the tensor cores.
 //
 // The forward (csrc/gdn_kernel.cu) is out = x * r with r = n^(-1/2) (GDN) or
 // out = x * s with s = n^(1/2) (IGDN), n = beta + (x*x) . gamma, gamma
@@ -25,24 +25,45 @@
 //      forward); its epilogue reads g at the accumulator's positions and
 //      writes t and d1 = g*r (g*s), float32. For float32 x, d1 goes into dx;
 //      for bfloat16 x into a float32 scratch (rounding d1 to bf16 before the
-//      second term would round dx twice).
+//      second term would round dx twice). Bound by its bytes.
 //   2. mix, gdn_bwd_mix_kernel: the same loop over t tiles (float32, 3xTF32
 //      for either type of x), u = t . gamma^T with Q planes (gamma[i][o] at
 //      row i); its epilogue reads x and d1 and writes dx = d1 -+ x*u in x's
-//      type.
-//   3. dgamma partials: per (64 x 64 tile of dgamma, chunk of rows), the sum
-//      of (x*x)^T . t over the chunk's rows, in row order; the blocks of the
-//      first column of tiles also sum t over the rows (dbeta partials).
+//      type. Bound by its bytes.
+//   3. partials, gdn_bwd_partials_kernel: per (chunk of rows, tile of
+//      dgamma), (x*x)^T . t over the chunk's rows as 3xTF32 products on the
+//      tensor cores (wgmma, float32 accumulate); the blocks of the first
+//      row of tiles also sum t over the rows (dbeta partials). A ring of
+//      32-row x and t tiles comes in through TMA; the threads write each t
+//      tile, split into TF32 hi and lo, once into K-major planes (B), while
+//      the previous tile's products run; each warpgroup squares and splits
+//      its 64 inputs of x in registers (A). At C = 128 its bytes bound it
+//      (the split products take about 60% of their time at the TF32 peak);
+//      at C = 192 and 256 the operations come close to the bytes.
 //   4. reduce: dgamma and dbeta as +-1/2 times the chunks' partials summed
-//      in chunk order.
-// Bytes per element of (N, C): float32 x 32 (launches 1-2) + 8 (launch 3),
-// bfloat16 24 + 6, against 12 and 6 for the function itself. No atomics, so
-// two runs give the same bits.
+//      in chunk order, on the CUDA cores. Bound by the partials' bytes.
+// Bytes per element of (N, C): float32 x 32 (launches 1-2) + 8 (launch 3,
+// x and t read once; at C = 192 x three times and at C = 256 both twice,
+// mostly from L2), bfloat16 24 + 6, against 12 and 6 for the function
+// itself; launches 3 and 4 add chunks * C * (C + 1) * 4 twice. No atomics,
+// and every sum runs in a fixed order for a given shape (the chunks are a
+// function of N), so two runs give the same bits.
 //
-// Why two tensor-core launches: the products need gamma in two layouts, P
-// (row o holds gamma[:, o]) for n and Q (row i holds gamma[i, :]) for u, and
-// TF32 wgmma reads shared-memory B only K-major. Both layouts, each as hi and
-// lo planes, take 4 * 64 KB at C = 128, above the 227 KB a block may use.
+// Why two tensor-core launches for the rows: the products need gamma in two
+// layouts, P (row o holds gamma[:, o]) for n and Q (row i holds gamma[i, :])
+// for u, and TF32 wgmma reads shared-memory B only K-major. Both layouts,
+// each as hi and lo planes, take 4 * 64 KB at C = 128, above the 227 KB a
+// block may use.
+//
+// Why launch 3 writes t into planes: its product runs over rows, so K is
+// the slow index of both x and t as they sit in device memory and in the
+// TMA tiles, and TF32 wgmma reads shared-memory operands only K-major. A
+// from registers takes any layout, so each warpgroup loads x^2's fragments
+// straight from the row tile; B, t, must be K-major in shared memory, so
+// the block transposes it, three buffers taking turns. The k slots t and
+// t + 4 of each 8-row step are its rows 2t and 2t + 1 (in both operands,
+// so the sum is unchanged), which spreads a warp's fragment loads over all
+// 32 banks through the 128-byte swizzle.
 //
 // Launches 1 and 2 read g, x and d1 and write t, d1 and dx straight from and
 // to registers at the accumulator's positions (a thread's two neighbouring
@@ -57,12 +78,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;  // the partials and reduce launches
-constexpr int TILE = 64;      // dgamma tile edge in the partials pass
-constexpr int RSTEP = 32;     // rows staged per step of the partials pass
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int THREADS = 256;  // the reduce launch
 
 // Two neighbouring channels of a row in device memory or a shared tile, as
 // float32, and back.
@@ -222,75 +238,234 @@ gdn_bwd_mix_kernel(const __grid_constant__ CUtensorMap t_map, const T* __restric
                                    MixEpilogue<T, CP, INVERSE>{x, d1, dx, n_rows, c});
 }
 
-// Launch 3. Block (blockIdx.x, blockIdx.y) owns dgamma[i0 : i0+64][o0 : o0+64],
-// blockIdx.z a chunk of chunk_rows rows. A thread sums 4 x 4 elements
-// (i = i0 + 4 ty + a, o = o0 + tx + 16 b) over the chunk's rows in order.
-// part: [chunks][c][c] dgamma partials, then [chunks][c] dbeta partials.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gdn_bwd_partials_kernel(const T* __restrict__ x, const float* __restrict__ t,
-                        float* __restrict__ part, int64_t n_rows, int c, int chunk_rows,
-                        int chunks) {
-  __shared__ float ss[RSTEP][TILE + 1];  // x^2 of the staged rows, inputs i0 ..
-  __shared__ float tt[RSTEP][TILE + 1];  // t of the staged rows, outputs o0 ..
-  const int i0 = blockIdx.x * TILE, o0 = blockIdx.y * TILE;
-  const int64_t r_begin = static_cast<int64_t>(blockIdx.z) * chunk_rows;
-  const int64_t r_end = r_begin + chunk_rows < n_rows ? r_begin + chunk_rows : n_rows;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+// Launch 3's blocks: a block owns a BM x BN tile of dgamma (inputs i0 ..,
+// outputs o0 ..) for one chunk of rows, one warpgroup for each 64 inputs
+// and wgmma's N = BN outputs; BM and BN cover the padded width CP in
+// SLICES_I x SLICES_O tiles (C = 192: all 192 inputs, a third of the
+// outputs each). A stage of the ring holds one 32-row tile of x (the
+// block's inputs, in x's type) and of t (its outputs, float32) as 128-byte
+// swizzled TMA boxes; t's tile, split, also goes to K-major planes (three
+// buffers of hi and lo, BN rows of 32 k slots each), wgmma's B.
+constexpr int PROWS = 32;  // rows per tile of launch 3: one 128-byte row of K-major B
 
-  float acc[4][4], bsum[4];
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    bsum[b] = 0.0f;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) acc[a][b] = 0.0f;
-  }
-  for (int64_t rs = r_begin; rs < r_end; rs += RSTEP) {
-    __syncthreads();
-    for (int e = tid; e < RSTEP * TILE; e += THREADS) {
-      const int rr = e / TILE, k = e % TILE;
-      const int64_t row = rs + rr;
-      const bool in = row < r_end;
-      const float xv = (in && i0 + k < c) ? to_f32(x[row * c + i0 + k]) : 0.0f;
-      ss[rr][k] = xv * xv;
-      tt[rr][k] = (in && o0 + k < c) ? t[row * c + o0 + k] : 0.0f;
+template <typename T, int CP>
+struct PartCfg {
+  static constexpr int ESZ = sizeof(T);
+  static constexpr int BM = CP == 192 ? 192 : (CP < 128 ? CP : 128);
+  static constexpr int BN = CP == 192 ? 64 : (CP < 128 ? CP : 128);
+  static constexpr int XCOLS = BOX_BYTES / ESZ;  // x channels per box: 32 or 64
+  static constexpr int XBOXES = (BM + XCOLS - 1) / XCOLS;
+  static constexpr int TBOXES = BN / 32;         // t: float32, 32 channels a box
+  static constexpr int THREADS = 128 * (BM / 64);
+  static constexpr int SLICES_I = CP / BM, SLICES_O = CP / BN;
+  static constexpr int BOX = PROWS * BOX_BYTES;  // one box of a tile
+  static constexpr int X_BYTES = XBOXES * BOX;
+  static constexpr int STAGE_BYTES = X_BYTES + TBOXES * BOX;
+  static constexpr int PLANE_BYTES = BN * BOX_BYTES;
+  static constexpr int PLANES = 6 * PLANE_BYTES;
+  static constexpr int FIT = (SMEM_LIMIT - SMEM_RESERVE - PLANES) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int SMEM = 1024 + PLANES + STAGES * STAGE_BYTES + STAGES * 8;
+  static_assert(BM % 64 == 0 && BN % 32 == 0 && CP % BM == 0 && CP % BN == 0, "tiles");
+  static_assert(THREADS % BN == 0 && THREADS * 4 <= PLANES, "staging threads, dbeta sums");
+  static_assert(STAGES >= 2 && SMEM <= SMEM_LIMIT, "shared memory");
+};
+
+// x*x of one element of a tile in shared memory, in float32 (exact for
+// bfloat16 x).
+__device__ __forceinline__ float square_at(float, const uint8_t* p) {
+  const float v = *reinterpret_cast<const float*>(p);
+  return v * v;
+}
+__device__ __forceinline__ float square_at(__nv_bfloat16, const uint8_t* p) {
+  const float v = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+  return v * v;
+}
+
+// v -> TF32 hi and lo: hi is v rounded to TF32 (to nearest, ties away
+// from zero, as cvt.rna, in two integer operations), lo = v - hi exactly,
+// whose low 13 bits the tensor cores ignore (lo truncated to TF32).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// Launch 3. x through x_map (n_rows x c, x's type), t through t_map
+// (float32), both in boxes of PROWS rows. Block (blockIdx.x: the dgamma
+// tile, blockIdx.y: chunk z of chunk_rows rows, a multiple of PROWS) writes
+// part[z][i][o] = sum over the chunk's rows of x[r][i]^2 * t[r][o] for its
+// tile, each warpgroup's 64 x BN summed by m64nBNk8 over the chunk's 8-row
+// steps in order; where i0 == 0 it also writes the dbeta partials
+// part[chunks * c * c + z * c + o] = sum over the chunk's rows of t[r][o].
+// Rows past n_rows come in as TMA's zeros and add nothing. The k slots t4
+// and t4 + 4 of each step are its rows 2 t4 and 2 t4 + 1, in A's fragments
+// and B's planes alike.
+template <typename T, int CP>
+__global__ void __launch_bounds__(PartCfg<T, CP>::THREADS, 1)
+gdn_bwd_partials_kernel(const __grid_constant__ CUtensorMap x_map,
+                        const __grid_constant__ CUtensorMap t_map, float* __restrict__ part,
+                        int n_rows, int c, int chunk_rows, int chunks) {
+  using K = PartCfg<T, CP>;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle is keyed to address bits 7-9: align the tiles to 1024 bytes
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* planes = smem;  // [buffer: tile % 3][hi, lo][BN rows][32 k slots]
+  uint8_t* stages = smem + K::PLANES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + K::STAGES * K::STAGE_BYTES);
+
+  const int i0 = static_cast<int>(blockIdx.x / K::SLICES_O) * K::BM;
+  const int o0 = static_cast<int>(blockIdx.x % K::SLICES_O) * K::BN;
+  const int z = blockIdx.y;
+  const int r_begin = z * chunk_rows;
+  const int r_end = r_begin + chunk_rows < n_rows ? r_begin + chunk_rows : n_rows;
+  const int tiles = (r_end - r_begin + PROWS - 1) / PROWS;
+  // the chunk's tile i goes to ring stage i % STAGES
+  auto load_tile = [&](int i) {
+    const int s = i % K::STAGES;
+    const uint32_t bar = smem_u32(&full[s]);
+    mbar_expect_tx(bar, K::STAGE_BYTES);
+    const uint32_t dst = smem_u32(stages + s * K::STAGE_BYTES);
+    const int row = r_begin + i * PROWS;
+    for (int j = 0; j < K::XBOXES; ++j) {
+      tma_load(dst + j * K::BOX, &x_map, bar, i0 + j * K::XCOLS, row);
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < RSTEP; ++rr) {
-      float sv[4], tv[4];
+    for (int j = 0; j < K::TBOXES; ++j) {
+      tma_load(dst + K::X_BYTES + j * K::BOX, &t_map, bar, o0 + 32 * j, row);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < K::STAGES; ++s) mbar_init(smem_u32(&full[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < K::STAGES && i < tiles; ++i) load_tile(i);
+  }
+
+  // staging: this thread's output column sn and groups of 4 k slots q
+  constexpr int QSTEP = K::THREADS / K::BN;
+  constexpr int QITEMS = (8 + QSTEP - 1) / QSTEP;
+  const int sn = threadIdx.x % K::BN, sq0 = threadIdx.x / K::BN;
+  float tsum = 0.0f;  // t summed over this thread's rows of column sn
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int ra = ((threadIdx.x / 32) % 4) * 16 + lane / 4;  // A rows ra and ra + 8
+  const int t4 = lane % 4;
+
+  // Tile i's operands from its stage: x^2 of the warpgroup's 64 inputs,
+  // split, into registers hi, lo (A: (input ra, slot t4), (ra + 8, t4),
+  // (ra, t4 + 4), (ra + 8, t4 + 4) of each k-step), and t, split, into
+  // planes buffer i % 3 (B: slots 4q .. 4q + 3 are rows 8 (q / 2) + 2j +
+  // (q & 1), j = 0 .. 3).
+  auto operands = [&](int i, uint32_t* hi, uint32_t* lo) {
+    const uint8_t* xs = stages + (i % K::STAGES) * K::STAGE_BYTES;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) sv[a] = ss[rr][4 * ty + a];
+    for (int ks = 0; ks < 4; ++ks) {
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        tv[b] = tt[rr][tx + 16 * b];
-        bsum[b] += tv[b];
+      for (int q = 0; q < 4; ++q) {
+        const int m = 64 * wg + ra + 8 * (q & 1);
+        const uint8_t* box = xs + (m / K::XCOLS) * K::BOX;
+        split_tf32(square_at(T(), box + swz(8 * ks + 2 * t4 + (q >> 1), (m % K::XCOLS) * K::ESZ)),
+                   hi[4 * ks + q], lo[4 * ks + q]);
       }
+    }
+    const uint8_t* tbox = xs + K::X_BYTES + (sn / 32) * K::BOX;
+    uint8_t* plane = planes + (i % 3) * 2 * K::PLANE_BYTES;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
+    for (int k = 0; k < QITEMS; ++k) {
+      const int q = sq0 + k * QSTEP;
+      if (q < 8) {
+        uint32_t h[4], l[4];
 #pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(sv[a], tv[b], acc[a][b]);
+        for (int j = 0; j < 4; ++j) {
+          const float v = *reinterpret_cast<const float*>(
+              tbox + swz(8 * (q >> 1) + 2 * j + (q & 1), 4 * (sn % 32)));
+          tsum += v;
+          split_tf32(v, h[j], l[j]);
+        }
+        const uint32_t off = swz(sn, 16 * q);
+        *reinterpret_cast<uint4*>(plane + off) = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(plane + K::PLANE_BYTES + off) =
+            make_uint4(l[0], l[1], l[2], l[3]);
+      }
+    }
+    fence_async_smem();  // the planes are read by wgmma
+  };
+
+  float acc[K::BN / 2];
+#pragma unroll
+  for (int v = 0; v < K::BN / 2; ++v) {
+    acc[v] = 0.0f;
+    fence_operand(acc[v]);
+  }
+  uint32_t a_hi[2][16], a_lo[2][16];
+
+  // Tile i: its products (A in hi, lo; B in planes buffer i % 3) run while
+  // this thread builds tile i + 1's operands into hi_next, lo_next (free
+  // once tile i - 1's products are done) and planes buffer (i + 1) % 3
+  // (free since the last barrier: tile i - 2's products were done in every
+  // warpgroup before it). One barrier a tile: tile i + 1's planes are
+  // written, tile i - 1's products done everywhere, tile i + 1's stage read.
+  auto step = [&](int i, uint32_t* hi, uint32_t* lo, uint32_t* hi_next, uint32_t* lo_next) {
+    wgmma_fence();
+    const uint32_t b = smem_u32(planes + (i % 3) * 2 * K::PLANE_BYTES);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t b_hi = desc_b128(b + ks * 32), b_lo = desc_b128(b + K::PLANE_BYTES + ks * 32);
+      Mma<K::BN>::tf32(acc, lo + 4 * ks, b_hi);
+      Mma<K::BN>::tf32(acc, hi + 4 * ks, b_lo);
+      Mma<K::BN>::tf32(acc, hi + 4 * ks, b_hi);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // tile i - 1's products
+    if (i + 1 < tiles) {
+      mbar_wait(smem_u32(&full[(i + 1) % K::STAGES]), ((i + 1) / K::STAGES) & 1);
+      operands(i + 1, hi_next, lo_next);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0 && i + 1 + K::STAGES < tiles) load_tile(i + 1 + K::STAGES);
+  };
+
+  mbar_wait(smem_u32(&full[0]), 0);  // a chunk has at least one row
+  operands(0, a_hi[0], a_lo[0]);
+  __syncthreads();
+  if (threadIdx.x == 0 && K::STAGES < tiles) load_tile(K::STAGES);
+  // registers by the tile's parity, so that each buffer's index is known
+  // when compiling
+  for (int i = 0; i < tiles; i += 2) {
+    step(i, a_hi[0], a_lo[0], a_hi[1], a_lo[1]);
+    if (i + 1 < tiles) step(i + 1, a_hi[1], a_lo[1], a_hi[0], a_lo[0]);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int v = 0; v < K::BN / 2; ++v) fence_operand(acc[v]);
+
+  // accumulator element 4j + 2h + e: input 64 wg + ra + 8h, output 8j + 2 t4
+  // + e; c is even (the wrapper's widths are multiples of 4), so o < c
+  // covers o + 1
+  float* pg = part + static_cast<int64_t>(z) * c * c;
+#pragma unroll
+  for (int j = 0; j < K::BN / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ii = i0 + 64 * wg + ra + 8 * h;
+      const int o = o0 + 8 * j + 2 * t4;
+      if (ii < c && o < c) {
+        *reinterpret_cast<float2*>(pg + static_cast<int64_t>(ii) * c + o) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
     }
   }
-  const int64_t cc = static_cast<int64_t>(c) * c;
-  float* pg = part + blockIdx.z * cc;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + 4 * ty + a;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int o = o0 + tx + 16 * b;
-      if (i < c && o < c) pg[static_cast<int64_t>(i) * c + o] = acc[a][b];
-    }
-  }
-  if (blockIdx.x == 0 && ty == 0) {
-    float* pb = part + chunks * cc + static_cast<int64_t>(blockIdx.z) * c;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int o = o0 + tx + 16 * b;
-      if (o < c) pb[o] = bsum[b];
-    }
+  // dbeta: the column's QSTEP threads' sums, in order (the planes are free)
+  __syncthreads();
+  float* sums = reinterpret_cast<float*>(planes);
+  sums[threadIdx.x] = tsum;
+  __syncthreads();
+  if (i0 == 0 && threadIdx.x < K::BN && o0 + static_cast<int>(threadIdx.x) < c) {
+    float v = 0.0f;
+    for (int k = 0; k < QSTEP; ++k) v += sums[k * K::BN + threadIdx.x];
+    part[static_cast<int64_t>(chunks) * c * c + static_cast<int64_t>(z) * c + o0 + threadIdx.x] =
+        v;
   }
 }
 
@@ -314,10 +489,11 @@ gdn_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ dgamma
   }
 }
 
-// The two tensor-core launches' arguments.
+// The launches' arguments: x and t in 64-row boxes (the rows launches) and
+// in PROWS-row boxes (the partials launch).
 template <typename T>
 struct RowsArgs {
-  CUtensorMap x_map, t_map;
+  CUtensorMap x_map, t_map, xp_map, tp_map;
   const T* x;
   const T* g;
   const float* gamma;
@@ -341,30 +517,53 @@ cudaError_t launch_rows(const RowsArgs<T>& a, cudaStream_t stream) {
 }
 
 template <typename T, int CP>
-cudaError_t launch_rows_dir(int inverse, const RowsArgs<T>& a, cudaStream_t s) {
-  return inverse ? launch_rows<T, CP, true>(a, s) : launch_rows<T, CP, false>(a, s);
+cudaError_t launch_partials(const RowsArgs<T>& a, float* part, int chunk_rows, int chunks,
+                            cudaStream_t stream) {
+  using K = PartCfg<T, CP>;
+  static bool opted_in[MAX_DEVICES] = {};  // the shared-memory opt-in, once per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    if ((err = cudaFuncSetAttribute(gdn_bwd_partials_kernel<T, CP>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM)) !=
+        cudaSuccess) {
+      return err;
+    }
+    opted_in[dev] = true;
+  }
+  gdn_bwd_partials_kernel<T, CP>
+      <<<dim3(K::SLICES_I * K::SLICES_O, static_cast<unsigned>(chunks)), K::THREADS, K::SMEM,
+         stream>>>(a.xp_map, a.tp_map, part, a.n, a.c, chunk_rows, chunks);
+  return cudaGetLastError();
+}
+
+// Launches 1-2 and, with dgamma, 3-4 at padded width CP.
+template <typename T, int CP>
+cudaError_t launch_width(const RowsArgs<T>& a, float* dgamma, float* dbeta, float* part,
+                         int chunk_rows, int chunks, int inverse, cudaStream_t stream) {
+  cudaError_t err =
+      inverse ? launch_rows<T, CP, true>(a, stream) : launch_rows<T, CP, false>(a, stream);
+  if (err != cudaSuccess || dgamma == nullptr) return err;
+  if ((err = launch_partials<T, CP>(a, part, chunk_rows, chunks, stream)) != cudaSuccess) {
+    return err;
+  }
+  const int64_t outs = static_cast<int64_t>(a.c) * a.c + a.c;
+  gdn_bwd_reduce_kernel<<<static_cast<unsigned>((outs + THREADS - 1) / THREADS), THREADS, 0,
+                          stream>>>(part, dgamma, dbeta, a.c, chunks, inverse ? 0.5f : -0.5f);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_all(const RowsArgs<T>& a, float* dgamma, float* dbeta, float* part,
-                       int chunk_rows, int chunks, int inverse, cudaStream_t stream) {
-  cudaError_t err;
+                       int chunk_rows, int chunks, int inverse, cudaStream_t s) {
   switch ((a.c + 63) / 64) {
-    case 1: err = launch_rows_dir<T, 64>(inverse, a, stream); break;
-    case 2: err = launch_rows_dir<T, 128>(inverse, a, stream); break;
-    case 3: err = launch_rows_dir<T, 192>(inverse, a, stream); break;
-    default: err = launch_rows_dir<T, 256>(inverse, a, stream); break;
+    case 1: return launch_width<T, 64>(a, dgamma, dbeta, part, chunk_rows, chunks, inverse, s);
+    case 2: return launch_width<T, 128>(a, dgamma, dbeta, part, chunk_rows, chunks, inverse, s);
+    case 3: return launch_width<T, 192>(a, dgamma, dbeta, part, chunk_rows, chunks, inverse, s);
+    default: return launch_width<T, 256>(a, dgamma, dbeta, part, chunk_rows, chunks, inverse, s);
   }
-  if (err != cudaSuccess || dgamma == nullptr) return err;
-  const int c = a.c;
-  const unsigned tiles = static_cast<unsigned>((c + TILE - 1) / TILE);
-  gdn_bwd_partials_kernel<T><<<dim3(tiles, tiles, static_cast<unsigned>(chunks)), THREADS, 0,
-                               stream>>>(a.x, a.t, part, a.n, c, chunk_rows, chunks);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int64_t outs = static_cast<int64_t>(c) * c + c;
-  gdn_bwd_reduce_kernel<<<static_cast<unsigned>((outs + THREADS - 1) / THREADS), THREADS, 0,
-                          stream>>>(part, dgamma, dbeta, c, chunks, inverse ? 0.5f : -0.5f);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -384,7 +583,9 @@ int run(const void* x, const void* g, const void* gamma, const void* beta, void*
   a.n = static_cast<int>(n);
   a.c = c;
   if (!make_map(&a.x_map, const_cast<void*>(x), n, c, is_bf16) ||
-      !make_map(&a.t_map, a.t, n, c, false)) {
+      !make_map(&a.t_map, a.t, n, c, false) ||
+      (dgamma != nullptr && (!make_map(&a.xp_map, const_cast<void*>(x), n, c, is_bf16, PROWS) ||
+                             !make_map(&a.tp_map, a.t, n, c, false, PROWS)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(launch_all<T>(a, static_cast<float*>(dgamma),
@@ -405,9 +606,9 @@ int run(const void* x, const void* g, const void* gamma, const void* beta, void*
 // Launches four kernels (two without dgamma) on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue without
 // launching when n < 1, n >= 2^31 - 64, c < 1, c > 256, the row stride or an
-// alignment does not suit TMA, chunk_rows < 1, chunks is not
-// ceil(n / chunk_rows) or exceeds 65,535, or the CUDA library gives no
-// tensor-map encoder.
+// alignment does not suit TMA, chunk_rows is not a positive multiple of
+// 32 (launch 3's row tiles), chunks is not ceil(n / chunk_rows) or exceeds
+// 65,535, or the CUDA library gives no tensor-map encoder.
 extern "C" int gdn_backward(const void* x, const void* g, const void* gamma, const void* beta,
                             void* dx, void* dgamma, void* dbeta, void* scratch, long long n,
                             int c, int chunk_rows, int chunks, int inverse, int is_bf16,
@@ -416,7 +617,8 @@ extern "C" int gdn_backward(const void* x, const void* g, const void* gamma, con
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   if (n < 1 || n >= 0x7fffffffLL - ROWS || c < 1 || c > 256 || (c * esz) % 16 != 0 ||
       misaligned(x) || misaligned(g) || misaligned(dx) || misaligned(scratch) ||
-      chunk_rows < 1 || chunks > 65535 || (dgamma == nullptr) != (dbeta == nullptr) ||
+      chunk_rows < 1 || chunk_rows % PROWS != 0 || chunks > 65535 ||
+      (dgamma == nullptr) != (dbeta == nullptr) ||
       static_cast<long long>(chunks) != (n + chunk_rows - 1) / chunk_rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,5 +1,6 @@
 // The tensor-core loop shared by the GDN kernels (csrc/gdn_kernel.cu, the
-// forward; csrc/gdn_bwd_kernel.cu, the backward's norm and mix launches):
+// forward; csrc/gdn_bwd_kernel.cu, the backward's norm and mix launches,
+// whose partials launch also takes the PTX wrappers below):
 // an (N, C) x (C, C) channel mix of 64-row tiles with gamma resident in
 // shared memory, on Hopper's wgmma with TMA-fed tiles (sm_90a).
 //
@@ -557,14 +558,16 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// (n, c) rows, boxes of 64 rows x 128 bytes, 128-byte swizzle, zero fill.
-bool make_map(CUtensorMap* map, void* ptr, long long n, int c, bool is_bf16) {
+// (n, c) rows, boxes of box_rows rows x 128 bytes, 128-byte swizzle, zero fill.
+bool make_map(CUtensorMap* map, void* ptr, long long n, int c, bool is_bf16,
+              int box_rows = ROWS) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
   const int esz = is_bf16 ? 2 : 4;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(n)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(c) * esz};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(BOX_BYTES / esz), ROWS};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(BOX_BYTES / esz),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
   return encode(map, is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                 2, ptr, dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,

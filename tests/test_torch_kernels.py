@@ -8,6 +8,8 @@ file imports no JAX, so it also runs where only the port is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -224,6 +226,97 @@ def test_three_bf16_products_keep_norm_within_3e_5(c):
     g_lo = _bf16(gamma - g_hi)
     err = _rel_err_of_norm(s_hi, s_lo, g_hi, g_lo, x, gamma, beta)
     assert err <= 3e-5, err
+
+
+def _split_rna_trunc(a):
+    """a -> TF32 hi and lo as the partials launch splits it: hi rounded to
+    nearest (ties away), lo = a - hi exact in float32 and truncated to TF32
+    by the tensor cores, which ignore its low 13 bits."""
+    hi = _tf32_rna(a)
+    lo = np.ascontiguousarray(a - hi, dtype=np.float32).view(np.uint32) & np.uint32(0xFFFFE000)
+    return hi, lo.view(np.float32)
+
+
+def _by_chunk(a, n):
+    """(n, c) rows -> (chunks, rows, c) in the backward's chunks, zero padded."""
+    rows, chunks = gdn_kernel._chunking(n)
+    out = np.zeros((chunks * rows, a.shape[1]), a.dtype)
+    out[:n] = a
+    return out.reshape(chunks, rows, -1)
+
+
+@functools.lru_cache(maxsize=1)
+def _partials_rows(c, dtype):
+    """65,536 rows of x and g, gamma and beta; the norm as the norm launch
+    computes it (3xTF32 for float32 x, 3xbf16 for bfloat16 x) and in
+    float64; x*x split into TF32 hi and lo as the partials launch takes it,
+    chunk by chunk: (chunks, c, 3 * rows) of [lo, hi, hi] over the rows."""
+    x, gamma, beta = _gdn_operands(65_536, c, seed=400 + c)
+    g = np.random.default_rng(c).standard_normal(x.shape, dtype=np.float32)
+    rnd = _tf32_rna
+    if dtype == "bfloat16":
+        x, g, rnd = _bf16(x), _bf16(g), _bf16
+    n = _split_product(x * x, gamma, rnd) + beta
+    x64 = x.astype(np.float64)
+    n64 = (x64 * x64) @ gamma.astype(np.float64) + beta
+    s_hi, s_lo = (_by_chunk(a, x.shape[0]) for a in _split_rna_trunc(x * x))
+    squares = np.concatenate([s_lo, s_hi, s_hi], axis=1).transpose(0, 2, 1)
+    return x, g, n, n64, np.ascontiguousarray(squares)
+
+
+def _partials_launch(squares, t):
+    """(x*x)^T @ t and the column sums of t as csrc/gdn_bwd_kernel.cu's
+    partials launch takes them, then summed as its reduce launch: per chunk
+    of ``_chunking(n)`` rows, the three products of x*x's and t's TF32 hi
+    and lo (``_split_rna_trunc``; lo @ lo dropped) summed into one float32
+    accumulator and t
+    summed in float32; then the chunks' partials summed in float32 in chunk
+    order. squares: ``_partials_rows``'s."""
+    t_hi, t_lo = (_by_chunk(a, t.shape[0]) for a in _split_rna_trunc(t))
+    part = np.matmul(squares, np.concatenate([t_hi, t_lo, t_hi], axis=1))  # float32 sums
+    part_beta = _by_chunk(t, t.shape[0]).sum(axis=1, dtype=np.float32)
+    assert part.dtype == part_beta.dtype == np.float32
+    dgamma, dbeta = np.zeros(part.shape[1:], np.float32), np.zeros(t.shape[1], np.float32)
+    for z in range(part.shape[0]):
+        dgamma += part[z]
+        dbeta += part_beta[z]
+    return dgamma, dbeta
+
+
+def _partials_case(c, dtype, inverse):
+    """squares, t as the norm launch writes it (float32) and dgamma, dbeta
+    in float64 from the same inputs, with the sign's half."""
+    x, g, n, n64, squares = _partials_rows(c, dtype)
+    t = _backward_terms(n, x, g, inverse)[0]
+    root = np.sqrt(n64)
+    t64 = g * x / root if inverse else g * x / (n64 * root)
+    half = 0.5 if inverse else -0.5
+    x64 = x.astype(np.float64)
+    return squares, t, half, half * ((x64 * x64).T @ t64), half * t64.sum(axis=0)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [16, 128, 192])
+def test_partials_launch_three_tf32_products_keep_dgamma_dbeta(c, dtype, inverse):
+    # csrc/gdn_bwd_kernel.cu launches 3 and 4: dgamma and dbeta from 3xTF32
+    # products over float32 chunk sums, within a tenth of the backward's
+    # tolerance (rows of 65,536: 256 chunks of 256)
+    squares, t, half, want_dgamma, want_dbeta = _partials_case(c, dtype, inverse)
+    sums, tsums = _partials_launch(squares, t)
+    assert _within_backward_tolerance(np.float32(half) * sums, want_dgamma, shrink=10.0)
+    assert _within_backward_tolerance(np.float32(half) * tsums, want_dbeta, shrink=10.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_partials_launch_single_tf32_product_fails_the_tolerance(dtype):
+    # why the partials launch splits its operands: x*x and t rounded to TF32
+    # once, the one product summed exactly, miss the backward's tolerance
+    squares, t, half, want_dgamma, _ = _partials_case(16, dtype, False)
+    x, *_ = _partials_rows(16, dtype)
+    single = half * (_tf32_rna(x * x).astype(np.float64).T @ _tf32_rna(t))
+    assert not _within_backward_tolerance(single, want_dgamma)
+    assert _within_backward_tolerance(half * _partials_launch(squares, t)[0], want_dgamma)
 
 
 # --- the backward's plain versions and the autograd plumbing -----------------
@@ -455,11 +548,17 @@ def _assert_grad_close(got, want, name, dtype=torch.float32):
 @pytest.mark.parametrize("inverse", [False, True])
 # the train step's three sites (batch 16 at 256x256), ragged rows (also at
 # the widths where gamma is cut into slices: 192, 256), widths that leave
-# ragged 64-channel groups, and widths the wrapper pads (10; 100 in bf16)
+# ragged 64-channel groups, and widths the wrapper pads (10; 100 in bf16);
+# the dgamma/dbeta partials launch's edges: fewer rows than one 32-row tile
+# (1), a ragged second tile (63), a last chunk of 3 rows (16,387: 64 chunks
+# of 256, then 3), a width that leaves half of the second dgamma tile empty
+# (200), the residual family's H/2 site (262,144 x 192)
 @pytest.mark.parametrize("n,c", [(262_144, 128), (65_536, 128), (16_384, 128),
                                  (100_003, 128), (77, 100), (300, 16), (513, 256),
                                  (4096, 192), (64, 10), (1001, 192), (70, 256),
-                                 (1001, 10)])
+                                 (1001, 10), (1, 128), (63, 128), (63, 10), (16_387, 128),
+                                 (16_387, 200), (1, 256), (16_387, 256), (1, 200),
+                                 (262_144, 192), (100_003, 200)])
 def test_gdn_backward_kernel_matches_plain_on_card(cuda_device, dtype, inverse, n, c):
     x, gamma, beta, g = (t.to(cuda_device) for t in _gdn_case(n, c, seed=1))
     x, g = x.to(dtype), g.to(dtype)
@@ -472,7 +571,9 @@ def test_gdn_backward_kernel_matches_plain_on_card(cuda_device, dtype, inverse, 
     _assert_grad_close(got[0], want[0], "dx", dtype)
     _assert_grad_close(got[1], want[1], "dgamma")
     _assert_grad_close(got[2], want[2], "dbeta")
-    # no atomics: a second run gives the same bits
+    # no atomics, chunks fixed by n: a second run gives the same bits, with
+    # its scratch elsewhere
+    held = torch.empty(n * c, device=cuda_device)  # noqa: F841
     again = gdn_kernel.gdn_backward(x, gamma, beta, g, inverse)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
