@@ -113,9 +113,23 @@ Phases, in order; any failure exits non-zero:
      VisionCompressionEvaluator with the teacher on 2 images. 9/0/0/0
      launches a forward (+0/0/2/0 at K = 3), 9/9/0/0 a step (9/6/0/0 with
      gamma 0; +0/0/2/2 at K = 3), 3 a codec call, 72/60/0/0 a refine call.
-Phases 4, 5, 6, 7, each family of phase 8, phase 9, phase 10 and phase 11
-are the main paths: the kernels' launch counts are set to 0 just before
-each and read just after it, and the kernels' record adds them up.
+  12. the training path over a device mesh (see parallel_phase): an NCCL
+     group of one rank (NCCL puts no two ranks on one card; the two-rank
+     runs are CPU tests over gloo) and make_mesh(); the flagship's f32
+     Trainer with the mesh and without it for 5 steps at batch 16 of 256^2
+     from one seed (cuDNN deterministic for the pair), every parameter leaf
+     held against the other; the mesh step's and the bare step's steps/s
+     and one all-reduce of the gradients alone; make_eval_step at batch 48
+     of 768x512 against make_serving_fn, and with spatial=True; and
+     vmapped_lambda_sweep at L = 3 (lambda 0.0018, 0.0067, 0.025) for 3
+     steps, each replica against its own make_train_step run from the same
+     weights and noise, then 8 steps timed beside L x the single step, with
+     its peak memory. 6L/6L/1/1 launches a sweep step (the replicas' GDN
+     once each, the mixture folded), 6/0/1/0 for the one forward that
+     finds the noise's shapes.
+Phases 4, 5, 6, 7, each family of phase 8, phase 9, phase 10, phase 11 and
+phase 12 are the main paths: the kernels' launch counts are set to 0 just
+before each and read just after it, and the kernels' record adds them up.
 ``--phase N`` (repeatable) runs phase 1 and phase N alone (7 and 10 bring
 4 and 5); the kernels' record then covers the phases run.
 The last lines are the kernels' JSON record and
@@ -130,6 +144,7 @@ import argparse
 import contextlib
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -164,10 +179,13 @@ from neural_image_compression_tpu_torch.models import (
 from neural_image_compression_tpu_torch.ops.kernels import (
     _build, gdn_kernel, gmm_kernel, launch_counts, reset_launch_counts,
 )
-from neural_image_compression_tpu_torch.parallel import make_train_step
+from neural_image_compression_tpu_torch.parallel import (
+    init_distributed, make_eval_step, make_mesh, make_train_step, shard_batch,
+)
+from neural_image_compression_tpu_torch.parallel import train_step as train_step_module
 from neural_image_compression_tpu_torch.serving import make_serving_fn
 from neural_image_compression_tpu_torch.train import (
-    Trainer, gained_rd_curve, msssim_rd_loss, rd_loss, vision_rd_loss,
+    Trainer, gained_rd_curve, msssim_rd_loss, rd_loss, vision_rd_loss, vmapped_lambda_sweep,
 )
 from neural_image_compression_tpu_torch.utils import flops
 
@@ -3020,13 +3038,251 @@ def scalable_phase(dev, card):
     return launches, results
 
 
+# --- phase 12: the training path over a device mesh ---------------------------
+
+MESH_SEED, MESH_TRAINER_STEPS = 30, 5
+# mesh Trainer against the Trainer without one: each leaf's max abs
+# difference over its max abs value, phase 3's GRAD_LEAF_TOL. cuDNN runs
+# deterministic for the pair, and the all-reduce of one rank is a copy, so
+# the measured difference is expected to be 0.
+MESH_LEAF_TOL = GRAD_LEAF_TOL
+# the eval step against make_serving_fn: the same forward under no_grad and
+# inference_mode
+EVAL_STEP_ATOL = 1e-6
+SWEEP_LAMBDAS = (0.0018, 0.0067, 0.0250)
+SWEEP_SEED, SWEEP_STEPS, SWEEP_TIMED = 31, 3, 8
+SWEEP_LR = 1e-4
+# each replica against its separate make_train_step run (the replicas'
+# convolutions are grouped ones, other cuDNN algorithms): the last loss
+# within rel 1e-4, and each parameter leaf's update (weights after less
+# weights before) within 0.1 of the separate run's in L2 norm. Adam moves
+# each element about lr a step, so a defect in a leaf (a wrong lambda,
+# noise, replica or gradient) moves its update by about its whole size,
+# while float32 sums in other orders move an element's update only where
+# its gradient is near 0: 0.11% of the elements by more than 1e-2 lr, at
+# most 0.18 lr, in replica 0 of the first run on an H100.
+SWEEP_LOSS_RTOL, SWEEP_UPDATE_RTOL = 1e-4, 0.1
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def relative(diff: float, size: float) -> float:
+    """diff over size; 0 where both are 0 (a leaf that no run moved)."""
+    if size > 0:
+        return diff / size
+    return 0.0 if diff == 0 else math.inf
+
+
+def sweep_step_launches(n):
+    return dict(PER_STEP, gdn=6 * n, gdn_backward=6 * n, gdn_backward_params=6 * n)
+
+
+def mesh_trainer_case(dev, total, mesh, card):
+    """The f32 Trainer with the mesh and without it, from one seed, on the
+    same batches; every leaf of the two against each other."""
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    batches = [torch.rand((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3), generator=gen, device=dev)
+               for _ in range(MESH_TRAINER_STEPS)]
+    models = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, mesh_arg in (("plain", None), ("mesh", mesh)):
+                trainer = Trainer(JointAutoregressiveHierarchical(M, K, device=dev, seed=MESH_SEED),
+                                  batches, lambda_val=LAMBDA, max_steps=MESH_TRAINER_STEPS,
+                                  seed=MESH_SEED, log_interval=1000, img_interval=1000,
+                                  log_dir=os.path.join(tmp, name),
+                                  checkpoint_path=os.path.join(tmp, name + ".pt"), mesh=mesh_arg)
+                # 5 steps and the step-0 diagnostics forward (a one-rank run draws them)
+                models[name], _ = counted(total, added(scaled(PER_STEP, MESH_TRAINER_STEPS),
+                                                       FORWARD), trainer.train)
+                check(os.path.isfile(os.path.join(tmp, name + ".pt")), f"{name}: no checkpoint")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    plain, meshed = models["plain"].state_dict(), models["mesh"].state_dict()
+    worst = max(((meshed[k] - v).abs().max().item() / max(v.abs().max().item(), 1e-30), k)
+                for k, v in plain.items())
+    print(f"  mesh Trainer against the Trainer without one, {MESH_TRAINER_STEPS} f32 steps: "
+          f"{len(plain)} leaves, max abs diff over max abs value at most {worst[0]:.3e} "
+          f"({worst[1]}; bound {MESH_LEAF_TOL:g}) [{card}]", flush=True)
+    check(worst[0] <= MESH_LEAF_TOL, f"mesh Trainer leaf {worst[1]} differs by {worst[0]:.3e}")
+    return dict(leaves=len(plain), max_leaf_rel_diff=worst[0], worst_leaf=worst[1],
+                bound=MESH_LEAF_TOL)
+
+
+def mesh_step_timing(dev, total, mesh, card, bare_f32):
+    """The f32 step with the mesh and without, alternating fresh models
+    (3 warm-up and TRAIN_TIMED timed steps each), and one all-reduce of the
+    flagship's gradients alone."""
+    x = torch.rand((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+                   generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    ms = {"bare": [], "mesh": []}
+    for name in ("bare", "mesh", "mesh", "bare"):
+        model = JointAutoregressiveHierarchical(M, K, device=dev, seed=0)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
+        step = make_train_step(model, opt, rd_loss, LAMBDA,
+                               mesh=mesh if name == "mesh" else None)
+        gen = torch.Generator(device=dev).manual_seed(100)
+        for _ in range(TRAIN_WARMUP):
+            counted(total, PER_STEP, step, x, gen)
+        ms[name] += [1e3 * counted(total, PER_STEP, step, x, gen)[1] for _ in range(TRAIN_TIMED)]
+        grads_numel = sum(p.numel() for p in model.parameters())
+        del model, opt, step
+    grads = [torch.rand(grads_numel, device=dev)]
+    group = mesh.get_group("data")
+    allreduce_ms = median_ms(lambda: train_step_module._all_reduce_mean(grads, group, 1))
+    r = dict(mesh_ms_per_step=statistics.median(ms["mesh"]),
+             bare_ms_per_step=statistics.median(ms["bare"]),
+             gradient_all_reduce_ms=allreduce_ms, gradient_floats=grads_numel)
+    r.update(mesh_steps_per_s=1e3 / r["mesh_ms_per_step"],
+             bare_steps_per_s=1e3 / r["bare_ms_per_step"],
+             phase5_bare_steps_per_s=bare_f32["steps_per_s"] if bare_f32 else None)
+    print(f"  f32 step at batch {TRAIN_BATCH} of {TRAIN_SIZE}^2: mesh {r['mesh_steps_per_s']:.3f} "
+          f"steps/s ({r['mesh_ms_per_step']:.3f} ms), bare {r['bare_steps_per_s']:.3f} "
+          f"({r['bare_ms_per_step']:.3f} ms; phase 5: {r['phase5_bare_steps_per_s']}); the "
+          f"all-reduce of {grads_numel} gradient floats alone {allreduce_ms:.4f} ms [{card}]",
+          flush=True)
+    return r
+
+
+def mesh_eval_case(dev, total, mesh, card):
+    """make_eval_step at batch 48 of 768x512 against make_serving_fn, then
+    with spatial=True (one rank: no H-slab to gather)."""
+    model = JointAutoregressiveHierarchical(M, K, device=dev, seed=0)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        size=(BATCH, HEIGHT, WIDTH, 3)).astype(np.float32)).to(dev)
+    want, _ = counted(total, FORWARD, make_serving_fn(model), x)
+    r = {}
+    for spatial in (False, True):
+        fwd = make_eval_step(model, mesh, spatial=spatial)
+        local = shard_batch(x, mesh)
+        out, _ = counted(total, FORWARD, fwd, local)
+        npix = HEIGHT * WIDTH
+        bpp = -(out["logp_y"].sum(dim=(1, 2, 3)) + out["logp_z"].sum(dim=(1, 2, 3))) / math.log(
+            2.0) / npix
+        diff = max((torch.clamp(out["x_hat"], 0, 1) - want["x_hat"]).abs().max().item(),
+                   (bpp - want["bpp_total"]).abs().max().item())
+        check(diff <= EVAL_STEP_ATOL, f"eval step (spatial={spatial}) against serve: {diff}")
+        times = [counted(total, FORWARD, fwd, local)[1] for _ in range(SERVE_ITERS)]
+        name = "spatial" if spatial else "batch"
+        r[name] = dict(img_per_s=BATCH / statistics.median(times),
+                       ms=1e3 * statistics.median(times), max_diff_against_serve=diff)
+        print(f"  make_eval_step(mesh, spatial={spatial}): {r[name]['img_per_s']:.2f} img/s at "
+              f"batch {BATCH} of {HEIGHT}x{WIDTH} ({r[name]['ms']:.2f} ms); against "
+              f"make_serving_fn {diff:.3e} (bound {EVAL_STEP_ATOL:g}) [{card}]", flush=True)
+        del out
+    return r
+
+
+def sweep_case(dev, total, card):
+    """vmapped_lambda_sweep at L = 3 for SWEEP_STEPS steps, each replica
+    against its own make_train_step run (same weights, generator seed + 1 +
+    i, same batches); then SWEEP_TIMED steps timed (one host sync a step
+    through log_every=1), beside L x the single step, and the peak memory."""
+    n = len(SWEEP_LAMBDAS)
+    gen = torch.Generator(device=dev).manual_seed(SWEEP_SEED)
+    batches = [torch.rand((TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3), generator=gen, device=dev)
+               for _ in range(SWEEP_STEPS)]
+    probe = FORWARD  # the one no-grad forward that finds the noise's shapes
+    logged = []
+    model = JointAutoregressiveHierarchical(M, K, device=dev, seed=SWEEP_SEED)
+    (states, losses), seconds = counted(
+        total, added(probe, scaled(sweep_step_launches(n), SWEEP_STEPS)), vmapped_lambda_sweep,
+        model, SWEEP_LAMBDAS, batches, SWEEP_STEPS, SWEEP_LR, SWEEP_SEED, None, 1,
+        lambda line: logged.append(line))
+    check(len(logged) == SWEEP_STEPS and bool(torch.isfinite(losses).all()),
+          f"sweep losses {losses}")
+    single_ms, worst = [], []
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    for i, lam in enumerate(SWEEP_LAMBDAS):
+        m = JointAutoregressiveHierarchical(M, K, device=dev, seed=SWEEP_SEED)
+        opt = torch.optim.Adam(m.parameters(), lr=SWEEP_LR, betas=(0.9, 0.999), eps=1e-8)
+        step = make_train_step(m, opt, rd_loss, lam)
+        g = torch.Generator(device=dev).manual_seed(SWEEP_SEED + 1 + i)
+        run = [counted(total, PER_STEP, step, b, g) for b in batches]
+        single_ms += [1e3 * t for _, t in run[1:]]
+        want = run[-1][0]["loss"].item()
+        check(abs(losses[i].item() - want) <= SWEEP_LOSS_RTOL * abs(want),
+              f"replica {i} (lambda {lam}): last loss {losses[i].item()} vs its own run {want}")
+        own = dict(m.named_parameters())
+        diffs = torch.cat([(states[i][k] - p).abs().flatten() for k, p in own.items()])
+        share = (diffs > 1e-2 * SWEEP_LR).float().mean().item()
+        update = max((relative(torch.linalg.vector_norm(states[i][k] - p).item(),
+                               torch.linalg.vector_norm(p.detach() - before[k]).item()), k)
+                     for k, p in own.items())
+        worst.append(dict(lam=lam, loss=losses[i].item(), own_run_loss=want,
+                          share_beyond_hundredth_lr=share,
+                          max_abs_diff_over_lr=diffs.max().item() / SWEEP_LR,
+                          max_leaf_update_rel_diff=update[0], worst_leaf=update[1]))
+        print(f"  replica {i} (lambda {lam}): loss {losses[i].item():.6f}, its own run "
+              f"{want:.6f}; weights: {100 * share:.4f}% of elements beyond 1e-2 lr, max "
+              f"{diffs.max().item() / SWEEP_LR:.3f} lr; a leaf's update at most {update[0]:.3e} "
+              f"off in L2 ({update[1]}; bound {SWEEP_UPDATE_RTOL:g})", flush=True)
+        check(update[0] <= SWEEP_UPDATE_RTOL,
+              f"replica {i}: leaf {update[1]}'s update {update[0]:.3e} off its own run's")
+        del m, opt, step, run
+    del states
+    stamps = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    counted(total, added(probe, scaled(sweep_step_launches(n), SWEEP_TIMED)),
+            vmapped_lambda_sweep, model, SWEEP_LAMBDAS, batches, SWEEP_TIMED, SWEEP_LR,
+            SWEEP_SEED, None, 1, lambda line: stamps.append(time.perf_counter()))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    sweep_ms = 1e3 * statistics.median(b - a for a, b in zip(stamps[1:], stamps[2:]))
+    r = dict(lambdas=SWEEP_LAMBDAS, replicas=worst, sweep_ms_per_step=sweep_ms,
+             single_ms_per_step=statistics.median(single_ms), peak_mem_gib=peak,
+             launches_per_sweep_step=sweep_step_launches(n), first_call_s=seconds)
+    r["ratio_to_single"] = sweep_ms / r["single_ms_per_step"]
+    print(f"  vmapped_lambda_sweep, L={n}: {sweep_ms:.3f} ms a sweep step against "
+          f"{n} x {r['single_ms_per_step']:.3f} ms a single step ({r['ratio_to_single']:.3f} "
+          f"single steps), peak memory {peak:.2f} GiB; launches a sweep step "
+          f"{sweep_step_launches(n)} [{card}]", flush=True)
+    return r
+
+
+def parallel_phase(dev, card, bare):
+    """An NCCL group of one rank and its mesh, then the main path with its
+    launches counted from 0: the mesh Trainer and the Trainer without one,
+    the mesh step's timing, the eval step and the vmapped sweep. Returns
+    (the main path's launches, results)."""
+    t0 = time.perf_counter()
+    init_distributed(f"localhost:{free_port()}", 1, 0)
+    try:
+        check(torch.distributed.get_backend() == "nccl",
+              f"backend {torch.distributed.get_backend()}, not nccl")
+        mesh = make_mesh()
+        check(mesh.mesh_dim_names == ("data",) and mesh.size() == 1, f"mesh {mesh}")
+        print(f"  NCCL group of 1 rank, mesh {mesh}", flush=True)
+        reset_launch_counts()
+        total = dict(NO_LAUNCHES)
+        results = dict(trainer=mesh_trainer_case(dev, total, mesh, card),
+                       step=mesh_step_timing(dev, total, mesh, card,
+                                             (bare or {}).get("float32")),
+                       eval=mesh_eval_case(dev, total, mesh, card),
+                       sweep=sweep_case(dev, total, card))
+        launches = launch_counts()
+        check(launches == total, f"phase 12: launches {launches}, its calls counted {total}")
+    finally:
+        torch.distributed.destroy_process_group()
+    seconds = time.perf_counter() - t0
+    print(f"main path (parallel): launches {launches}; phase 12 took {seconds:.1f} s", flush=True)
+    results["seconds"] = seconds
+    return launches, results
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
-    parser.add_argument("--phase", type=int, action="append", choices=range(2, 12),
+    parser.add_argument("--phase", type=int, action="append", choices=range(2, 13),
                         help="run phase 1 and this phase (repeatable; phases 7 and 10 bring "
                              "4 and 5, whose results they read); default: every phase. The "
                              "kernels' record then covers the phases run")
-    phases = set(parser.parse_args(argv).phase or range(2, 12))
+    phases = set(parser.parse_args(argv).phase or range(2, 13))
     if phases & {7, 10}:
         phases |= {4, 5}
     if not torch.cuda.is_available():
@@ -3137,6 +3393,14 @@ def main(argv=None) -> int:
         launches["scalable"], scalable_results = scalable_phase(dev, card)
         print(json.dumps({"scalable": scalable_results, "card": card,
                           "cpu_count": os.cpu_count()}))
+
+    if 12 in phases:
+        print(f"== phase 12: the training path over a device mesh, M={M} K={K}: the mesh "
+              f"Trainer, make_eval_step, vmapped_lambda_sweep L={len(SWEEP_LAMBDAS)} [{card}]",
+              flush=True)
+        launches["parallel"], parallel_results = parallel_phase(
+            dev, card, train_results if 5 in phases else None)
+        print(json.dumps({"parallel": parallel_results, "card": card}))
 
     for r in records:
         r["launches"] = sum(path[r["name"]] for path in launches.values())

@@ -178,3 +178,38 @@ def pad_to_multiple(batch: np.ndarray, multiple: int) -> np.ndarray:
 def center_crop(batch: np.ndarray, h: int, w: int) -> np.ndarray:
     """The top-left h x w of each image (undoes pad_to_multiple)."""
     return batch[:, :h, :w, :]
+
+
+def shard_for_process(items, process_index: Optional[int] = None,
+                      process_count: Optional[int] = None):
+    """This rank's share of a sequence (a file list, an array, a dataset)
+    for data-parallel training: the strided split items[i::p], so every
+    rank holds the same number of items (within one) in the same order.
+    The rank and the world's size come from ``torch.distributed`` where a
+    process group exists, else 0 and 1. Lists, tuples and arrays are
+    sliced; anything else with ``len`` and indexing gets a lazy view, so no
+    image is decoded before it is read."""
+    import torch.distributed as dist
+
+    grouped = dist.is_available() and dist.is_initialized()
+    pi = (dist.get_rank() if grouped else 0) if process_index is None else process_index
+    pc = (dist.get_world_size() if grouped else 1) if process_count is None else process_count
+    if not 0 <= pi < pc:
+        raise ValueError(f"process_index {pi} out of range for {pc} processes")
+    if isinstance(items, (list, tuple, np.ndarray)):
+        return items[pi::pc]
+    return _Subset(items, range(pi, len(items), pc))
+
+
+class _Subset:
+    """Lazy index view over a dataset."""
+
+    def __init__(self, dataset, indices):
+        self._dataset = dataset
+        self._indices = list(indices)
+
+    def __len__(self):
+        return len(self._indices)
+
+    def __getitem__(self, i):
+        return self._dataset[self._indices[i]]

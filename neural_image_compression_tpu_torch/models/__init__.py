@@ -19,8 +19,8 @@ from neural_image_compression_tpu_torch.models.gained import (
 )
 from neural_image_compression_tpu_torch.models.hyperprior import MeanScaleHyperprior
 from neural_image_compression_tpu_torch.models.joint_ar import (
-    HierarchicalMixtureResidual, HierarchicalModel, JointAutoregressiveHierarchical,
-    noise_quantize, quantize, round_quantize,
+    GivenNoise, HierarchicalMixtureResidual, HierarchicalModel, JointAutoregressiveHierarchical,
+    RowShardNoise, noise_quantize, quantize, round_quantize,
 )
 from neural_image_compression_tpu_torch.models.parameters import EntropyParameters
 from neural_image_compression_tpu_torch.models.scalable import ScalableImageCoding
@@ -36,6 +36,7 @@ __all__ = ["CB_CTX_POSITIONS", "ChannelCheckerboardHierarchical", "CheckerboardC
            "MeanScaleHyperprior", "EntropyParameters", "GainedJointAR", "GainedHyperprior",
            "GainedCheckerboard", "GainedChannelCheckerboard", "fold_gains", "folded_model",
            "interp_gain", "level_for_bpp", "noise_quantize", "quantize", "round_quantize",
+           "GivenNoise", "RowShardNoise",
            "LatentSpaceTransform", "ScalableImageCoding", "FirstHalf", "SecondHalf",
            "GraphBackbone", "FrozenActivationBlock", "ConvBNSiLU", "C3", "SPPF", "Concat",
            "build_yolo_backbone", "frozen_activation_from_conv", "save_backbone",

@@ -45,9 +45,46 @@ _TRANSFORMS = {
 def noise_quantize(x: torch.Tensor,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Additive uniform-noise relaxation: x + U(-0.5, 0.5), the noise float32
-    on x's device (torch's default generator there when none is given)."""
+    on x's device (torch's default generator there when none is given).
+    generator may also be a noise source, an object whose ``draw(x)``
+    returns the noise for x: ``RowShardNoise`` (data parallelism) or
+    ``GivenNoise`` (the vmapped lambda sweep)."""
+    if generator is not None and not isinstance(generator, torch.Generator):
+        return x + generator.draw(x)
     noise = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     return x + noise.uniform_(-0.5, 0.5, generator=generator)
+
+
+class RowShardNoise:
+    """Noise for one data-parallel rank's rows: each draw takes the noise
+    that ``generator`` draws for the global batch (``count`` ranks of x's
+    rows each) and keeps rows [index * b, (index + 1) * b). With one
+    generator state on every rank, each rank's rows get the noise that a
+    one-rank run on the global batch gives them."""
+
+    def __init__(self, generator: torch.Generator, index: int, count: int):
+        self.generator, self.index, self.count = generator, index, count
+
+    def draw(self, x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        noise = torch.empty((b * self.count, *x.shape[1:]), dtype=torch.float32, device=x.device)
+        noise.uniform_(-0.5, 0.5, generator=self.generator)
+        return noise[self.index * b:(self.index + 1) * b]
+
+
+class GivenNoise:
+    """Noise drawn beforehand: each draw hands out the next of ``noises``,
+    which must have x's shape."""
+
+    def __init__(self, noises):
+        self._noises = iter(noises)
+
+    def draw(self, x: torch.Tensor) -> torch.Tensor:
+        noise = next(self._noises, None)
+        if noise is None or noise.shape != x.shape:
+            raise ValueError(f"no given noise of shape {tuple(x.shape)}: got "
+                             f"{None if noise is None else tuple(noise.shape)}")
+        return noise
 
 
 def round_quantize(x: torch.Tensor) -> torch.Tensor:

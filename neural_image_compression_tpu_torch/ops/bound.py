@@ -3,7 +3,8 @@
 Port of neural_image_compression_tpu/ops/bound.py: the forward clamps; the
 backward passes the gradient through whenever the input is inside the bound
 OR the gradient pushes the value back toward the feasible region
-(compressai's ``LowerBound`` semantics).
+(compressai's ``LowerBound`` semantics). Both compose with ``torch.func``
+(``grad``, ``vmap``), as the vmapped lambda sweep needs.
 """
 
 import torch
@@ -13,11 +14,16 @@ PEDESTAL = REPARAM_OFFSET ** 2
 
 
 class _LowerBound(torch.autograd.Function):
+    generate_vmap_rule = True  # plain torch ops: torch.func.vmap batches them itself
+
     @staticmethod
-    def forward(ctx, x, bound):
-        ctx.save_for_backward(x)
-        ctx.bound = bound
+    def forward(x, bound):
         return torch.clamp_min(x, bound)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.bound = inputs
+        ctx.save_for_backward(x)
 
     @staticmethod
     def backward(ctx, g):
@@ -27,11 +33,16 @@ class _LowerBound(torch.autograd.Function):
 
 
 class _UpperBound(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x, bound):
-        ctx.save_for_backward(x)
-        ctx.bound = bound
+    def forward(x, bound):
         return torch.clamp_max(x, bound)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.bound = inputs
+        ctx.save_for_backward(x)
 
     @staticmethod
     def backward(ctx, g):

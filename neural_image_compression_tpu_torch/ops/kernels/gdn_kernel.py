@@ -7,7 +7,13 @@ differentiable: where autograd records it, a ``torch.autograd.Function``
 saves x, gamma and beta (not the norm) and its backward calls
 ``gdn_backward``, which recomputes the norm; where neither gamma nor beta
 needs a gradient (frozen weights, as in latent refinement) it asks for dx
-alone, and the dgamma/dbeta stage does not run. Each wrapper launches its kernel
+alone, and the dgamma/dbeta stage does not run. Under ``torch.func``
+transforms a second Function, in the ``setup_context`` form with vmap rules
+for its forward and its backward, runs the same kernels: a replica axis
+folds into the rows (one launch) where gamma and beta are shared and only
+dx is asked for, and costs one launch a replica where each replica has its
+own gamma and beta or its own dgamma/dbeta (a grid axis over replicas is
+later work). Each wrapper launches its kernel
 (``csrc/gdn_kernel.cu``, ``csrc/gdn_bwd_kernel.cu``) for CUDA tensors and
 runs its plain version (``gdn_reference``, ``gdn_backward_reference``) for
 CPU tensors; there is no other dispatch. Under ``no_grad`` or
@@ -92,6 +98,9 @@ def _backward_entry():
 
 
 def _check(x, gamma, beta):
+    for t in (x, gamma, beta):
+        if type(t) not in (torch.Tensor, torch.nn.Parameter):
+            raise TypeError(f"the GDN kernels take plain tensors, got {type(t).__name__}")
     if x.dim() != 2:
         raise ValueError(f"x must be (N, C) rows, got shape {tuple(x.shape)}")
     c = x.shape[1]
@@ -111,6 +120,10 @@ def _check(x, gamma, beta):
 
 
 class _GDN(torch.autograd.Function):
+    """The eager path: autograd applies this form without binding forward's
+    arguments through inspect (which setup_context's form does on every
+    call, tens of microseconds of host time)."""
+
     @staticmethod
     def forward(ctx, x, gamma, beta, inverse):
         ctx.save_for_backward(x, gamma, beta)
@@ -125,14 +138,103 @@ class _GDN(torch.autograd.Function):
         return (*gdn_backward(x, gamma, beta, g, ctx.inverse, needs_gamma or needs_beta), None)
 
 
+def _front(t, bdim, size):
+    """t with its vmap batch dimension moved to the front, or expanded to
+    ``size`` there where it has none."""
+    return t.movedim(bdim, 0) if bdim is not None else t.expand(size, *t.shape)
+
+
+class _GDNBackward(torch.autograd.Function):
+    """``gdn_backward`` as a Function with a vmap rule, so that the
+    backward of ``_GDNTransformable`` runs under ``torch.func.vmap``. Not
+    differentiable itself (the kernels have no double backward)."""
+
+    @staticmethod
+    def forward(x, gamma, beta, g, inverse, param_grads):
+        return gdn_backward(x, gamma, beta, g, inverse, param_grads)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the GDN backward kernel has no backward of its own")
+
+    @staticmethod
+    def vmap(info, in_dims, x, gamma, beta, g, inverse, param_grads):
+        n = info.batch_size
+        x, g = _front(x, in_dims[0], n), _front(g, in_dims[3], n)
+        if x.dim() != 3:
+            raise ValueError(f"x must be (N, C) rows, got shape {tuple(x.shape[1:])}")
+        if in_dims[1] is None and in_dims[2] is None and not param_grads:
+            # shared gamma and beta, dx alone: the replicas' rows are one batch of rows
+            dx, _, _ = _GDNBackward.apply(x.reshape(-1, x.shape[-1]).contiguous(), gamma, beta,
+                                          g.reshape(-1, g.shape[-1]), inverse, False)
+            return (dx.view(x.shape), None, None), (0, None, None)
+        # one launch a replica: each has its own gamma/beta or its own dgamma/dbeta
+        gamma, beta = _front(gamma, in_dims[1], n), _front(beta, in_dims[2], n)
+        outs = [_GDNBackward.apply(x[i].contiguous(), gamma[i].contiguous(),
+                                   beta[i].contiguous(), g[i], inverse, param_grads)
+                for i in range(n)]
+        dx = torch.stack([o[0] for o in outs])
+        if not param_grads:
+            return (dx, None, None), (0, None, None)
+        return ((dx, torch.stack([o[1] for o in outs]), torch.stack([o[2] for o in outs])),
+                (0, 0, 0))
+
+
+class _GDNTransformable(torch.autograd.Function):
+    """The GDN forward with its backward and a vmap rule, for calls under
+    ``torch.func`` transforms (``grad``, ``vmap``), where it still launches
+    the kernels: there is no fallback to the plain versions."""
+
+    @staticmethod
+    def forward(x, gamma, beta, inverse):
+        return _forward(x, gamma, beta, inverse)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, gamma, beta, inverse = inputs
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.inverse = inverse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta = ctx.saved_tensors
+        _, needs_gamma, needs_beta, _ = ctx.needs_input_grad
+        dx, dgamma, dbeta = _GDNBackward.apply(x, gamma, beta, g, ctx.inverse,
+                                               needs_gamma or needs_beta)
+        return dx, dgamma, dbeta, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, gamma, beta, inverse):
+        n = info.batch_size
+        x = _front(x, in_dims[0], n)
+        if x.dim() != 3:
+            raise ValueError(f"x must be (N, C) rows, got shape {tuple(x.shape[1:])}")
+        if in_dims[1] is None and in_dims[2] is None:
+            # shared gamma and beta: the replicas' rows are one batch of rows, one launch
+            out = _GDNTransformable.apply(x.reshape(-1, x.shape[-1]).contiguous(), gamma, beta,
+                                          inverse)
+            return out.view(x.shape), 0
+        # each replica its own gamma and beta: one launch a replica
+        gamma, beta = _front(gamma, in_dims[1], n), _front(beta, in_dims[2], n)
+        return torch.stack([_GDNTransformable.apply(x[i].contiguous(), gamma[i].contiguous(),
+                                                    beta[i].contiguous(), inverse)
+                            for i in range(n)]), 0
+
+
 def gdn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         inverse: bool = False) -> torch.Tensor:
     """x: (N, C) float32|bfloat16; gamma: (C, C) [in -> out]; beta: (C,).
 
     gamma and beta arrive reparametrized (ops/bound.nonneg). Returns (N, C)
-    in x's dtype, computed in float32; differentiable in x, gamma and beta.
+    in x's dtype, computed in float32; differentiable in x, gamma and beta,
+    also under ``torch.func.grad`` and ``torch.func.vmap``.
     """
-    _check(x, gamma, beta)
+    if torch._C._are_functorch_transforms_active():
+        return _GDNTransformable.apply(x, gamma, beta, inverse)
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
                                     or beta.requires_grad):
         return _GDN.apply(x, gamma, beta, inverse)
@@ -140,6 +242,7 @@ def gdn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 def _forward(x, gamma, beta, inverse):
+    _check(x, gamma, beta)
     if x.device.type == "cpu":
         return gdn_reference(x, gamma, beta, inverse)
     if x.device.type != "cuda":

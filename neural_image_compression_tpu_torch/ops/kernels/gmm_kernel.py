@@ -8,7 +8,9 @@ clipped rational erf. The JAX package has no backward kernel: its training
 autodiffs that plain path and ``jnp.log``. Here ``gmm_logp`` is
 differentiable: where autograd records it, a ``torch.autograd.Function``
 saves its inputs and its backward calls ``gmm_logp_backward``, which
-recomputes the likelihood. Each wrapper launches its entry of
+recomputes the likelihood. Under ``torch.func`` transforms a second
+Function with vmap rules, forward and backward, runs the same kernels: a
+replica axis folds into the rows, one launch for all replicas. Each wrapper launches its entry of
 ``csrc/gmm_kernel.cu`` for CUDA tensors and runs its plain version
 (``mixture_log_likelihood_reference``,
 ``mixture_log_likelihood_backward_reference``) for CPU tensors; there is no
@@ -86,6 +88,9 @@ def _backward_entry():
 
 
 def _check(y, weights, mus, sigmas):
+    for t in (y, weights, mus, sigmas):
+        if type(t) not in (torch.Tensor, torch.nn.Parameter):
+            raise TypeError(f"the mixture kernels take plain tensors, got {type(t).__name__}")
     if y.dim() != 2:
         raise ValueError(f"y must be (N, M), got shape {tuple(y.shape)}")
     n, m = y.shape
@@ -107,6 +112,9 @@ def _check(y, weights, mus, sigmas):
 
 
 class _MixtureLogLikelihood(torch.autograd.Function):
+    """The eager path (the form autograd applies without inspecting
+    forward's signature)."""
+
     @staticmethod
     def forward(ctx, y, weights, mus, sigmas):
         ctx.save_for_backward(y, weights, mus, sigmas)
@@ -118,11 +126,75 @@ class _MixtureLogLikelihood(torch.autograd.Function):
         return gmm_logp_backward(*ctx.saved_tensors, g)
 
 
+def _folded(info, in_dims, tensors):
+    """The vmapped tensors with their batch dimension in front (expanded
+    where they have none), folded into their rows: (L, N, ...) -> (L*N, ...)."""
+    n = info.batch_size
+    out = []
+    for t, bdim in zip(tensors, in_dims):
+        t = t.movedim(bdim, 0) if bdim is not None else t.expand(n, *t.shape)
+        out.append(t.reshape(-1, *t.shape[2:]).contiguous())
+    return out
+
+
+class _MixtureBackward(torch.autograd.Function):
+    """``gmm_logp_backward`` as a Function with a vmap rule (not
+    differentiable itself)."""
+
+    @staticmethod
+    def forward(y, weights, mus, sigmas, g):
+        return gmm_logp_backward(y, weights, mus, sigmas, g)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the mixture backward kernel has no backward of its own")
+
+    @staticmethod
+    def vmap(info, in_dims, y, weights, mus, sigmas, g):
+        if y.dim() - (in_dims[0] is not None) != 2:
+            raise ValueError(f"y must be (N, M), got {y.dim() - (in_dims[0] is not None)} dims")
+        n = info.batch_size
+        grads = _MixtureBackward.apply(*_folded(info, in_dims, (y, weights, mus, sigmas, g)))
+        return tuple(t.view(n, -1, *t.shape[1:]) for t in grads), (0, 0, 0, 0)
+
+
+class _MixtureTransformable(torch.autograd.Function):
+    """The mixture log-likelihood with its backward and a vmap rule, for
+    calls under ``torch.func`` transforms: every input is per row, so a
+    replica axis folds into the rows and one launch serves all replicas,
+    forward and backward."""
+
+    @staticmethod
+    def forward(y, weights, mus, sigmas):
+        return _forward(y, weights, mus, sigmas)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _MixtureBackward.apply(*ctx.saved_tensors, g)
+
+    @staticmethod
+    def vmap(info, in_dims, y, weights, mus, sigmas):
+        if y.dim() - (in_dims[0] is not None) != 2:
+            raise ValueError(f"y must be (N, M), got {y.dim() - (in_dims[0] is not None)} dims")
+        out = _MixtureTransformable.apply(*_folded(info, in_dims, (y, weights, mus, sigmas)))
+        return out.view(info.batch_size, -1, out.shape[-1]), 0
+
+
 def gmm_logp(y: torch.Tensor, weights: torch.Tensor, mus: torch.Tensor,
              sigmas: torch.Tensor) -> torch.Tensor:
     """log(max(sum_k w * (Phi(u) - Phi(l)), 1e-9)) -> (N, M) float32;
-    differentiable in every input."""
-    _check(y, weights, mus, sigmas)
+    differentiable in every input, also under ``torch.func.grad`` and
+    ``torch.func.vmap``."""
+    if torch._C._are_functorch_transforms_active():
+        return _MixtureTransformable.apply(y, weights, mus, sigmas)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (y, weights, mus, sigmas)):
         return _MixtureLogLikelihood.apply(y, weights, mus, sigmas)
@@ -130,6 +202,7 @@ def gmm_logp(y: torch.Tensor, weights: torch.Tensor, mus: torch.Tensor,
 
 
 def _forward(y, weights, mus, sigmas):
+    _check(y, weights, mus, sigmas)
     if y.device.type == "cpu":
         return mixture_log_likelihood_reference(y, weights, mus, sigmas)
     if y.device.type != "cuda":

@@ -28,8 +28,23 @@ and returns.
 
 Schedulers set ``lr`` in every param group of the optimizer, so any torch
 optimizer takes them (JAX needs ``optax.inject_hyperparams`` for that and
-raises without it; nothing here can be missing). The JAX Trainer's
-``mesh`` (data parallelism across processes) is not ported.
+raises without it; nothing here can be missing).
+
+With ``mesh`` (``parallel.make_mesh``) the Trainer runs data parallel, one
+process a device, as the JAX Trainer runs across processes: every rank runs
+this same script, its loaders yield its share of each global batch
+(``data.shard_for_process``), and the step averages the gradients
+(``make_train_step(mesh=...)``, which also broadcasts the weights from rank
+0). Rank 0 alone logs (the others get a ``NullLogger``) and writes
+checkpoints; every rank enters ``save_checkpoint`` and waits at a barrier
+after the write, and on resume every rank restores the same file, so the
+checkpoint must sit where all ranks read it. The stop decision of
+``preemption_safe`` and the validation sums are all-reduced, so every rank
+stops at the same step and the plateau scheduler sees one loss. The
+histogram and image diagnostics run only in a one-rank run, as in JAX.
+With a "model" dimension the checkpoints hold the whole optimizer state,
+gathered from the ranks' shards. A world of more than one rank without a
+mesh raises: each rank would train its own replica.
 
 A variable-rate model (one with ``levels``, ``models.gained``) trains at a
 level drawn each step (``make_train_step(levels=...)``); validation pins
@@ -44,13 +59,17 @@ from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
+from neural_image_compression_tpu_torch.parallel.mesh import process_count, process_index
 from neural_image_compression_tpu_torch.parallel.train_step import (
     batch_to_device, make_train_step,
 )
 from neural_image_compression_tpu_torch.train.loss import rd_loss as default_rd_loss
-from neural_image_compression_tpu_torch.train.metrics_logger import MetricsLogger, host_scalars
+from neural_image_compression_tpu_torch.train.metrics_logger import (
+    MetricsLogger, NullLogger, host_scalars,
+)
 from neural_image_compression_tpu_torch.train.schedulers import ReduceLROnPlateau, cosine_lr
 from neural_image_compression_tpu_torch.utils.checkpoint import (
     checkpoint_exists, restore_checkpoint, save_checkpoint,
@@ -81,17 +100,26 @@ class Trainer:
                  log_dir: str = "runs/experiment",
                  checkpoint_path: Optional[str] = "./checkpoints/checkpoint.pt",
                  seed: int = 0, ema_decay: Optional[float] = None,
-                 clip_grad_norm: Optional[float] = None):
+                 clip_grad_norm: Optional[float] = None, mesh=None):
         """optimizer: a torch optimizer over ``model.parameters()``; None
         builds Adam(learning_rate, betas (0.9, 0.999), eps 1e-8), optax's
         Adam. clip_grad_norm clips in the step (``make_train_step``) and,
         as in the JAX Trainer, goes only with the default optimizer.
         scheduler: None, "cosine" (after every step, towards 1e-5 at
-        max_steps) or "plateau" (on the validation loss)."""
+        max_steps) or "plateau" (on the validation loss). mesh: a
+        ``parallel.make_mesh`` mesh over every rank, or None on one
+        process."""
         if scheduler not in (None, "cosine", "plateau"):
             raise ValueError(f"scheduler must be None, 'cosine' or 'plateau', got {scheduler!r}")
         if optimizer is not None and clip_grad_norm is not None:
             raise ValueError("pass either a custom optimizer or clip_grad_norm, not both")
+        self._process_count = process_count()
+        self._is_main_process = process_index() == 0
+        if self._process_count > 1 and mesh is None:
+            raise ValueError(
+                f"a run of {self._process_count} processes needs a mesh spanning them "
+                "(parallel.make_mesh()): without one, each process would train an "
+                "independent replica on its own batches")
         self.model = model
         self.device = next(model.parameters()).device
         self.train_loader = train_loader
@@ -120,7 +148,8 @@ class Trainer:
         levels = getattr(model, "levels", None)
         self._train_step = make_train_step(model, self.optimizer, self.rd_loss, lambda_val,
                                            ema_decay=ema_decay, clip_grad_norm=clip_grad_norm,
-                                           levels=levels)
+                                           levels=levels, mesh=mesh)
+        self._tensor_parallel = self._train_step.tensor_parallel
         if levels:
             self._val_kwargs = {"level": len(levels) // 2}
             self._val_lambda = float(levels[len(levels) // 2])
@@ -134,7 +163,9 @@ class Trainer:
 
         if resume and checkpoint_path is not None and checkpoint_exists(checkpoint_path):
             self.load_checkpoint()
-        self.logger = MetricsLogger(log_dir, purge_step=self.step)
+        # only rank 0 writes TensorBoard and JSONL
+        self.logger = (MetricsLogger(log_dir, purge_step=self.step)
+                       if self._is_main_process else NullLogger())
 
     # ------------------------------------------------------------------
     def _next_batch(self):
@@ -165,16 +196,25 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def save_checkpoint(self):
+        # every rank enters (gathering tensor-parallel optimizer state is a
+        # collective); rank 0 writes and the others wait for it at the barrier
+        if self._tensor_parallel is not None:
+            optimizer_state = self._tensor_parallel.optimizer_state_dict(self.optimizer)
+        else:
+            optimizer_state = self.optimizer.state_dict()
         state = {"model": self.model.state_dict(),
-                 "optimizer": self.optimizer.state_dict(),
+                 "optimizer": optimizer_state,
                  "rng": self.generator.get_state()}
         if self.ema_params is not None:
             state["ema_params"] = self.ema_params
         aux = {"step": int(self.step)}
         if self.plateau is not None:
             aux["plateau"] = self.plateau.state_dict()
-        save_checkpoint(self.checkpoint_path, state, aux)
-        print(f"Checkpoint saved at step {self.step} -> {self.checkpoint_path}")
+        if self._is_main_process:
+            save_checkpoint(self.checkpoint_path, state, aux)
+            print(f"Checkpoint saved at step {self.step} -> {self.checkpoint_path}")
+        if self._process_count > 1:
+            dist.barrier()
 
     def load_checkpoint(self):
         # on the host: load_state_dict copies the weights and moves Adam's
@@ -183,7 +223,10 @@ class Trainer:
         # dict carries the scheduled learning rate.
         state, aux = restore_checkpoint(self.checkpoint_path, map_location="cpu")
         self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        if self._tensor_parallel is not None:
+            self._tensor_parallel.load_optimizer_state_dict(self.optimizer, state["optimizer"])
+        else:
+            self.optimizer.load_state_dict(state["optimizer"])
         self.generator.set_state(state["rng"])
         if self.ema_params is not None:
             source = state.get("ema_params")
@@ -239,7 +282,10 @@ class Trainer:
             if self.scheduler is not None and self.step % self.scalar_interval == 0:
                 self.logger.scalar("train/learning_rate", self.current_lr(), self.step)
 
-            if self.step % self.log_interval == 0 or self.step % self.img_interval == 0:
+            # per-example diagnostics of one rank's rows would mislabel a
+            # multi-rank run: as in JAX, only a one-rank run draws them
+            if self._process_count == 1 and (self.step % self.log_interval == 0
+                                             or self.step % self.img_interval == 0):
                 self._diagnostics(batch)
 
             if (self.checkpoint_interval and self.checkpoint_path is not None
@@ -247,9 +293,19 @@ class Trainer:
                 self.save_checkpoint()
 
             self.step += 1
-            if self._stop_requested:
+            if self._should_stop():
                 print(f"stop requested: checkpointing at step {self.step}")
                 break
+
+    def _should_stop(self) -> bool:
+        """The stop decision, one for all ranks: a signal can reach some
+        ranks only, and a rank that left the loop alone would wait at the
+        checkpoint's barrier while the others step."""
+        if self._process_count == 1 or not self._preemption_safe:
+            return self._stop_requested
+        flag = torch.tensor([int(self._stop_requested)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     # ------------------------------------------------------------------
     def _log_scalars(self, metrics):
@@ -273,6 +329,13 @@ class Trainer:
             bpp += m["bpp_total"]
             psnr += m["psnr"]
             n += 1
+        if self._process_count > 1:
+            # each rank validates its share: sum over the ranks, so that every
+            # rank (and its plateau scheduler) sees one validation loss
+            sums = torch.tensor([total_loss, bpp, psnr, float(n)], dtype=torch.float64,
+                                device=self.device)
+            dist.all_reduce(sums)
+            total_loss, bpp, psnr, n = sums.tolist()
         if n == 0:
             return math.inf
         self.logger.scalar("validation/validation_loss", total_loss / n, self.step)

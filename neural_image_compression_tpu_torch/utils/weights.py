@@ -36,7 +36,7 @@ parameters back to the flax tree (the portable card quantizes flax-layout
 kernels, where a deconv kernel is the flipped direct-conv one).
 """
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -114,8 +114,14 @@ def joint_ar_params_to_jax(model: nn.Module) -> Dict:
     """The model's parameters as the flax ``params`` tree of the same family
     in the JAX package: float32 numpy copies (whatever the model's dtype) in
     the JAX layouts, the inverse of ``joint_ar_state_from_jax``."""
+    return state_to_jax(model.state_dict())
+
+
+def state_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
+    """A model's ``state_dict`` as the flax ``params`` tree
+    (``joint_ar_params_to_jax`` of a model holding it)."""
     params: Dict = {}
-    for key, tensor in model.state_dict().items():
+    for key, tensor in state.items():
         leaf, value = _to_jax(key, tensor.detach().to("cpu", torch.float32).numpy())
         node = params
         for name in key.split(".")[:-1]:
@@ -139,6 +145,38 @@ def load_jax_params(model: nn.Module, params: Mapping, strict: bool = True) -> n
                              f"shape {tuple(expected[key].shape)}")
     model.load_state_dict(state, strict=strict)
     return model
+
+
+def _tree_map(fn, tree: Mapping) -> Dict:
+    return {k: _tree_map(fn, v) if isinstance(v, Mapping) else fn(v) for k, v in tree.items()}
+
+
+def stacked_state_from_jax(params: Mapping) -> List[Dict[str, torch.Tensor]]:
+    """A stacked flax param tree (every leaf with a leading replica axis, as
+    JAX's ``vmapped_lambda_sweep`` holds its L replicas) -> one port
+    ``state_dict`` a replica, each leaf converted as
+    ``joint_ar_state_from_jax`` converts it."""
+    leaves = []
+    _tree_map(leaves.append, params)
+    n = {np.shape(leaf)[0] for leaf in leaves}
+    if len(n) != 1:
+        raise ValueError(f"the leaves' replica axes differ: {sorted(n)}")
+    return [joint_ar_state_from_jax(_tree_map(lambda v, i=i: np.asarray(v)[i], params))
+            for i in range(n.pop())]
+
+
+def stacked_state_to_jax(states: Sequence[Mapping[str, torch.Tensor]]) -> Dict:
+    """The inverse of ``stacked_state_from_jax``: L state dicts -> one flax
+    tree whose leaves stack the replicas on a leading axis."""
+    trees = [state_to_jax(state) for state in states]
+
+    def stack(tree_parts):
+        first = tree_parts[0]
+        return {k: (stack([t[k] for t in tree_parts]) if isinstance(first[k], Mapping)
+                    else np.stack([t[k] for t in tree_parts]))
+                for k in first}
+
+    return stack(trees)
 
 
 def _merged(a: Mapping, b: Mapping) -> Dict:

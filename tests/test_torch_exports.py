@@ -18,23 +18,21 @@ from neural_image_compression_tpu_torch.utils import restore_raw, save_checkpoin
 
 torch.set_num_threads(1)
 
-A5, A6 = "A5: parallel and sweep", "A6: serving export, config, CLI and data"
+A6 = "A6: serving export, config, CLI and data"
 
 NOT_PORTED = {
     "": {"config": A6, "Config": A6, "build_model": A6},
     "coding": {},
-    "data": {"shard_for_process": A5, "add_quantization_noise": A6, "is_saturated": A6,
+    "data": {"add_quantization_noise": A6, "is_saturated": A6,
              "preprocess_images": A6, "random_downsample_crop": A6,
              "download_coco_subset": A6},
     "entropy": {},
     "evaluation": {},
     "models": {},
     "ops": {},
-    "parallel": {n: A5 for n in ("batch_sharding", "init_distributed", "make_eval_step",
-                                 "make_mesh", "replicate", "replicated", "shard_batch",
-                                 "shard_params", "spatial_sharding", "tp_shardings")},
+    "parallel": {},
     "serving": {"export_model": A6, "save_exported": A6, "load_exported": A6},
-    "train": {"vmapped_lambda_sweep": A5},
+    "train": {},
     "utils": {},
 }
 

@@ -741,3 +741,48 @@ def test_scalable_codec_round_trip_on_card(cuda_device):
     np.testing.assert_allclose(f_tilde, out["F_tilde"].cpu().numpy(), rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="enhancement stream missing"):
         codec.decompress(base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True], ids=["batched_gamma", "shared_gamma"])
+def test_kernels_launch_under_vmap_and_grad_on_card(cuda_device, shared):
+    """torch.func.vmap(torch.func.grad(...)) through gdn and gmm_logp
+    launches the hand kernels: GDN once a replica forward and backward with
+    each replica's own gamma/beta, once for all with shared ones (dx only);
+    the mixture once for all, folded; results as a loop over replicas."""
+    from torch.func import grad, vmap
+
+    from neural_image_compression_tpu_torch.ops.kernels import reset_launch_counts
+
+    reps, n, c, k = 3, 4096, 128, 3
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(reps, n, c)).astype(np.float32)).to(cuda_device)
+    gamma = torch.from_numpy(np.abs(rng.normal(0, 0.05, (reps, c, c))).astype(np.float32)).to(
+        cuda_device)
+    beta = torch.from_numpy(rng.uniform(0.5, 1.5, (reps, c)).astype(np.float32)).to(cuda_device)
+    y, w, mus, sigmas = (torch.from_numpy(np.stack(a)).to(cuda_device) for a in zip(
+        *[mixture_symbols(n, k, c, seed) for seed in range(reps)]))
+
+    def loss(x, gamma, beta, w, mus, sigmas):
+        out = gdn_kernel.gdn(x, gamma, beta)
+        return (out * out).sum() - gmm_kernel.gmm_logp(y[0] + 0 * out, w, mus, sigmas).sum()
+
+    if shared:
+        gamma, beta = gamma[0], beta[0]
+        fn = vmap(grad(loss, argnums=(0, 3, 4, 5)), in_dims=(0, None, None, 0, 0, 0))
+    else:
+        fn = vmap(grad(loss, argnums=(0, 1, 2, 3, 4, 5)))
+    reset_launch_counts()
+    got = fn(x, gamma, beta, w, mus, sigmas)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    gdn_launches = 1 if shared else reps
+    assert counts == {"gdn": gdn_launches, "gmm_logp": 1, "gdn_backward": gdn_launches,
+                      "gmm_logp_backward": 1,
+                      "gdn_backward_params": 0 if shared else reps}, counts
+    for i in range(reps):
+        args = (x[i], gamma if shared else gamma[i], beta if shared else beta[i],
+                w[i], mus[i], sigmas[i])
+        want = grad(loss, argnums=(0, 3, 4, 5) if shared else (0, 1, 2, 3, 4, 5))(*args)
+        for g, ww in zip(got, want):
+            torch.testing.assert_close(g[i], ww, rtol=1e-5, atol=1e-5 * float(ww.abs().max()))

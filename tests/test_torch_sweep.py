@@ -19,6 +19,7 @@ from neural_image_compression_tpu_torch.models import GainedJointAR, JointAutore
 from neural_image_compression_tpu_torch.train import (
     gained_rd_curve, interp_lambda, lambda_sweep, plot_rd_curve,
 )
+from neural_image_compression_tpu_torch.train import trainer as trainer_module
 from neural_image_compression_tpu_torch.utils.weights import load_jax_params
 
 torch.set_num_threads(1)
@@ -98,7 +99,7 @@ def test_gained_rd_curve_default_levels(rig):
         assert torch.equal(v, before[k]), k
 
 
-def test_lambda_sweep_one_lambda(tmp_path, rig):
+def test_lambda_sweep_one_lambda(tmp_path, rig, monkeypatch):
     _, _, _, loader = rig
     train = [np.random.default_rng(3).uniform(size=(2, 64, 64, 3)).astype(np.float32)]
     out_dir = str(tmp_path / "sweep")
@@ -111,9 +112,19 @@ def test_lambda_sweep_one_lambda(tmp_path, rig):
         assert json.load(f) == pts
     assert os.path.isfile(os.path.join(out_dir, "ckpt", "lambda_0.01.pt"))
     assert os.path.isfile(os.path.join(out_dir, "runs", "lambda_0.01", "metrics.jsonl"))
-    with pytest.raises(NotImplementedError, match="A5"):
-        lambda_sweep(lambda: None, train, loader, [0.01], max_steps=1, out_dir=out_dir,
-                     mesh=object())
+    # a mesh goes to each run's Trainer (the data-parallel runs are
+    # test_torch_multiprocess.py's)
+    meshes = []
+
+    def trainer_with_mesh(*args, mesh=None, **kwargs):
+        meshes.append(mesh)
+        raise RuntimeError("stop after the Trainer's arguments")
+
+    monkeypatch.setattr(trainer_module, "Trainer", trainer_with_mesh)
+    mesh = object()
+    with pytest.raises(RuntimeError, match="stop after"):
+        lambda_sweep(lambda: None, train, loader, [0.01], max_steps=1, out_dir=out_dir, mesh=mesh)
+    assert meshes == [mesh]
 
 
 def test_plot_rd_curve_writes_a_png(tmp_path):

@@ -22,7 +22,11 @@ and 1000 (a batch on the card, or uint8 batches from a BatchLoader) beside
 the bare make_train_step, each also timed without the profiler and with
 its scalar logging split into the fetch and the sinks' writes; with --refine
 one call of coding.make_refiner (20 steps at lr 1e-2, lambda 0.005) on one
-768x512 image.
+768x512 image; with --sweep a step of train.vmapped_lambda_sweep over L = 3
+replicas (lambda 0.0018, 0.0067, 0.025; f32, batch 16 of 256x256: the
+grouped convolutions of torch.func.vmap, GDN once a replica) beside the
+single f32 training step, the sweep's window opened and closed from its
+log_fn (log_every=1: one host sync a step).
 Prints, per configuration, the device time by layer (cuDNN convolutions,
 the GDN kernels, the GDN backward split by launch: norm, mix, partials and
 reduce, the mixture-likelihood kernels, the optimizer, other) and
@@ -31,7 +35,7 @@ device time), then one JSON line with the same numbers. Imports only the
 port, never JAX; TF32 off as in chip_smoke.py, and cuDNN's autotuning off
 (its heuristic picks each convolution's algorithm) unless --autotune.
 
-    python3 tools/profile_torch_serve.py [--train | --trainer | --refine]
+    python3 tools/profile_torch_serve.py [--train | --trainer | --refine | --sweep]
         [--family joint_ar|hyperprior|checkerboard|channel_cb|factorized|residual|scalable]
         [--autotune]
 """
@@ -63,7 +67,7 @@ from neural_image_compression_tpu_torch.parallel import make_train_step  # noqa:
 from neural_image_compression_tpu_torch.serving import make_serving_fn  # noqa: E402
 from neural_image_compression_tpu_torch.data import BatchLoader  # noqa: E402
 from neural_image_compression_tpu_torch.train import (  # noqa: E402
-    MetricsLogger, Trainer, rd_loss, vision_rd_loss,
+    MetricsLogger, Trainer, rd_loss, vision_rd_loss, vmapped_lambda_sweep,
 )
 from neural_image_compression_tpu_torch.train import trainer as trainer_module  # noqa: E402
 
@@ -135,6 +139,12 @@ def profile_config(run, x, warmup=1):
             run(x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return summarize(prof, wall_ms)
+
+
+def summarize(prof, wall_ms):
+    """Device ms a call by layer and by kernel of a profile over ITERS calls
+    that took wall_ms."""
     by_layer = defaultdict(float)
     by_kernel = defaultdict(float)
     for evt in prof.key_averages():
@@ -341,6 +351,40 @@ def profile_refine(card):
     return results
 
 
+SWEEP_LAMBDAS = (0.0018, 0.0067, 0.025)
+
+
+def profile_sweep(card):
+    x = torch.rand((16, 256, 256, 3), generator=torch.Generator(device="cuda").manual_seed(7),
+                   device="cuda")
+    loss, lam = objective()
+    model = build(torch.float32)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8)
+    results = {"f32 train step, batch 16 of 256x256": profile_config(
+        make_train_step(model, opt, loss, lam), x, warmup=3)}
+    del opt
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    stamps = []
+
+    def window(line):
+        # after steps 0 and 1 (warm-up), ITERS steps profiled
+        stamps.append(time.perf_counter())
+        if len(stamps) == 2:
+            prof.start()
+        elif len(stamps) == 2 + ITERS:
+            torch.cuda.synchronize()
+            prof.stop()
+
+    model = build(torch.float32)
+    vmapped_lambda_sweep(model, SWEEP_LAMBDAS, [x], 2 + ITERS, rd_loss=loss, log_every=1,
+                         log_fn=window)
+    results[f"f32 sweep step, L={len(SWEEP_LAMBDAS)}"] = summarize(
+        prof, (stamps[-1] - stamps[1]) * 1e3)
+    for tag, r in results.items():
+        report(tag, r, card, "step")
+    return results
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = parser.add_mutually_exclusive_group()
@@ -350,6 +394,8 @@ def main() -> int:
                       help="profile a train.Trainer step against the bare training step")
     mode.add_argument("--refine", action="store_true",
                       help="profile latent refinement instead of the serving forward")
+    mode.add_argument("--sweep", action="store_true",
+                      help="profile a vmapped_lambda_sweep step (L=3, f32) beside one step")
     parser.add_argument("--family", choices=sorted(FAMILIES), default="joint_ar",
                         help="the model family to profile (M=128, K=3 where it has a "
                              "mixture; residual: M=192, K=1; scalable: M=192, M1=128, K=1)")
@@ -370,7 +416,8 @@ def main() -> int:
           f"{'on' if args.autotune else 'off'}")
     results = (profile_train(card) if args.train else
                profile_trainer(card) if args.trainer else
-               profile_refine(card) if args.refine else profile_serve(card))
+               profile_refine(card) if args.refine else
+               profile_sweep(card) if args.sweep else profile_serve(card))
     print(json.dumps({"card": card, "family": args.family, "autotune": args.autotune,
                       "profile": results}))
     return 0
