@@ -127,8 +127,18 @@ Phases, in order; any failure exits non-zero:
      its peak memory. 6L/6L/1/1 launches a sweep step (the replicas' GDN
      once each, the mixture folded), 6/0/1/0 for the one forward that
      finds the noise's shapes.
-Phases 4, 5, 6, 7, each family of phase 8, phase 9, phase 10, phase 11 and
-phase 12 are the main paths: the kernels' launch counts are set to 0 just
+  13. the CLI and the serving artifact (see cli_phase): the default
+     config's model (build_model), exported at 768x512 with a symbolic
+     batch in f32 and bf16, saved and loaded, called at batch 48 and 1
+     against make_serving_fn (6/0/1/0 a call) and timed beside it; then
+     through cli.main: preprocess of seeded images, 3 train steps at batch
+     16 of 256^2 (6/6/1/1 a step, the checkpoint written), compress and
+     decompress of one 768x512 image from that checkpoint (3/0/0/0 a call,
+     the bytes JointARCodec.compress writes, the latents exact) and export;
+     and the wavefront's host time split into its parameter sweep and its
+     CDFs and rANS.
+Phases 4, 5, 6, 7, each family of phase 8, phase 9, phase 10, phase 11,
+phase 12 and phase 13 are the main paths: the kernels' launch counts are set to 0 just
 before each and read just after it, and the kernels' record adds them up.
 ``--phase N`` (repeatable) runs phase 1 and phase N alone (7 and 10 bring
 4 and 5); the kernels' record then covers the phases run.
@@ -161,9 +171,11 @@ from neural_image_compression_tpu_torch.coding import (
     FactorizedPriorCodec, JointARCodec, MeanScaleHyperpriorCodec, PortableCard, ScalableCodec,
     build_channel_cb_cards, load_scalable_cards, make_refiner, save_scalable_cards,
 )
+from neural_image_compression_tpu_torch import cli
 from neural_image_compression_tpu_torch.coding import portable
 from neural_image_compression_tpu_torch.coding import backend as rans_backend
 from neural_image_compression_tpu_torch.coding import codec as codec_module
+from neural_image_compression_tpu_torch.config import Config, build_model
 from neural_image_compression_tpu_torch.data import BatchLoader
 from neural_image_compression_tpu_torch.entropy import mixture_likelihood
 from neural_image_compression_tpu_torch.evaluation import (
@@ -183,11 +195,14 @@ from neural_image_compression_tpu_torch.parallel import (
     init_distributed, make_eval_step, make_mesh, make_train_step, shard_batch,
 )
 from neural_image_compression_tpu_torch.parallel import train_step as train_step_module
-from neural_image_compression_tpu_torch.serving import make_serving_fn
+from neural_image_compression_tpu_torch.serving import (
+    export_model, load_exported, make_serving_fn, save_exported,
+)
 from neural_image_compression_tpu_torch.train import (
     Trainer, gained_rd_curve, msssim_rd_loss, rd_loss, vision_rd_loss, vmapped_lambda_sweep,
 )
 from neural_image_compression_tpu_torch.utils import flops
+from neural_image_compression_tpu_torch.utils.checkpoint import restore_raw, save_checkpoint
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device memory, TF32
 # on the tensor cores (GDN's channel mix, which the card can run there) and
@@ -3276,13 +3291,282 @@ def parallel_phase(dev, card, bare):
     return launches, results
 
 
+# --- phase 13: the CLI and the exported serving artifact ------------------------
+
+CLI_SEED = 30
+CLI_IMAGES, CLI_IMAGE_SIZE = 18, 384  # 384 * 0.75 = 288 >= 256: every image yields a patch
+CLI_TRAIN_STEPS = 3
+CLI_SWEEP_ITERS = 3
+# the loaded artifact against make_serving_fn on the same weights: the same
+# operations and kernels run in both, so they differ only where cuDNN's
+# algorithms sum in other orders from call to call (measured on an H100:
+# x_hat 2.2e-8 in f32, 0 in bf16; the bpps 0)
+EXPORT_XHAT_TOL, EXPORT_BPP_RTOL = 1e-6, 1e-5
+GDN_OP, GMM_OP = "nic_torch.gdn.default", "nic_torch.gmm_logp.default"
+
+
+def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).abs() / b.abs().clamp_min(1e-12)).max().item()
+
+
+def export_case(dev, total, card, tmp, dname, dtype):
+    """(a) the default config's model, (b) its artifact at HEIGHTxWIDTH with
+    a symbolic batch, saved and loaded, called at batch 48 and 1 against
+    make_serving_fn (within EXPORT_XHAT_TOL and EXPORT_BPP_RTOL), then both
+    timed in turns at batch 48."""
+    cfg = Config().model
+    cfg.dtype = dtype
+    model = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    exported = export_model(model, HEIGHT, WIDTH)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(tmp, f"serve_{dname}.pt2")
+    save_exported(exported, path)
+    t0 = time.perf_counter()
+    artifact = load_exported(path).module()
+    load_s = time.perf_counter() - t0
+    targets = [str(n.target) for n in artifact.graph.nodes if n.op == "call_function"]
+    check(targets.count(GDN_OP) == GDN_PER_FORWARD and targets.count(GMM_OP) == GMM_PER_FORWARD,
+          f"{dname} artifact: {targets.count(GDN_OP)} GDN and {targets.count(GMM_OP)} mixture "
+          "operator nodes")
+    serve = make_serving_fn(model)
+
+    def call(x):
+        with torch.inference_mode():
+            return artifact(x)
+
+    x48 = torch.from_numpy(np.random.default_rng(CLI_SEED).uniform(
+        size=(BATCH, HEIGHT, WIDTH, 3)).astype(np.float32)).to(dev)
+    r = dict(export_s=export_s, load_s=load_s, artifact_mb=os.path.getsize(path) / 1e6)
+    for size, x in (("batch", x48), ("one", x48[:1].contiguous())):
+        got, _ = counted(total, FORWARD, call, x)
+        want, _ = counted(total, FORWARD, serve, x)
+        xhat = (got["x_hat"] - want["x_hat"]).abs().max().item()
+        bpp = max(rel_diff(got[k], want[k]) for k in ("bpp_y", "bpp_z", "bpp_total"))
+        check(xhat <= EXPORT_XHAT_TOL and bpp <= EXPORT_BPP_RTOL,
+              f"{dname} artifact at batch {x.shape[0]}: x_hat {xhat:.3e}, bpp rel {bpp:.3e} "
+              "from make_serving_fn")
+        check(bool(torch.isfinite(got["x_hat"]).all() and (got["bpp_total"] > 0).all()),
+              f"{dname} artifact: x_hat not finite or bpp not positive")
+        r[f"{size}_xhat_max_abs_diff"] = xhat
+        r[f"{size}_bpp_max_rel_diff"] = bpp
+    times = {"artifact": [], "serve": []}
+    for _ in range(SERVE_ITERS):
+        for name, fn in (("artifact", call), ("serve", serve)):
+            _, seconds = counted(total, FORWARD, fn, x48)
+            times[name].append(seconds)
+    for name, ts in times.items():
+        r[f"{name}_img_per_s"] = BATCH / statistics.median(ts)
+    r["artifact_over_serve"] = r["artifact_img_per_s"] / r["serve_img_per_s"]
+    print(f"  {dname}: export {export_s:.1f} s, load {load_s:.2f} s, {r['artifact_mb']:.1f} MB; "
+          f"6/0/1/0 a call at batch {BATCH} and 1, x_hat within "
+          f"{max(r['batch_xhat_max_abs_diff'], r['one_xhat_max_abs_diff']):.2e} and bpp "
+          f"within rel {max(r['batch_bpp_max_rel_diff'], r['one_bpp_max_rel_diff']):.2e} "
+          f"of make_serving_fn; artifact {r['artifact_img_per_s']:.2f} img/s against "
+          f"make_serving_fn {r['serve_img_per_s']:.2f} at batch {BATCH} "
+          f"({r['artifact_over_serve']:.4f}x) [{card}]", flush=True)
+    del model, exported, artifact, serve
+    return r
+
+
+def cli_images(tmp):
+    """CLI_IMAGES seeded noise images for preprocess, and one HEIGHTxWIDTH
+    image (phase 6's uint8 image) for compress, as PNG files."""
+    from PIL import Image
+
+    raw = os.path.join(tmp, "raw")
+    os.makedirs(raw)
+    rng = np.random.default_rng(CLI_SEED)
+    for i in range(CLI_IMAGES):
+        Image.fromarray(rng.integers(0, 256, size=(CLI_IMAGE_SIZE, CLI_IMAGE_SIZE, 3),
+                                     dtype=np.uint8)).save(os.path.join(raw, f"im{i:02d}.png"))
+    image = codec_images()["uint8"]
+    path = os.path.join(tmp, "image.png")
+    Image.fromarray(image[0]).save(path)
+    return raw, path, image
+
+
+def cli_train_case(dev, total, tmp, raw):
+    """preprocess, then train CLI_TRAIN_STEPS steps of the default config at
+    batch 16 of 256^2 from the patches: 6/6/1/1 a step and 6/0/1/0 the
+    step-0 diagnostic forward, checked by wrapping the Trainer the CLI
+    builds; the checkpoint is written."""
+    patches = os.path.join(tmp, "patches")
+    t0 = time.perf_counter()
+    cli.main(["preprocess", "--input_dir", raw, "--output_dir", patches, "--seed", "0"])
+    preprocess_s = time.perf_counter() - t0
+    check(len(os.listdir(patches)) == CLI_IMAGES, f"preprocess wrote {os.listdir(patches)}")
+    cfg = Config()
+    cfg.data.train_dir = patches
+    cfg.train.max_steps = CLI_TRAIN_STEPS
+    cfg.train.log_interval = cfg.train.img_interval = 1000  # diagnostics at step 0 alone
+    cfg.train.log_dir = os.path.join(tmp, "runs")
+    cfg.train.checkpoint_path = os.path.join(tmp, "ckpt.pt")
+    cfg_path = os.path.join(tmp, "train.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    calls = {}
+    train = Trainer.train
+
+    def instrumented(trainer):
+        return train(instrument(trainer, total, calls))
+
+    t0 = time.perf_counter()
+    Trainer.train = instrumented  # the Trainer cli.main builds checks its own launches
+    try:
+        cli.main(["train", "--config", cfg_path, "--device", dev.type])
+    finally:
+        Trainer.train = train
+    train_s = time.perf_counter() - t0
+    check(calls == {"step": CLI_TRAIN_STEPS, "diagnostics": 1}, f"cli train calls {calls}")
+    check(os.path.isfile(cfg.train.checkpoint_path), "cli train wrote no checkpoint")
+    rows = jsonl(os.path.join(cfg.train.log_dir, "metrics.jsonl"))
+    losses = [r["value"] for r in rows if r["tag"] == "losses/loss"]
+    check(len(losses) == CLI_TRAIN_STEPS and all(np.isfinite(losses)), f"losses {losses}")
+    print(f"  preprocess: {CLI_IMAGES} patches of {CLI_IMAGE_SIZE}^2 images in "
+          f"{preprocess_s:.2f} s; train: {CLI_TRAIN_STEPS} steps at batch "
+          f"{cfg.data.batch_size} of {TRAIN_SIZE}^2 in {train_s:.1f} s (model build, data, "
+          f"TensorBoard and checkpoint included), loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{PER_STEP} a step", flush=True)
+    return cfg, dict(preprocess_s=preprocess_s, train_s=train_s, losses=losses)
+
+
+def cli_codec_case(dev, total, tmp, cfg, image_path, image):
+    """compress and decompress the image from the trained checkpoint, with
+    phase 6's gains on its bottleneck convs: 3/0/0/0 a call, the stream's
+    bytes equal to JointARCodec.compress's on the same weights, its
+    latents decoded exactly as the codec's analysis gave them, the PNG
+    equal to the codec's uint8 reconstruction; then export from the
+    checkpoint, loaded and called against make_serving_fn. Returns the
+    codec, the analysis' y_q and psi, and the results."""
+    state = restore_raw(cfg.train.checkpoint_path, map_location=dev)["model"]
+    model = build_model(cfg.model, device=dev)
+    model.load_state_dict(state)
+    with torch.no_grad():
+        for conv, gain in zip(bottleneck_convs(model), (PARITY_GAIN_Y, PARITY_GAIN_Z)):
+            conv.weight.mul_(gain)
+            conv.bias.mul_(gain)
+    cfg.train.checkpoint_path = os.path.join(tmp, "ckpt_gains.pt")
+    save_checkpoint(cfg.train.checkpoint_path, {"model": model.state_dict()})
+    cfg_path = os.path.join(tmp, "codec.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    common = ["--config", cfg_path, "--device", dev.type]
+    bits, rec = os.path.join(tmp, "image.nic"), os.path.join(tmp, "rec.png")
+    _, compress_s = counted(total, CODEC_PER_CALL, cli.main,
+                            ["compress", "--image", image_path, "--out", bits, *common])
+    with open(bits, "rb") as f:
+        meta = json.loads(f.read(int.from_bytes(f.read(2), "little")))
+        data = f.read()
+    check(meta == {"orig_h": HEIGHT, "orig_w": WIDTH}, f"stream meta {meta}")
+    n_streams = cli._auto_streams(argparse.Namespace(streams=None), cfg)
+    codec = JointARCodec(model)
+    want, _ = counted(total, CODEC_PER_CALL, lambda x: codec.compress(x, n_streams=n_streams),
+                      image)
+    check(data == want, f"cli compress wrote {len(data)} bytes, JointARCodec.compress "
+                        f"{len(want)} (n_streams {n_streams}); the bytes differ")
+    _, _, y_q, z_q, psi = counted(total, CODEC_PER_CALL, codec._analyse_image, image)[0]
+    check_latents("cli compress", codec.decode_latents(data), {"y_in": y_q, "z_in": z_q})
+    _, decompress_s = counted(total, CODEC_PER_CALL, cli.main,
+                              ["decompress", "--bitstream", bits, "--out", rec, *common])
+    from PIL import Image
+
+    # against JointARCodec.decompress's float image: its uint8 rounding, but
+    # for a step where x_hat * 255 lies within phase 6's tolerance of a tie
+    # (the synthesis' cuDNN sums may run in another order in another call)
+    recon = 255.0 * counted(total, CODEC_PER_CALL, codec.decompress, data)[0][0]
+    png = np.asarray(Image.open(rec)).astype(np.float64)
+    off = png != np.round(recon)
+    check(png.shape == recon.shape and np.abs(png - np.round(recon)).max() <= 1 and
+          (np.abs(recon[off] - np.floor(recon[off]) - 0.5) <= 255 * CODEC_F32_XHAT_TOL).all(),
+          f"cli decompress's PNG differs from JointARCodec.decompress's image beyond its "
+          f"rounding ({int(off.sum())} values)")
+    art = os.path.join(tmp, "cli.pt2")
+    _, export_s = counted(total, NO_LAUNCHES, cli.main, ["export", "--out", art, "--height", str(HEIGHT),
+                                                      "--width", str(WIDTH), *common])
+    x = torch.from_numpy(image.astype(np.float32) / 255.0).to(dev)
+
+    def call(xd):
+        with torch.inference_mode():
+            return load_exported(art).module()(xd)
+
+    got = counted(total, FORWARD, call, x)[0]
+    want_out = counted(total, FORWARD, make_serving_fn(model), x)[0]
+    xhat = (got["x_hat"] - want_out["x_hat"]).abs().max().item()
+    check(xhat <= EXPORT_XHAT_TOL and rel_diff(got["bpp_total"], want_out["bpp_total"])
+          <= EXPORT_BPP_RTOL, f"cli export's artifact: x_hat {xhat:.3e} from make_serving_fn")
+    check(bool((y_q != 0).any()), "cli compress: every y latent is 0")
+    r = dict(stream_bytes=len(data), n_streams=n_streams, nonzero_y=int((y_q != 0).sum()),
+             png_values_off_by_a_tie=int(off.sum()),
+             compress_s=compress_s, decompress_s=decompress_s, export_s=export_s,
+             artifact_xhat_max_abs_diff=xhat)
+    print(f"  compress / decompress (gains {PARITY_GAIN_Y:g}/{PARITY_GAIN_Z:g} on the trained "
+          f"checkpoint): {len(data)} bytes ({n_streams} streams) in {compress_s:.2f} / "
+          f"{decompress_s:.2f} s of command time, the bytes JointARCodec.compress writes, "
+          f"the analysis' latents decoded exactly ({r['nonzero_y']} nonzero y), the PNG the "
+          f"codec's image ({int(off.sum())} values a step off at a tie); 3/0/0/0 a call; "
+          f"export {export_s:.1f} s, its artifact within {xhat:.2e} of make_serving_fn",
+          flush=True)
+    return codec, y_q, psi, r
+
+
+def sweep_split_case(codec, y_q, psi, card):
+    """(d) the wavefront's host time at HEIGHTxWIDTH split into the parameter
+    sweep (arwave_param_sweep_time) and the CDFs + rANS (encode's rest)."""
+    coder = codec._host_nets.native_coder()
+    sweep, encode = [], []
+    for _ in range(CLI_SWEEP_ITERS):
+        t0 = time.perf_counter()
+        rans_backend.arwave_param_sweep_time(coder, y_q, psi)
+        sweep.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        coder.encode(y_q, psi)
+        encode.append(time.perf_counter() - t0)
+    r = dict(sweep_ms=1e3 * statistics.median(sweep), encode_ms=1e3 * statistics.median(encode))
+    r["cdf_rans_ms"] = r["encode_ms"] - r["sweep_ms"]
+    print(f"  wavefront at {HEIGHT}x{WIDTH} ({y_q.shape[0]}x{y_q.shape[1]}x{M} latents), one "
+          f"stream, median of {CLI_SWEEP_ITERS}: encode {r['encode_ms']:.1f} ms = parameter "
+          f"sweep {r['sweep_ms']:.1f} + CDFs and rANS {r['cdf_rans_ms']:.1f} "
+          f"({os.cpu_count()} host cores) [{card}]", flush=True)
+    return r
+
+
+def cli_phase(dev, card):
+    """Returns (launches of the phase's calls, results)."""
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    total = dict(NO_LAUNCHES)
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dname, dtype in (("float32", None), ("bfloat16", "bf16")):
+            results[f"export_{dname}"] = export_case(dev, total, card, tmp, dname, dtype)
+        try:
+            import PIL  # noqa: F401
+        except ImportError:
+            print("  preprocess, train, compress, decompress and the sweep split not run: PIL "
+                  "does not import on this machine (the image-file subcommands read and "
+                  "write image files)", flush=True)
+        else:
+            raw, image_path, image = cli_images(tmp)
+            cfg, results["train"] = cli_train_case(dev, total, tmp, raw)
+            codec, y_q, psi, results["codec"] = cli_codec_case(dev, total, tmp, cfg,
+                                                               image_path, image)
+            results["sweep"] = sweep_split_case(codec, y_q, psi, card)
+    launches = launch_counts()
+    check(launches == total, f"phase 13 launches {launches}, its calls counted {total}")
+    results["seconds"] = time.perf_counter() - t0
+    print(f"main path (CLI and serving artifact): launches {launches}; phase 13 took "
+          f"{results['seconds']:.1f} s", flush=True)
+    return launches, results
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
-    parser.add_argument("--phase", type=int, action="append", choices=range(2, 13),
+    parser.add_argument("--phase", type=int, action="append", choices=range(2, 14),
                         help="run phase 1 and this phase (repeatable; phases 7 and 10 bring "
                              "4 and 5, whose results they read); default: every phase. The "
                              "kernels' record then covers the phases run")
-    phases = set(parser.parse_args(argv).phase or range(2, 13))
+    phases = set(parser.parse_args(argv).phase or range(2, 14))
     if phases & {7, 10}:
         phases |= {4, 5}
     if not torch.cuda.is_available():
@@ -3401,6 +3685,13 @@ def main(argv=None) -> int:
         launches["parallel"], parallel_results = parallel_phase(
             dev, card, train_results if 5 in phases else None)
         print(json.dumps({"parallel": parallel_results, "card": card}))
+
+    if 13 in phases:
+        print(f"== phase 13: the CLI and the exported serving artifact, M={M} K={K} (the "
+              f"default config): export at {HEIGHT}x{WIDTH}, preprocess, train, compress, "
+              f"decompress, export [{card}]", flush=True)
+        launches["cli"], cli_results = cli_phase(dev, card)
+        print(json.dumps({"cli": cli_results, "card": card, "cpu_count": os.cpu_count()}))
 
     for r in records:
         r["launches"] = sum(path[r["name"]] for path in launches.values())

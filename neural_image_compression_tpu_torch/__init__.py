@@ -27,9 +27,11 @@ metrics, images and figures are written): never jax, flax or the JAX
 package.
 """
 
+from neural_image_compression_tpu_torch import config
+from neural_image_compression_tpu_torch.config import Config, build_model
 from neural_image_compression_tpu_torch import (
     coding, data, entropy, evaluation, models, ops, parallel, serving, train, utils,
 )
 
 __all__ = ["coding", "data", "entropy", "evaluation", "models", "ops", "parallel", "serving",
-           "train", "utils"]
+           "train", "utils", "config", "Config", "build_model"]

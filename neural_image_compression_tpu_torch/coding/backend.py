@@ -118,6 +118,8 @@ def get_lib() -> ctypes.CDLL:
         lib.arwave_encode_n.argtypes = [c_void_p, f32p, f32p, c_int, c_int, c_int, u8p, c_int]
         lib.arwave_decode_n.restype = c_int
         lib.arwave_decode_n.argtypes = [c_void_p, u8p, c_int, f32p, c_int, c_int, c_int, f32p]
+        lib.arwave_param_sweep.restype = ctypes.c_float
+        lib.arwave_param_sweep.argtypes = [c_void_p, f32p, f32p, c_int, c_int]
         i16p = ctypes.POINTER(ctypes.c_int16)
         i64p = ctypes.POINTER(ctypes.c_int64)
         c_int64 = ctypes.c_int64
@@ -394,6 +396,21 @@ class ArWaveCoder:
         if getattr(self, "_handle", None):
             self._lib.arwave_destroy(self._handle)
             self._handle = None
+
+
+def arwave_param_sweep_time(coder: ArWaveCoder, y_q: np.ndarray, psi: np.ndarray) -> float:
+    """Profiling: run the wavefront's parameter sweep alone (context gather
+    and entropy-parameter GEMMs, no CDF or rANS) once over y_q (H, W, M) and
+    psi (H, W, psi_dim); returns its checksum (the caller times the call).
+    Against ``encode``'s time this splits the coder's host time into the
+    sweep and the CDF/rANS work."""
+    y_q = np.ascontiguousarray(y_q, np.float32)
+    if y_q.ndim != 3 or y_q.shape[2] != coder.M:
+        raise ValueError(f"y_q {y_q.shape} is not (H, W, {coder.M})")
+    h, w = y_q.shape[:2]
+    psi = coder._psi(psi, h, w)
+    return float(coder._lib.arwave_param_sweep(coder._handle, _ptr(y_q, ctypes.c_float),
+                                               _ptr(psi, ctypes.c_float), h, w))
 
 
 def _check_streams(n_streams: int) -> None:

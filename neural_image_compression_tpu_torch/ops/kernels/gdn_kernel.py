@@ -101,6 +101,12 @@ def _check(x, gamma, beta):
     for t in (x, gamma, beta):
         if type(t) not in (torch.Tensor, torch.nn.Parameter):
             raise TypeError(f"the GDN kernels take plain tensors, got {type(t).__name__}")
+    _check_shapes(x, gamma, beta)
+
+
+def _check_shapes(x, gamma, beta):
+    """``_check``'s rules of shape, dtype, width, device and layout, which
+    hold for the fake tensors of an export too."""
     if x.dim() != 2:
         raise ValueError(f"x must be (N, C) rows, got shape {tuple(x.shape)}")
     c = x.shape[1]
@@ -225,14 +231,33 @@ class _GDNTransformable(torch.autograd.Function):
                             for i in range(n)]), 0
 
 
+@torch.library.custom_op("nic_torch::gdn", mutates_args=())
+def gdn_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+           inverse: bool) -> torch.Tensor:
+    """The GDN forward as an operator of its own, forward only: what
+    ``torch.export`` records in a graph in place of the kernel's call, so an
+    exported program launches the kernel where it runs on a CUDA device and
+    runs the plain version on the CPU, as ``gdn`` does."""
+    return _forward(x, gamma, beta, inverse)
+
+
+@gdn_op.register_fake
+def _(x, gamma, beta, inverse):
+    _check_shapes(x, gamma, beta)
+    return torch.empty_like(x)
+
+
 def gdn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         inverse: bool = False) -> torch.Tensor:
     """x: (N, C) float32|bfloat16; gamma: (C, C) [in -> out]; beta: (C,).
 
     gamma and beta arrive reparametrized (ops/bound.nonneg). Returns (N, C)
     in x's dtype, computed in float32; differentiable in x, gamma and beta,
-    also under ``torch.func.grad`` and ``torch.func.vmap``.
+    also under ``torch.func.grad`` and ``torch.func.vmap``. While
+    ``torch.export`` traces, the call is recorded as ``gdn_op``.
     """
+    if torch.compiler.is_exporting():
+        return gdn_op(x, gamma, beta, inverse)
     if torch._C._are_functorch_transforms_active():
         return _GDNTransformable.apply(x, gamma, beta, inverse)
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad

@@ -91,6 +91,12 @@ def _check(y, weights, mus, sigmas):
     for t in (y, weights, mus, sigmas):
         if type(t) not in (torch.Tensor, torch.nn.Parameter):
             raise TypeError(f"the mixture kernels take plain tensors, got {type(t).__name__}")
+    _check_shapes(y, weights, mus, sigmas)
+
+
+def _check_shapes(y, weights, mus, sigmas):
+    """``_check``'s rules of shape, dtype, K, device and layout, which hold
+    for the fake tensors of an export too."""
     if y.dim() != 2:
         raise ValueError(f"y must be (N, M), got shape {tuple(y.shape)}")
     n, m = y.shape
@@ -188,11 +194,29 @@ class _MixtureTransformable(torch.autograd.Function):
         return out.view(info.batch_size, -1, out.shape[-1]), 0
 
 
+@torch.library.custom_op("nic_torch::gmm_logp", mutates_args=())
+def gmm_logp_op(y: torch.Tensor, weights: torch.Tensor, mus: torch.Tensor,
+                sigmas: torch.Tensor) -> torch.Tensor:
+    """The mixture forward as an operator of its own, forward only: what
+    ``torch.export`` records in a graph in place of the kernel's call (the
+    kernel on a CUDA device, the plain version on the CPU, as ``gmm_logp``)."""
+    return _forward(y, weights, mus, sigmas)
+
+
+@gmm_logp_op.register_fake
+def _(y, weights, mus, sigmas):
+    _check_shapes(y, weights, mus, sigmas)
+    return torch.empty_like(y)
+
+
 def gmm_logp(y: torch.Tensor, weights: torch.Tensor, mus: torch.Tensor,
              sigmas: torch.Tensor) -> torch.Tensor:
     """log(max(sum_k w * (Phi(u) - Phi(l)), 1e-9)) -> (N, M) float32;
     differentiable in every input, also under ``torch.func.grad`` and
-    ``torch.func.vmap``."""
+    ``torch.func.vmap``. While ``torch.export`` traces, the call is
+    recorded as ``gmm_logp_op``."""
+    if torch.compiler.is_exporting():
+        return gmm_logp_op(y, weights, mus, sigmas)
     if torch._C._are_functorch_transforms_active():
         return _MixtureTransformable.apply(y, weights, mus, sigmas)
     if torch.is_grad_enabled() and any(

@@ -224,6 +224,27 @@ def test_interleaved_coder_bytes_match_jax(pair, n_streams):
     assert len(data) <= len(coder.encode(y_q, psi)) + 8 * n_streams
 
 
+def test_param_sweep_checksum_matches_jax(pair):
+    """arwave_param_sweep_time (the wavefront's parameter sweep alone, for
+    profiling) returns the JAX binding's checksum on the same weights, y_q
+    and psi; its arguments are checked like encode's."""
+    K, _, params, model = pair
+    rng = np.random.default_rng(31 + K)
+    h, w = 6, 9
+    y_q = np.round(rng.normal(scale=2.0, size=(h, w, M))).astype(np.float32)
+    psi = rng.normal(size=(h, w, 2 * M)).astype(np.float32)
+    coder = codec._HostParamNets(model).native_coder()
+    got = backend.arwave_param_sweep_time(coder, y_q, psi)
+    jnets = jcodec._HostParamNets(params["context_model"], params["entropy_parameters"], M, K)
+    assert got == jbackend.arwave_param_sweep_time(jnets.native_coder(), y_q, psi)
+    assert np.isfinite(got) and got != 0.0
+    assert backend.arwave_param_sweep_time(coder, y_q + 1, psi) != got
+    with pytest.raises(ValueError, match="psi"):
+        backend.arwave_param_sweep_time(coder, y_q, psi[:, :-1])
+    with pytest.raises(ValueError, match="y_q"):
+        backend.arwave_param_sweep_time(coder, y_q[..., :-1], psi)
+
+
 LAYOUTS = {"tiles2x2": dict(tiles=(2, 2)), "tiles1x3": dict(tiles=(1, 3)),
            "streams2": dict(n_streams=2), "streams8": dict(n_streams=8)}
 

@@ -5,7 +5,9 @@ grid (M=128, K=3, 768x512 -> 32x48 latents), with no device in the loop.
 Random integer latents and psi (seeded) go through the wavefront coder as
 one stream and as N interleaved streams (encode_n / decode_n: OpenMP
 threads over the streams of each wave), and through the portable integer
-coder. Prints the median ms of a few calls, the bytes, the host's core
+coder. The one stream's encode is also split into the wavefront's
+parameter sweep alone (``backend.arwave_param_sweep_time``: context gather
+and entropy-parameter GEMMs) and the rest (CDFs and rANS). Prints the median ms of a few calls, the bytes, the host's core
 count and the OpenMP settings it ran under, then one JSON line. The weights
 are the model's random init from a seed; the coders' work does not depend
 on their values.
@@ -25,7 +27,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from neural_image_compression_tpu_torch.coding import PortableCard, codec  # noqa: E402
+from neural_image_compression_tpu_torch.coding import PortableCard, backend, codec  # noqa: E402
 from neural_image_compression_tpu_torch.coding.portable import (  # noqa: E402
     portable_ar_decode, portable_ar_encode,
 )
@@ -61,6 +63,9 @@ def main() -> int:
     out["one_stream"] = dict(bytes=len(one), encode_ms=median_ms(lambda: coder.encode(y, psi),
                                                                  args.reps),
                              decode_ms=median_ms(lambda: coder.decode(one, psi, H, W), args.reps))
+    r = out["one_stream"]
+    r["sweep_ms"] = median_ms(lambda: backend.arwave_param_sweep_time(coder, y, psi), args.reps)
+    r["cdf_rans_ms"] = r["encode_ms"] - r["sweep_ms"]
     for n in STREAMS:
         data = coder.encode_n(y, psi, n)
         out["streams"][n] = dict(
@@ -78,7 +83,8 @@ def main() -> int:
           f"OMP_WAIT_POLICY={out['omp_wait_policy']}")
     r = out["one_stream"]
     print(f"one stream: {r['bytes']} bytes, encode {r['encode_ms']:.1f} ms, "
-          f"decode {r['decode_ms']:.1f} ms")
+          f"decode {r['decode_ms']:.1f} ms; of the encode, the parameter sweep "
+          f"{r['sweep_ms']:.1f} ms and CDFs + rANS {r['cdf_rans_ms']:.1f} ms")
     for n, r in out["streams"].items():
         print(f"n_streams={n}: +{r['extra_bytes']} bytes, encode {r['encode_ms']:.1f} ms, "
               f"decode {r['decode_ms']:.1f} ms")
