@@ -16,7 +16,11 @@ Phases, in order; any failure exits non-zero:
      device time beside that launch's bytes floor and torch.mm's time for
      the same product); GDN forward and backward also at a ragged row
      count, at 192 and 256 channels and at 10, the backward also at 1 and
-     63 rows, a last chunk of 3 rows and 200 channels.
+     63 rows, a last chunk of 3 rows and 200 channels; the forward's wide
+     loop (C > 128, its launch geometry printed) at 1, 63, 65, 4,099 and
+     8,581 rows of 192, 200 and 256 channels. Phases 2, 9 and 11 print the
+     forward's earlier time from PERF.md beside its rows at C = 192 and 256
+     (and at C = 128, whose loop is unchanged).
   3. cross-device parity: the M=128, K=3 eval forward, and one float32
      training step's loss and parameter gradients (batch 1 at 256x256, the
      noise drawn once on the CPU), on the card against the same weights on
@@ -236,6 +240,27 @@ GDN_EXTRA_CASES = ((100_003, 128), (65_536, 192), (65_536, 256), (65_536, 10))
 # (16,387: 64 chunks of 256, then 3), a width that leaves half of a dgamma
 # tile empty
 GDN_BWD_EXTRA_CASES = GDN_EXTRA_CASES + ((1, 128), (63, 128), (16_387, 128), (4_099, 200))
+# the forward's wide loop (C > 128: clusters walking tiles of 128 or 192
+# rows): fewer rows than a tile, a ragged tile, 33 or 22 tiles, and 68 or 45
+# (more tiles than some clusters of 4), at C = 192, 200 and 256
+GDN_WIDE_CASES = tuple((rows, c) for c in (192, 200, 256)
+                       for rows in (1, 63, 65, 4_099, 8_581))
+# the forward's times (CUDA-event ms, f32 / bf16) in PERF.md before the wide
+# loop replaced the C > 128 forward: (path, site, C, dtype) -> ms; printed
+# beside each timed row that has one, with the C=128 rows of the unchanged
+# loop
+GDN_BEFORE_MS = {
+    ("serve", "H/2", 128, "float32"): 1.6778, ("train", "H/2", 128, "float32"): 0.1123,
+    ("codec", "H/2", 128, "float32"): 0.0565,
+    ("serve", "H/2", 192, "float32"): 4.9281, ("serve", "H/2", 192, "bfloat16"): 1.8872,
+    ("train", "H/2", 192, "float32"): 0.3033, ("train", "H/2", 192, "bfloat16"): 0.1420,
+    ("codec", "H/2", 192, "float32"): 0.1303, ("codec", "H/2", 192, "bfloat16"): 0.0671,
+    ("serve", "H/8", 128, "float32"): 0.1252, ("serve", "H/8", 128, "bfloat16"): 0.0942,
+    ("serve", "H/8", 256, "float32"): 0.7955, ("serve", "H/8", 256, "bfloat16"): 0.2122,
+    ("train", "H/8", 128, "float32"): 0.0688, ("train", "H/8", 256, "float32"): 0.0541,
+    ("decompress_base", "H/8", 128, "float32"): 0.0444,
+    ("decompress_base", "H/8", 256, "float32"): 0.0501,
+}
 PARTIALS_CALLS = 5  # backward calls profiled for the partials launch's device time
 PROFILE_ATTEMPTS = 3
 # bf16 GDN against its plain version: at most one bf16 step apart, and only
@@ -395,9 +420,11 @@ def gdn_site_records(path, sites, rng, gamma_t, beta_t, dev, tag="", inverses=(F
                     name="gdn", **KERNEL_INFO["gdn"], path=path, site=site, inverse=inverse,
                     shape=[rows, c], dtype=dname, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, peak=peak, library_ms=None))
+                before = GDN_BEFORE_MS.get((path, site, c, dname))
                 print(f"  {name:4s}{tag} {path} {site} rows={rows} {dname:8s} "
                       f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                      f"({bound_by}, {100 * bound_ms / ms:.1f}% of it)", flush=True)
+                      f"({bound_by}, {100 * bound_ms / ms:.1f}% of it)"
+                      + (f"  PERF.md before: {before:.4f} ms" if before else ""), flush=True)
         del x32, x
     return records
 
@@ -408,7 +435,11 @@ def gdn_cases(dev):
     records = []
     for path, sites in (("serve", GDN_SITES), ("train", TRAIN_GDN_SITES)):
         records += gdn_site_records(path, sites, rng, gamma_t, beta_t, dev)
-    for rows, c in GDN_EXTRA_CASES:
+    for c in (192, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            print(f"  wide loop, C={c} {str(dtype).replace('torch.', '')}: "
+                  f"{gdn_kernel.wide_geometry(c, torch.finfo(dtype).bits // 8)}")
+    for rows, c in GDN_EXTRA_CASES + GDN_WIDE_CASES:
         gamma_c, beta_c = gdn_params(c, rng, dev)
         x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
         for dtype in (torch.float32, torch.bfloat16):

@@ -15,7 +15,10 @@
 // take at 3.35 TB/s, so once the tensor cores carry the product the kernel is
 // bound by bytes, in float32 and in bfloat16. Its aim is to read x once and
 // write out once, and to keep the tensor cores and the epilogue under the
-// shadow of those copies.
+// shadow of those copies. Split three ways (below), the products take about
+// two thirds of the bytes' time at C = 128, and as long as the bytes at
+// C = 192 and longer at 256: there they must overlap the copies almost
+// completely.
 //
 // Precision: a single TF32 or bf16 product (11 or 8 significant bits) would
 // move the norm by about 1e-3 relative. So each product is split and all
@@ -29,22 +32,29 @@
 //     is exact; gamma splits into a bf16 hi and lo. Relative error of the norm
 //     below 1e-5, far under half a bf16 step of the output (about 2e-3).
 //
-// Design: the loop of csrc/gdn_wgmma.cuh (persistent blocks, a TMA ring of
-// 64-row x tiles, gamma^T's hi and lo planes resident as wgmma's B, x squared
-// and split in registers as A), with
-//   - two (float32) or three (bfloat16) warpgroups taking turns on the
-//     tiles; three measured faster for bf16 and slower for float32 (register
-//     cap of 168 a thread at 384 threads);
-//   - epilogue: + beta, rsqrt/sqrt, times x read from the same shared tile,
-//     written back in place in x's type, then one TMA store per column block
-//     (TMA clips the ragged last tile, so the wrapper pads no rows);
-//   - widths: C is padded to CP, a multiple of 64, in shared memory only.
-//     A row stride that is not a multiple of 16 bytes cannot be described to
-//     TMA: the wrapper pads such x (test widths only) before the launch.
-// The kernel's name keeps `gdn_rows_kernel`: tools/profile_torch_serve.py
-// finds it by that name.
+// Design, by width (C padded to CP, a multiple of 64, in shared memory only):
+//   - CP = 64 and 128: the loop of csrc/gdn_wgmma.cuh (persistent blocks, a
+//     TMA ring of 64-row x tiles, gamma^T's hi and lo planes resident as
+//     wgmma's B, x squared and split in registers as A). Every output
+//     channel's gamma fits in one block beside the ring, so each block
+//     reads its tiles once. Two (float32) or three (bfloat16) warpgroups
+//     take turns on the tiles; three measured faster for bf16 and slower
+//     for float32 (register cap of 168 a thread at 384 threads). Epilogue:
+//     + beta, rsqrt/sqrt, times x read from the same shared tile, written
+//     back in place in x's type, then one TMA store per column block (TMA
+//     clips the ragged last tile, so the wrapper pads no rows).
+//   - CP = 192 and 256: the loop of csrc/gdn_wide.cuh. gamma's planes do
+//     not fit in one block there, so a thread-block cluster holds them in
+//     slices, each x box comes from L2 once per cluster (TMA multicast), a
+//     producer thread keeps a ring of boxes in flight that the consumers
+//     release as soon as they have read them into registers, and the
+//     epilogue writes out from registers. That file says why.
+// A row stride that is not a multiple of 16 bytes cannot be described to
+// TMA: the wrapper pads such x (test widths only) before the launch.
+// The kernels' names keep `gdn_rows_kernel`: tools/profile_torch_serve.py
+// finds them by that name.
 
-#include "gdn_wgmma.cuh"
+#include "gdn_wide.cuh"
 
 namespace {
 
@@ -124,14 +134,29 @@ cudaError_t launch_dir(int inverse, const CUtensorMap& xm, const CUtensorMap& om
                  : launch<T, CP, false>(xm, om, g, b, n, c, s);
 }
 
+template <typename T, int CP, bool INVERSE>
+cudaError_t launch_wide(const CUtensorMap& x_map, void* out, const float* gamma,
+                        const float* beta, int n, int c, cudaStream_t stream) {
+  static int clusters_of[MAX_DEVICES] = {};
+  return launch_clusters<Wide<T, CP>>(gdn_rows_kernel_cluster<T, CP, INVERSE>, clusters_of, n,
+                                      stream, x_map, static_cast<T*>(out), gamma, beta, n, c);
+}
+
+template <typename T, int CP>
+cudaError_t launch_wide_dir(int inverse, const CUtensorMap& xm, void* out, const float* g,
+                            const float* b, int n, int c, cudaStream_t s) {
+  return inverse ? launch_wide<T, CP, true>(xm, out, g, b, n, c, s)
+                 : launch_wide<T, CP, false>(xm, out, g, b, n, c, s);
+}
+
 template <typename T>
-cudaError_t launch_width(int inverse, const CUtensorMap& xm, const CUtensorMap& om,
+cudaError_t launch_width(int inverse, const CUtensorMap& xm, const CUtensorMap& om, void* out,
                          const float* g, const float* b, int n, int c, cudaStream_t s) {
   switch ((c + 63) / 64) {
     case 1: return launch_dir<T, 64>(inverse, xm, om, g, b, n, c, s);
     case 2: return launch_dir<T, 128>(inverse, xm, om, g, b, n, c, s);
-    case 3: return launch_dir<T, 192>(inverse, xm, om, g, b, n, c, s);
-    default: return launch_dir<T, 256>(inverse, xm, om, g, b, n, c, s);
+    case 3: return launch_wide_dir<T, 192>(inverse, xm, out, g, b, n, c, s);
+    default: return launch_wide_dir<T, 256>(inverse, xm, out, g, b, n, c, s);
   }
 }
 
@@ -151,9 +176,12 @@ extern "C" int gdn_forward(const void* x, const void* gamma, const void* beta, v
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // the wide loop (c > 128) reads boxes of a whole tile and writes out without TMA
+  const bool wide = c > 128;
+  const int box_rows = wide ? wide_tile_rows(esz, c) : ROWS;
   CUtensorMap x_map, out_map;
-  if (!make_map(&x_map, const_cast<void*>(x), n, c, is_bf16 != 0) ||
-      !make_map(&out_map, out, n, c, is_bf16 != 0)) {
+  if (!make_map(&x_map, const_cast<void*>(x), n, c, is_bf16 != 0, box_rows) ||
+      (!wide && !make_map(&out_map, out, n, c, is_bf16 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -161,7 +189,7 @@ extern "C" int gdn_forward(const void* x, const void* gamma, const void* beta, v
   const float* b = static_cast<const float*>(beta);
   const int rows = static_cast<int>(n);
   const cudaError_t err =
-      is_bf16 ? launch_width<__nv_bfloat16>(inverse, x_map, out_map, g, b, rows, c, s)
-              : launch_width<float>(inverse, x_map, out_map, g, b, rows, c, s);
+      is_bf16 ? launch_width<__nv_bfloat16>(inverse, x_map, out_map, out, g, b, rows, c, s)
+              : launch_width<float>(inverse, x_map, out_map, out, g, b, rows, c, s);
   return static_cast<int>(err);
 }

@@ -4,6 +4,15 @@
 // an (N, C) x (C, C) channel mix of 64-row tiles with gamma resident in
 // shared memory, on Hopper's wgmma with TMA-fed tiles (sm_90a).
 //
+// Which widths it serves: the forward at C <= 128 (CP 64 and 128), and
+// the backward's norm and mix launches at every width. The forward at
+// CP = 192 and 256 runs the loop of csrc/gdn_wide.cuh instead: there gamma
+// of every output channel does not fit in one block beside a ring of row
+// tiles, and this loop's answer (each block a slice of the outputs, each
+// block loading and splitting every tile for itself, a stage refilled only
+// after its epilogue and store) reads the tiles several times and leaves a
+// warpgroup waiting for a load on every tile.
+//
 //   - Persistent blocks, one per SM, each walking 64-row tiles. Each block
 //     computes a fixed slice of NB output channels for all its rows; for the
 //     widths where gamma fits (float32 C <= 128, bfloat16 C <= 192) that slice
@@ -55,6 +64,8 @@ constexpr int MAX_DEVICES = 64;
 
 // Output channels per block: all of them where both gamma planes fit beside
 // at least two row tiles, else a slice (the grid then covers CP / NB slices).
+// The slices serve the backward's launches at CP = 192 and 256; the forward
+// at those widths has its own geometry (csrc/gdn_wide.cuh, `Wide`).
 constexpr int nb_of(int esz, int cp) {
   return esz == 4 ? (cp <= 128 ? cp : cp == 192 ? 64 : 32) : (cp <= 192 ? cp : 128);
 }
@@ -177,7 +188,8 @@ __device__ __forceinline__ uint32_t tf32_rna(float v) {
 }
 
 // m64nNk8 (TF32) and m64nNk16 (bf16) with A (four 32-bit registers a
-// thread) from registers, B from shared memory, float32 accumulate.
+// thread) from registers, B from shared memory, float32 accumulate. N = 96
+// is the wide forward's (csrc/gdn_wide.cuh), the others mix_rows' too.
 template <int N>
 struct Mma;
 
@@ -229,6 +241,41 @@ template <> struct Mma<64> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Mma<96> {
+  static __device__ __forceinline__ void tf32(float* d, const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void bf16(float* d, const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };

@@ -1,0 +1,592 @@
+// The GDN / IGDN forward at the wide widths, CP = 192 and 256 (C from 129
+// to 256): a thread-block cluster per group of row tiles, on Hopper's wgmma
+// with TMA-fed tiles (sm_90a). csrc/gdn_kernel.cu launches it; the narrower
+// widths run csrc/gdn_wgmma.cuh's mix_rows.
+//
+// Why a loop of its own: gamma's hi and lo planes take 2 * C * C * sizeof
+// (float32: 288 KB at C = 192, 512 KB at 256; bfloat16 half that), more
+// than one block's 227 KB beside a ring of row tiles, so the output
+// channels must be cut into slices that different blocks hold. At these
+// widths the 3-way split products also cost about as much as the bytes
+// (2 * 3 * N * C^2 operations: 2.11 ms at the TF32 peak against 2.16 ms for
+// the bytes at C = 192, N = 4,718,592), so the products must run under the
+// copies almost all the time. The design:
+//
+//   - A cluster of S blocks (`Wide::S`) walks the same row tiles; block
+//     rank r holds gamma's planes for output channels [r NB, (r + 1) NB),
+//     NB = CP / S, resident for its life (K-major, 128-byte swizzle, as
+//     mix_rows holds them). S is as small as shared memory allows: float32
+//     192 in 2 x 96, 256 in 4 x 64; bfloat16 192 in 2 x 96, 256 in 2 x 128.
+//   - Each x box (a tile's rows x 128 bytes: one K block of the tile) is
+//     fetched from L2 once per cluster: the cluster's rank 0 issues it with
+//     cp.async.bulk.tensor .multicast::cluster into the same ring stage of
+//     every block, and it signals each block's own "full" mbarrier. Every
+//     block's producer arms its own barrier for each box. A stage is
+//     refilled once every consumer warp of every block has released it: the
+//     warps arrive on rank 0's "empty" mbarrier of that stage through the
+//     cluster's shared memory window (mapa), 4 x consumers x S a phase.
+//   - Loads never wait on an epilogue: a producer thread keeps the ring (as
+//     many boxes as shared memory holds beside the planes, 64 to 144 KB)
+//     full, and a consumer warp releases a box as soon as it has read the
+//     box into registers (its A fragments, and the x values its epilogue
+//     needs), before its products run. A block-scope fence first makes
+//     each lane's reads of the box complete: a read may wait behind the
+//     warp's last stores to device memory, and without it the next box can
+//     land first (wrong rows in some launches at C = 192 on an H100). The epilogue
+//     writes out from registers to device memory, 16 bytes a lane after an
+//     exchange within each quad, so no store reads the ring either.
+//   - Two or three consumer warpgroups share each tile, 64 rows each, with
+//     M = 64 wgmma (m64nNBk8 TF32, m64nNBk16 bf16), and each builds the next
+//     box's split fragments while the previous box's products run (one
+//     set of fragments at bfloat16 256, where registers allow no second).
+//     The wgmma of one warpgroup hides behind another's: three beat two
+//     wherever their registers hold (`wide_consumers_of`). Block rank is a
+//     template parameter of the consumer loop, so which boxes hold the
+//     block's own output channels, and where, is known when it is compiled
+//     (the x values for the epilogue land in registers).
+//   - 384 or 512 threads: the consumers and a producer warpgroup, which
+//     hands its registers to them (setmaxnreg: 40 a thread for the
+//     producer, 232 or 152 for the consumers, from the 168 or 128 of the
+//     launch).
+//   - The grid is as many clusters as the card holds at once
+//     (cudaOccupancyMaxActiveClusters; H100's GPCs do not all hold the same
+//     number: 66 clusters of 2, 30 of 4), at most one a tile, launched with
+//     cudaLaunchKernelEx and the cluster dimension. Rank 0's producer waits
+//     for the last releases of every stage before it exits, so no remote
+//     arrival lands on a block that is gone.
+//
+// The split and its precision are mix_rows': 3xTF32 (float32 x) or exact
+// 3xbf16 (bfloat16 x), float32 accumulate; csrc/gdn_kernel.cu says why.
+
+#pragma once
+
+#include "gdn_wgmma.cuh"
+
+namespace {
+
+constexpr int WIDE_MIN_RING = 64 * 1024;  // bytes of x the ring holds at least
+
+// Blocks per cluster: the fewest whose gamma slices (hi and lo planes) fit
+// beside a ring of at least 64 KB.
+constexpr int wide_cluster_of(int esz, int cp) { return esz == 4 && cp == 256 ? 4 : 2; }
+// Consumer warpgroups a block, each taking 64 rows of a tile: three where
+// their registers hold (the wgmma of one hides behind another's: float32
+// 256 takes a third less time with three than with two on an H100), two
+// for float32 192, whose 96-channel accumulator and x need more than three
+// warpgroups' 152 registers a thread. tools/gdn_variants.py with
+// tools/gdn_wide_variants.json times these choices undone (PERF.md §6).
+constexpr int wide_consumers_of(int esz, int cp) { return esz == 4 && cp == 192 ? 2 : 3; }
+// Sets of split fragments a consumer holds: two let it build the next
+// box's while the products of this one run; bfloat16 256 keeps one (its
+// 128-channel accumulator and x leave no room for two beside 152
+// registers), and its three consumers overlap each other instead.
+constexpr int wide_fragment_sets_of(int esz, int cp) { return esz == 2 && cp == 256 ? 1 : 2; }
+// Rows of a tile (and of x's TMA box) at width c.
+constexpr int wide_tile_rows(int esz, int c) {
+  return ROWS * wide_consumers_of(esz, (c + 63) / 64 * 64);
+}
+
+template <typename T, int CP>
+struct Wide {
+  static constexpr int ESZ = sizeof(T);
+  static constexpr int COLS = BOX_BYTES / ESZ;           // channels per box: 32 or 64
+  static constexpr int BOXES = CP / COLS;                // K blocks per tile
+  static constexpr int KSTEPS = 4;                       // wgmma k-steps (32 bytes) per box
+  static constexpr int S = wide_cluster_of(ESZ, CP);
+  static constexpr int NB = CP / S;                      // output channels per block
+  static constexpr int CONSUMERS = wide_consumers_of(ESZ, CP);
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
+  static constexpr int TILE_ROWS = ROWS * CONSUMERS;
+  static constexpr int BOX = TILE_ROWS * BOX_BYTES;      // one stage: one K block of a tile
+  // registers a thread after setmaxnreg: the producer's 40 go to the consumers
+  // (a block starts with the registers of its launch, 65536 / THREADS a
+  // thread in multiples of 8; setmaxnreg only moves them between warpgroups)
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+  static constexpr int SHARED_REGS =
+      (LAUNCH_REGS * (CONSUMERS + 1) - PRODUCER_REGS) / CONSUMERS / 8 * 8;
+  static constexpr int CONSUMER_REGS = SHARED_REGS < 232 ? SHARED_REGS : 232;
+  static constexpr int FRAGS = wide_fragment_sets_of(ESZ, CP);
+  static constexpr int PLANE_BYTES = NB * CP * ESZ;      // one gamma plane
+  static constexpr int STAGES = (SMEM_LIMIT - SMEM_RESERVE - 2 * PLANE_BYTES) / BOX;
+  // each consumer warp of each block releases every stage
+  static constexpr int RELEASES = 4 * CONSUMERS * S;
+  static constexpr int SMEM = 1024 + 2 * PLANE_BYTES + STAGES * BOX + NB * 4 +
+                              2 * STAGES * 8;
+  static_assert(CP == 192 || CP == 256, "the wide loop serves CP 192 and 256");
+  static_assert(S >= 2 && CP % S == 0 && NB % (ESZ == 4 ? 16 : 32) == 0 && NB <= 128,
+                "S; NB: a wgmma N, whole 16-byte pieces of the epilogue's quads");
+  static_assert(STAGES * BOX >= WIDE_MIN_RING, "a ring of at least 64 KB");
+  static_assert(SMEM <= SMEM_LIMIT, "shared memory");
+  static_assert(PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <= LAUNCH_REGS * (CONSUMERS + 1) &&
+                    CONSUMER_REGS >= LAUNCH_REGS,
+                "setmaxnreg: the consumers take no more than the producer gives");
+};
+
+// The geometry each instantiation gets (tests/test_torch_kernels.py holds
+// ops/kernels/gdn_kernel.py's mirror, `wide_geometry`, to these lines).
+static_assert(Wide<float, 192>::S == 2 && Wide<float, 192>::NB == 96 &&
+              Wide<float, 192>::CONSUMERS == 2 && Wide<float, 192>::STAGES == 5 &&
+              Wide<float, 192>::SMEM == 230864, "f32 192");
+static_assert(Wide<float, 256>::S == 4 && Wide<float, 256>::NB == 64 &&
+              Wide<float, 256>::CONSUMERS == 3 && Wide<float, 256>::STAGES == 4 &&
+              Wide<float, 256>::SMEM == 230720, "f32 256");
+static_assert(Wide<__nv_bfloat16, 192>::S == 2 && Wide<__nv_bfloat16, 192>::NB == 96 &&
+              Wide<__nv_bfloat16, 192>::CONSUMERS == 3 && Wide<__nv_bfloat16, 192>::STAGES == 6 &&
+              Wide<__nv_bfloat16, 192>::SMEM == 222688, "bf16 192");
+static_assert(Wide<__nv_bfloat16, 256>::S == 2 && Wide<__nv_bfloat16, 256>::NB == 128 &&
+              Wide<__nv_bfloat16, 256>::CONSUMERS == 3 && Wide<__nv_bfloat16, 256>::STAGES == 4 &&
+              Wide<__nv_bfloat16, 256>::SMEM == 230976, "bf16 256");
+
+// --- cluster PTX ----------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_id_x() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_count_x() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+// The warpgroup's registers a thread, lowered (the producer) or raised (the
+// consumers) from the 168 that 384 threads start with.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+// Every thread of every block of the cluster arrives, then waits for the rest.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// One arrival on the mbarrier at the same offset as `bar` in the block of
+// rank `rank`, ordered after this thread's earlier accesses at the
+// default (block) scope: it tells the producer that this warp has read a
+// stage of its own block (the caller fences its lanes' reads first). A
+// cluster-scope release would also wait for the warp's earlier stores to
+// device memory (the last tile's outputs): about 1.4x slower at C = 192 on
+// an H100.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      :: "r"(bar), "r"(rank) : "memory");
+}
+// mbar_wait for a barrier that other blocks' threads arrive on.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT_CLUSTER:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_CLUSTER;\n}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+// A box into the same shared-memory offset of every block in `mask`, each
+// block's mbarrier at `bar`'s offset told of its bytes.
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map,
+                                                   uint32_t bar, int c0, int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// --- the consumers ----------------------------------------------------------------
+
+// The x values of box kc at this thread's accumulator positions among the
+// block's output channels N0 + [0, NB): element 4j + 2h + e (float32) or
+// bf16 pair 2j + h, row ra + 8h, channel N0 + 8j + 2 t4 + e. Called from
+// the unrolled box loop, so kc and j are constants and xs stays in
+// registers.
+template <int NB, int N0>
+__device__ __forceinline__ void take_x(float, const uint8_t* box, int kc, int ra, int t4,
+                                       float* xs) {
+#pragma unroll
+  for (int j = 0; j < NB / 8; ++j) {
+    const int col = N0 + 8 * j;
+    if (col / 32 == kc) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 v =
+            *reinterpret_cast<const float2*>(box + swz(ra + 8 * h, (col % 32 + 2 * t4) * 4));
+        xs[4 * j + 2 * h] = v.x;
+        xs[4 * j + 2 * h + 1] = v.y;
+      }
+    }
+  }
+}
+template <int NB, int N0>
+__device__ __forceinline__ void take_x(__nv_bfloat16, const uint8_t* box, int kc, int ra, int t4,
+                                       uint32_t* xs) {
+#pragma unroll
+  for (int j = 0; j < NB / 8; ++j) {
+    const int col = N0 + 8 * j;
+    if (col / 64 == kc) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        xs[2 * j + h] =
+            *reinterpret_cast<const uint32_t*>(box + swz(ra + 8 * h, (col % 64 + 2 * t4) * 2));
+      }
+    }
+  }
+}
+
+template <bool INVERSE>
+__device__ __forceinline__ float wide_scale(float norm) {
+  float r;
+  if (INVERSE) {
+    asm("sqrt.approx.f32 %0, %1;\n" : "=f"(r) : "f"(norm));
+  } else {
+    r = rsqrtf(norm);
+  }
+  return r;
+}
+
+// The epilogue of one warpgroup's 64 rows: out = x * rsqrt(acc + beta) (or
+// sqrt) over the block's channels N0 + [0, NB), written from registers in
+// 16-byte pieces. In the accumulator's layout a quad (4 lanes) holds a row
+// in pieces of 8 (float32) or 4 (bf16) bytes; one (float32) or two (bf16)
+// exchanges within the quad give each lane 16 contiguous bytes, so a warp's
+// store covers 64 contiguous bytes of each of 8 rows (two whole sectors).
+// Rows are masked to n_rows, channels to c (a multiple of 4 for float32, 8
+// for bf16, so a 16-byte piece is all in or all out).
+template <bool INVERSE, int NB, int N0>
+__device__ __forceinline__ void put_out(float* out, const float* acc, const float* xs,
+                                        const float* beta_s, long long row, int t4, int n_rows,
+                                        int c) {
+  const bool odd = t4 & 1;
+#pragma unroll
+  for (int jp = 0; jp < NB / 16; ++jp) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // a: channels 16 jp + 2 t4 + {0, 1} and 16 jp + 8 + 2 t4 + {0, 1}
+      float a[4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int v = 4 * (2 * jp + jj) + 2 * h;
+        const float2 b = *reinterpret_cast<const float2*>(beta_s + 16 * jp + 8 * jj + 2 * t4);
+        a[2 * jj] = xs[v] * wide_scale<INVERSE>(acc[v] + b.x);
+        a[2 * jj + 1] = xs[v + 1] * wide_scale<INVERSE>(acc[v + 1] + b.y);
+      }
+      // swap lane bit 0 with a's index bit 1: lane t4 then holds channels
+      // 16 jp + 8 (t4 & 1) + 4 (t4 >> 1) + [0, 4)
+      const float s0 = __shfl_xor_sync(0xffffffffu, odd ? a[0] : a[2], 1);
+      const float s1 = __shfl_xor_sync(0xffffffffu, odd ? a[1] : a[3], 1);
+      if (odd) {
+        a[0] = s0;
+        a[1] = s1;
+      } else {
+        a[2] = s0;
+        a[3] = s1;
+      }
+      const int col = N0 + 16 * jp + 8 * (t4 & 1) + 4 * (t4 >> 1);
+      if (row + 8 * h < n_rows && col < c) {
+        *reinterpret_cast<float4*>(out + (row + 8 * h) * c + col) =
+            make_float4(a[0], a[1], a[2], a[3]);
+      }
+    }
+  }
+}
+template <bool INVERSE, int NB, int N0>
+__device__ __forceinline__ void put_out(__nv_bfloat16* out, const float* acc, const uint32_t* xs,
+                                        const float* beta_s, long long row, int t4, int n_rows,
+                                        int c) {
+#pragma unroll
+  for (int jq = 0; jq < NB / 32; ++jq) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // a[k]: channels 32 jq + 8 k + 2 t4 + {0, 1}, a bf16 pair
+      uint32_t a[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = 4 * jq + k;
+        const float2 b = *reinterpret_cast<const float2*>(beta_s + 8 * j + 2 * t4);
+        const uint32_t w = xs[2 * j + h];
+        const float x0 = __uint_as_float(w << 16), x1 = __uint_as_float(w & 0xffff0000u);
+        a[k] = bf16x2_bits(__floats2bfloat162_rn(
+            x0 * wide_scale<INVERSE>(acc[4 * j + 2 * h] + b.x),
+            x1 * wide_scale<INVERSE>(acc[4 * j + 2 * h + 1] + b.y)));
+      }
+      // a 4 x 4 transpose within the quad (swap lane bit 0 with index bit 0,
+      // then bit 1 with bit 1): lane t4 then holds channels 32 jq + 8 t4 + [0, 8)
+      const bool b0 = t4 & 1, b1 = t4 & 2;
+      uint32_t r0 = __shfl_xor_sync(0xffffffffu, b0 ? a[0] : a[1], 1);
+      uint32_t r1 = __shfl_xor_sync(0xffffffffu, b0 ? a[2] : a[3], 1);
+      if (b0) {
+        a[0] = r0;
+        a[2] = r1;
+      } else {
+        a[1] = r0;
+        a[3] = r1;
+      }
+      r0 = __shfl_xor_sync(0xffffffffu, b1 ? a[0] : a[2], 2);
+      r1 = __shfl_xor_sync(0xffffffffu, b1 ? a[1] : a[3], 2);
+      if (b1) {
+        a[0] = r0;
+        a[1] = r1;
+      } else {
+        a[2] = r0;
+        a[3] = r1;
+      }
+      const int col = N0 + 32 * jq + 8 * t4;
+      if (row + 8 * h < n_rows && col < c) {
+        *reinterpret_cast<uint4*>(out + (row + 8 * h) * c + col) =
+            make_uint4(a[0], a[1], a[2], a[3]);
+      }
+    }
+  }
+}
+
+// The consumer warpgroups of the block of rank RANK: for each of the
+// cluster's tiles, acc = (x*x) . gamma[:, slice] box by box, then the
+// epilogue. Box i of the block's walk sits in stage i % STAGES.
+template <typename T, int CP, bool INVERSE, int RANK>
+__device__ __forceinline__ void wide_consume(const uint8_t* ring, const uint64_t* full,
+                                             uint32_t empty0, uint32_t hi_base,
+                                             uint32_t lo_base, const float* beta_s, T* out,
+                                             int n_rows, int c, int tile0, int tile_step,
+                                             int tiles) {
+  using W = Wide<T, CP>;
+  constexpr int N0 = RANK * W::NB;
+  using XReg = typename std::conditional<W::ESZ == 4, float, uint32_t>::type;
+  constexpr int XREGS = W::ESZ == 4 ? W::NB / 2 : W::NB / 4;
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int ra = ((threadIdx.x / 32) % 4) * 16 + lane / 4;  // rows ra and ra + 8
+  const int t4 = lane % 4;
+  float acc[W::NB / 2];
+  XReg xs[XREGS];
+  uint32_t a_hi[W::FRAGS][16], a_lo[W::FRAGS][16];
+  int stage = 0;
+  uint32_t phase = 0;
+
+  for (int tile = tile0; tile < tiles; tile += tile_step) {
+#pragma unroll
+    for (int v = 0; v < W::NB / 2; ++v) {
+      acc[v] = 0.0f;
+      fence_operand(acc[v]);
+    }
+#pragma unroll
+    for (int kc = 0; kc < W::BOXES; ++kc) {
+      mbar_wait(smem_u32(&full[stage]), phase);
+      // the products that read this fragment set are done
+      if constexpr (W::FRAGS == 2) {
+        if (kc >= 2) wgmma_wait<1>();
+      } else {
+        if (kc >= 1) wgmma_wait<0>();
+      }
+      const uint8_t* box = ring + stage * W::BOX + wg * BOX_TILE_BYTES;
+      uint32_t* hi = a_hi[kc % W::FRAGS];
+      uint32_t* lo = a_lo[kc % W::FRAGS];
+      load_a<true>(T(), box, ra, t4, hi, lo);
+      take_x<W::NB, N0>(T(), box, kc, ra, t4, xs);
+      // the warp is done with the box: each lane's reads of it have been
+      // performed (the fence; a read may still wait behind the last tile's
+      // stores to device memory), then one arrival a warp on rank 0's "empty"
+      __threadfence_block();
+      __syncwarp();
+      if (lane == 0) mbar_arrive_remote(empty0 + 8 * stage, 0);
+      if (++stage == W::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < W::KSTEPS; ++ks) {
+        const uint32_t off = kc * (W::NB * BOX_BYTES) + ks * 32;
+        const uint64_t b_hi = desc_b128(hi_base + off), b_lo = desc_b128(lo_base + off);
+        mma<T, W::NB>(acc, lo + 4 * ks, b_hi);
+        mma<T, W::NB>(acc, hi + 4 * ks, b_lo);
+        mma<T, W::NB>(acc, hi + 4 * ks, b_hi);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int v = 0; v < W::NB / 2; ++v) fence_operand(acc[v]);
+
+    const long long row = static_cast<long long>(tile) * W::TILE_ROWS + wg * ROWS + ra;
+    put_out<INVERSE, W::NB, N0>(out, acc, xs, beta_s, row, t4, n_rows, c);
+  }
+}
+
+template <typename T, int CP, bool INVERSE, int RANK = 0>
+__device__ __forceinline__ void wide_consume_rank(int rank, const uint8_t* ring,
+                                                  const uint64_t* full, uint32_t empty0,
+                                                  uint32_t hi_base, uint32_t lo_base,
+                                                  const float* beta_s, T* out, int n_rows, int c,
+                                                  int tile0, int tile_step, int tiles) {
+  if constexpr (RANK < Wide<T, CP>::S) {
+    if (rank == RANK) {
+      wide_consume<T, CP, INVERSE, RANK>(ring, full, empty0, hi_base, lo_base, beta_s, out,
+                                         n_rows, c, tile0, tile_step, tiles);
+    } else {
+      wide_consume_rank<T, CP, INVERSE, RANK + 1>(rank, ring, full, empty0, hi_base, lo_base,
+                                                  beta_s, out, n_rows, c, tile0, tile_step,
+                                                  tiles);
+    }
+  }
+}
+
+// --- the kernel -------------------------------------------------------------------
+
+// out = x * rsqrt(beta + (x*x) . gamma) (sqrt for IGDN) over the rows of
+// x_map (n_rows x c, T, boxes of a tile's rows x 128 bytes), out (n_rows, c)
+// in T.
+template <typename T, int CP, bool INVERSE>
+__global__ void __launch_bounds__(Wide<T, CP>::THREADS, 1)
+gdn_rows_kernel_cluster(const __grid_constant__ CUtensorMap x_map, T* __restrict__ out,
+                        const float* __restrict__ gamma, const float* __restrict__ beta,
+                        int n_rows, int c) {
+  using W = Wide<T, CP>;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle is keyed to address bits 7-9: align the boxes to 1024 bytes
+  // (the same offset in every block of the cluster, as multicast needs)
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* g_hi = smem;
+  uint8_t* g_lo = smem + W::PLANE_BYTES;
+  uint8_t* ring = smem + 2 * W::PLANE_BYTES;
+  float* beta_s = reinterpret_cast<float*>(ring + W::STAGES * W::BOX);
+  uint64_t* full = reinterpret_cast<uint64_t*>(beta_s + W::NB);
+  uint64_t* empty = full + W::STAGES;  // used in rank 0 alone
+
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int n0 = rank * W::NB;  // first output channel of the block
+  const int tile0 = static_cast<int>(cluster_id_x());
+  const int tile_step = static_cast<int>(cluster_count_x());
+  const int tiles = (n_rows - 1) / W::TILE_ROWS + 1;  // n_rows + TILE_ROWS may overflow
+
+  // gamma of the slice as wgmma's B (P planes: row o holds gamma[k][n0 + o]
+  // over k), zero padded; beta of the slice, ones past c
+  for (int idx = threadIdx.x; idx < W::NB * CP; idx += W::THREADS) {
+    const int o = idx % W::NB;
+    const int k = idx / W::NB;
+    const float g = (k < c && n0 + o < c) ? gamma[static_cast<int64_t>(k) * c + n0 + o] : 0.0f;
+    const uint32_t off = (k / W::COLS) * (W::NB * BOX_BYTES) + swz(o, (k % W::COLS) * W::ESZ);
+    split_store(T(), g_hi, g_lo, off, g);
+  }
+  for (int i = threadIdx.x; i < W::NB; i += W::THREADS) {
+    beta_s[i] = n0 + i < c ? beta[n0 + i] : 1.0f;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W::STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), W::RELEASES);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_async_smem();  // gamma is read by wgmma
+  __syncthreads();
+  // every block's barriers exist before any box or remote arrival reaches them
+  cluster_sync();
+
+  if (threadIdx.x >= 128 * W::CONSUMERS) {
+    // the producer warpgroup: one thread arms this block's "full" barrier
+    // for each box; in rank 0 it also waits until every block released the
+    // stage and sends the box to all of them
+    setmaxnreg_dec<W::PRODUCER_REGS>();
+    if (threadIdx.x == 128 * W::CONSUMERS) {
+      const uint32_t ring_u32 = smem_u32(ring);
+      const uint16_t mask = static_cast<uint16_t>((1u << W::S) - 1);
+      int stage = 0, i = 0;
+      uint32_t phase = 0;
+      for (int tile = tile0; tile < tiles; tile += tile_step) {
+        for (int kc = 0; kc < W::BOXES; ++kc, ++i) {
+          const uint32_t full_s = smem_u32(&full[stage]);
+          if (rank == 0) {
+            if (i >= W::STAGES) mbar_wait_cluster(smem_u32(&empty[stage]), phase ^ 1);
+            mbar_expect_tx(full_s, W::BOX);
+            const uint32_t dst = ring_u32 + stage * W::BOX;
+            tma_load_multicast(dst, &x_map, full_s, kc * W::COLS, tile * W::TILE_ROWS, mask);
+          } else {
+            // the stage's previous box has landed here (so this arrival
+            // opens the next phase); its bytes may come before or after it
+            if (i >= W::STAGES) mbar_wait(full_s, phase ^ 1);
+            mbar_expect_tx(full_s, W::BOX);
+          }
+          if (++stage == W::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      if (rank == 0) {
+        // the last releases of every stage: no block's warp still arrives here
+        for (int k = 0; k < W::STAGES; ++k, ++i) {
+          if (i >= W::STAGES) mbar_wait_cluster(smem_u32(&empty[stage]), phase ^ 1);
+          if (++stage == W::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<W::CONSUMER_REGS>();
+    wide_consume_rank<T, CP, INVERSE>(rank, ring, full, smem_u32(&empty[0]), smem_u32(g_hi),
+                                      smem_u32(g_lo), beta_s, out, n_rows, c, tile0, tile_step,
+                                      tiles);
+  }
+}
+
+// --- host side ------------------------------------------------------------------
+
+// Launches `kernel` (a gdn_rows_kernel_cluster of geometry W) over n rows:
+// clusters of W::S blocks, as many as the card holds at once, at most one a
+// tile. `clusters_of` is the instance's own per-device cache of
+// that count (its shared-memory opt-in and the occupancy query are taken
+// once per device).
+template <typename W, typename Kernel, typename... Args>
+cudaError_t launch_clusters(Kernel kernel, int* clusters_of, int n, cudaStream_t stream,
+                            Args... args) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = W::S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(W::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = W::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters_of[dev] == 0) {
+    int sms = 0, clusters = 0;
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    W::SMEM)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+            cudaSuccess) {
+      return err;
+    }
+    cfg.gridDim = dim3((sms / W::S) * W::S, 1, 1);
+    if ((err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) != cudaSuccess) {
+      return err;
+    }
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;
+    clusters_of[dev] = clusters;
+  }
+  const long long tiles = (static_cast<long long>(n) + W::TILE_ROWS - 1) / W::TILE_ROWS;
+  const long long clusters = clusters_of[dev] < tiles ? clusters_of[dev] : tiles;
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * W::S), 1, 1);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace

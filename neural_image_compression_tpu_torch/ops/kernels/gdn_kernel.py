@@ -322,6 +322,32 @@ def _launch(x, gamma, beta, inverse):
     return out
 
 
+# csrc/gdn_wide.cuh's `Wide`, the forward's launch geometry at C > 128
+_SMEM_LIMIT, _SMEM_RESERVE = 232448, 2048
+
+
+def wide_geometry(c: int, element_size: int) -> dict:
+    """The forward kernel's launch geometry at c from 129 to 256 channels, as
+    csrc/gdn_wide.cuh computes it (tests hold the two together): the padded
+    width ``cp``, blocks a ``cluster``, output channels a block ``nb``,
+    ``consumers`` (warpgroups of 64 rows: ``tile_rows`` a tile), ring
+    ``stages`` (boxes of ``tile_rows`` rows x 128 bytes) and dynamic shared
+    memory ``smem`` in bytes a block."""
+    if not 128 < c <= MAX_CHANNELS:
+        raise ValueError(f"the wide loop takes 129 to {MAX_CHANNELS} channels, not {c}")
+    cp = -(-c // 64) * 64
+    f32 = element_size == 4
+    cluster = 4 if f32 and cp == 256 else 2
+    consumers = 2 if f32 and cp == 192 else 3
+    nb = cp // cluster
+    plane = nb * cp * element_size
+    box = 64 * consumers * 128
+    stages = (_SMEM_LIMIT - _SMEM_RESERVE - 2 * plane) // box
+    smem = 1024 + 2 * plane + stages * box + nb * 4 + 2 * stages * 8
+    return dict(cp=cp, cluster=cluster, nb=nb, consumers=consumers, tile_rows=64 * consumers,
+                stages=stages, smem=smem)
+
+
 def _chunking(n: int):
     """(rows per chunk, chunks) of the backward kernel's dgamma partials: at
     most 256 chunks of at least 256 rows, a function of n alone, so the sums

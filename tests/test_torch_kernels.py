@@ -9,6 +9,8 @@ file imports no JAX, so it also runs where only the port is installed:
 """
 
 import functools
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -116,7 +118,7 @@ def test_bf16_square_splits_exactly_into_two_bf16(seed):
     assert np.array_equal(s_hi.astype(np.float64) + s_lo, s.astype(np.float64))
 
 
-@pytest.mark.parametrize("c", [16, 128, 192])
+@pytest.mark.parametrize("c", [16, 128, 192, 256])
 def test_three_tf32_products_keep_float32_grade_norm(c):
     x, gamma, beta = _gdn_operands(8192, c, seed=c)
     s = x * x
@@ -215,7 +217,7 @@ def test_norm_launch_three_bf16_products_keep_dgamma_dbeta(c, inverse):
     assert _within_backward_tolerance(dbeta, want_dbeta)
 
 
-@pytest.mark.parametrize("c", [16, 128, 192])
+@pytest.mark.parametrize("c", [16, 128, 192, 256])
 def test_three_bf16_products_keep_norm_within_3e_5(c):
     x, gamma, beta = _gdn_operands(8192, c, seed=100 + c)
     x = _bf16(x)
@@ -226,6 +228,37 @@ def test_three_bf16_products_keep_norm_within_3e_5(c):
     g_lo = _bf16(gamma - g_hi)
     err = _rel_err_of_norm(s_hi, s_lo, g_hi, g_lo, x, gamma, beta)
     assert err <= 3e-5, err
+
+
+# csrc/gdn_wide.cuh asserts the wide forward's geometry for each of its four
+# instantiations; the wrapper's mirror (chip_smoke.py prints it) must agree
+_WIDE_ASSERT = re.compile(
+    r"static_assert\(Wide<(float|__nv_bfloat16), (\d+)>::S == (\d+)\s*&&\s*"
+    r"Wide<\1, \2>::NB == (\d+)\s*&&\s*Wide<\1, \2>::CONSUMERS == (\d+)\s*&&\s*"
+    r"Wide<\1, \2>::STAGES == (\d+)\s*&&\s*Wide<\1, \2>::SMEM == (\d+)")
+
+
+@pytest.mark.parametrize("c,element_size", [(192, 4), (256, 4), (192, 2), (256, 2)])
+def test_wide_geometry_mirrors_the_sizes_csrc_asserts(c, element_size):
+    source = (Path(gdn_kernel.__file__).resolve().parents[2] / "csrc" / "gdn_wide.cuh").read_text()
+    asserted = {(int(cp), 4 if t == "float" else 2): tuple(map(int, rest))
+                for t, cp, *rest in _WIDE_ASSERT.findall(source)}
+    assert len(asserted) == 4
+    geo = gdn_kernel.wide_geometry(c, element_size)
+    assert (geo["cluster"], geo["nb"], geo["consumers"], geo["stages"],
+            geo["smem"]) == asserted[c, element_size]
+    assert geo["tile_rows"] == 64 * geo["consumers"]
+    # every width the loop serves pads to one of the asserted instantiations
+    for width in (c - 63, c - 1):
+        assert gdn_kernel.wide_geometry(width, element_size) == geo
+    assert geo["smem"] <= 232448 and geo["cluster"] * geo["nb"] == geo["cp"]
+
+
+def test_wide_geometry_refuses_the_narrow_widths():
+    with pytest.raises(ValueError, match="129 to 256"):
+        gdn_kernel.wide_geometry(128, 4)
+    with pytest.raises(ValueError, match="129 to 256"):
+        gdn_kernel.wide_geometry(257, 2)
 
 
 def _split_rna_trunc(a):
@@ -497,9 +530,14 @@ def cuda_device(monkeypatch):
 @pytest.mark.parametrize("inverse", [False, True])
 # ragged last row tiles; channel counts that fill, and that leave ragged,
 # the kernel's 64-channel padded widths; 100 (bf16) and 10 take the wrapper's
-# padded route; 192 and 256 the widths where gamma is cut into slices
+# padded route; 192, 200 and 256 the wide loop (csrc/gdn_wide.cuh: clusters
+# walking tiles of 128 or 192 rows) at 1, 63 and 65 rows, at 4,099 rows (33
+# or 22 tiles) and at 8,581 (68 or 45 tiles: more tiles than some clusters
+# of 4, so clusters walk unequal numbers of tiles)
 @pytest.mark.parametrize("n,c", [(1000, 128), (77, 100), (300, 16), (513, 256),
-                                 (100003, 128), (4096, 192), (64, 10)])
+                                 (100003, 128), (4096, 192), (64, 10),
+                                 (1, 192), (63, 192), (65, 200), (4_099, 200), (8_581, 192),
+                                 (1, 256), (63, 256), (65, 256), (4_099, 256), (8_581, 256)])
 def test_gdn_kernel_matches_plain_on_card(cuda_device, dtype, inverse, n, c):
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to(cuda_device, dtype)
@@ -513,6 +551,23 @@ def test_gdn_kernel_matches_plain_on_card(cuda_device, dtype, inverse, n, c):
     assert got.dtype == dtype
     tol = 1e-5 if dtype == torch.float32 else 8e-3  # bf16: one rounding step of the output
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_gdn_launches_once_a_call_on_card(cuda_device, dtype):
+    # a C=192 and a C=256 call (the wide loop: one cluster launch each, the
+    # LST's 294,912 rows at 256) each add one to the count, as C=128 does
+    rng = np.random.default_rng(6)
+    for n, c in ((4_096, 192), (294_912, 256), (4_096, 128)):
+        x = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to(cuda_device, dtype)
+        gamma = torch.eye(c, device=cuda_device) * 0.1
+        beta = torch.ones(c, device=cuda_device)
+        before = gdn_kernel.gdn.launches
+        gdn_kernel.gdn(x, gamma, beta, True)
+        gdn_kernel.gdn(x, gamma, beta)
+        torch.cuda.synchronize()
+        assert gdn_kernel.gdn.launches == before + 2
 
 
 @pytest.mark.cuda

@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
-"""Time variants of the GDN kernel's source against each other on one card.
+"""Time variants of the GDN forward kernel's source against each other on one card.
 
-Each variant is csrc/gdn_kernel.cu with text substitutions applied; each is
-built by nvcc (all in parallel, with the port's flags) into
-_build/variants/ and called through its C entry point at the flagship's
-GDN shape (C = 128, ROWS rows, default the H/2 site of chip_smoke.py),
-f32 and bf16, GDN and IGDN, after a check against the plain version. The
-variants run in turns (first to last, then last to first) so that drift
-of the card's clock shows. Prints ptxas's register and spill lines per
-variant and one line of times per dtype and direction.
+Each variant is the forward's sources (csrc/gdn_kernel.cu and the headers
+it includes, csrc/gdn_wgmma.cuh and csrc/gdn_wide.cuh) with text
+substitutions applied, each [old, new] to the one source that holds old;
+each is built by nvcc (all in parallel, with the port's flags) into
+_build/variants/<name>/ and called through its C entry point at each
+--shape ROWS:C (default the flagship's H/2 site of chip_smoke.py, C =
+128), f32 and bf16, GDN and IGDN. Each variant's output is checked against
+the plain version after every one of --checks launches (a race shows as a
+wrong launch among many). The variants run in turns (first to last, then
+last to first) so that drift of the card's clock shows. Prints ptxas's
+register and spill lines per variant and one line of times per shape,
+dtype and direction.
 
-    python3 tools/gdn_variants.py variants.json [ROWS]
+    python3 tools/gdn_variants.py variants.json [--shape ROWS:C ...] [--checks N]
 
 variants.json maps a name to a list of [old, new] substitutions; the
 source as it stands is {"base": []}. For example, three warpgroups for
 float32 too, at the widths whose ring holds three tiles:
     {"base": [], "three": [["(ESZ == 2 && CP <= 192) ? 3 : 2", "(CP <= 128) ? 3 : 2"]]}
-A name may map to a path instead: another gdn_kernel.cu taken as it is (an
-older commit's, unpacked with git archive), to time it beside this one.
+A name may map to a path instead, to time another commit's kernel (unpacked
+with git archive) beside this one: its csrc/ directory, taken as it is, or
+its gdn_kernel.cu alone, built against this checkout's headers.
+tools/gdn_wide_variants.json holds the wide loop's (C > 128) design
+choices, each undone: two consumer warpgroups everywhere, a cluster-scope
+release, no fence before it, no output stores, no products.
 """
 
+import argparse
 import ctypes
 import json
 import statistics
@@ -34,30 +43,34 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from neural_image_compression_tpu_torch.ops.kernels import _build, gdn_kernel  # noqa: E402
 
-C = 128
-SITE_ROWS = 48 * 256 * 384  # H/2 at batch 48, 768x512
+SITE_SHAPE = f"{48 * 256 * 384}:128"  # H/2 at batch 48, 768x512, M = 128
 HBM_BYTES_PER_S = 3.35e12
+SOURCES = ("gdn_kernel.cu", "gdn_wgmma.cuh", "gdn_wide.cuh")
 
 
 def build(variants):
-    source = (_build.CSRC / "gdn_kernel.cu").read_text()
-    out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
+    out_root = _build.BUILD_DIR / "variants"
     procs = {}
     for name, subs in variants.items():
-        if isinstance(subs, str):
-            src, subs = Path(subs).read_text(), []
+        if isinstance(subs, str) and Path(subs).is_dir():
+            srcs = {f.name: f.read_text() for f in Path(subs).glob("*.cu*")}
+            subs = []
+        elif isinstance(subs, str):
+            srcs, subs = {"gdn_kernel.cu": Path(subs).read_text()}, []
         else:
-            src = source
+            srcs = {f: (_build.CSRC / f).read_text() for f in SOURCES}
         for old, new in subs:
-            if old not in src:
-                raise SystemExit(f"variant {name}: {old!r} not in the source")
-            src = src.replace(old, new)
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(src)
-        # -I: the variant lives in _build/variants/, its header in csrc/
+            holders = [f for f, src in srcs.items() if old in src]
+            if len(holders) != 1:
+                raise SystemExit(f"variant {name}: {old!r} is in {holders or 'no source'}")
+            srcs[holders[0]] = srcs[holders[0]].replace(old, new)
+        out_dir = out_root / name
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for f, src in srcs.items():
+            (out_dir / f).write_text(src)
+        # the variant's own headers come first (beside its .cu), then csrc/'s
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-o", str(out_dir / f"lib{name}.so"), str(cu)]
+               "-o", str(out_dir / f"lib{name}.so"), str(out_dir / "gdn_kernel.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     entries = {}
@@ -68,7 +81,7 @@ def build(variants):
         usage = sorted({line.strip() for line in log.splitlines()
                         if "registers" in line or "spill" in line})
         print(f"{name}: " + " ; ".join(usage), flush=True)
-        fn = ctypes.CDLL(str(out_dir / f"lib{name}.so")).gdn_forward
+        fn = ctypes.CDLL(str(out_root / name / f"lib{name}.so")).gdn_forward
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                                ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -94,44 +107,55 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("gdn_variants: no CUDA device", file=sys.stderr)
         return 1
-    variants = json.loads(Path(sys.argv[1]).read_text())
-    rows = int(sys.argv[2]) if len(sys.argv) > 2 else SITE_ROWS
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("variants", type=Path)
+    parser.add_argument("--shape", action="append", help="ROWS:C (repeatable)")
+    parser.add_argument("--checks", type=int, default=1,
+                        help="launches of each variant checked against the plain version")
+    args = parser.parse_args()
+    variants = json.loads(args.variants.read_text())
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {card}; rows={rows} C={C}")
+    print(f"card: {card}")
     entries = build(variants)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    gamma = np.abs(rng.normal(0.0, 0.02, (C, C))).astype(np.float32)
-    gamma[np.arange(C), np.arange(C)] += 0.1
-    g = torch.from_numpy(gamma).to(dev)
-    b = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).to(dev)
-    x32 = torch.from_numpy(rng.standard_normal((rows, C), dtype=np.float32)).to(dev)
+    for shape in args.shape or [SITE_SHAPE]:
+        rows, C = map(int, shape.split(":"))
+        gamma = np.abs(rng.normal(0.0, 0.02, (C, C))).astype(np.float32)
+        gamma[np.arange(C), np.arange(C)] += 0.1
+        g = torch.from_numpy(gamma).to(dev)
+        b = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).to(dev)
+        x32 = torch.from_numpy(rng.standard_normal((rows, C), dtype=np.float32)).to(dev)
 
-    def run(fn, x, inverse):
-        out = torch.empty_like(x)
-        err = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(), rows, C, int(inverse),
-                 int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise SystemExit(f"launch failed with CUDA error {err}")
-        return out
+        def run(fn, x, inverse):
+            out = torch.empty_like(x)
+            err = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(), rows, C,
+                     int(inverse), int(x.dtype == torch.bfloat16),
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"launch failed with CUDA error {err}")
+            return out
 
-    for dtype in (torch.float32, torch.bfloat16):
-        x = x32.to(dtype)
-        bound_ms = rows * C * x.element_size() * 2 / HBM_BYTES_PER_S * 1e3
-        tol = 1e-5 if dtype == torch.float32 else 8e-3
-        for inverse in (False, True):
-            want = gdn_kernel.gdn_reference(x, g, b, inverse).float()
-            order = list(entries.items())
-            cells = []
-            for name, fn in order + order[::-1]:
-                ok = torch.allclose(run(fn, x, inverse).float(), want, rtol=tol, atol=tol)
-                ms = median_ms(lambda: run(fn, x, inverse))
-                cells.append(f"{name} {ms:.4f} ms ({100 * bound_ms / ms:.1f}%)"
-                             + ("" if ok else " WRONG"))
-            print(f"{str(dtype).replace('torch.', '')} {'igdn' if inverse else 'gdn'}: "
-                  + ", ".join(cells), flush=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            bound_ms = rows * C * x.element_size() * 2 / HBM_BYTES_PER_S * 1e3
+            tol = 1e-5 if dtype == torch.float32 else 8e-3
+            for inverse in (False, True):
+                want = gdn_kernel.gdn_reference(x, g, b, inverse).float()
+                order = list(entries.items())
+                cells = []
+                for name, fn in order + order[::-1]:
+                    ok = all(torch.allclose(run(fn, x, inverse).float(), want, rtol=tol, atol=tol)
+                             for _ in range(args.checks))
+                    ms = median_ms(lambda: run(fn, x, inverse))
+                    cells.append(f"{name} {ms:.4f} ms ({100 * bound_ms / ms:.1f}%)"
+                                 + ("" if ok else " WRONG"))
+                print(f"rows={rows} C={C} {str(dtype).replace('torch.', '')} "
+                      f"{'igdn' if inverse else 'gdn'}: " + ", ".join(cells), flush=True)
+        del x32, x, want
+        torch.cuda.empty_cache()
     return 0
 
 
