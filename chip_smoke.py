@@ -240,9 +240,11 @@ GDN_EXTRA_CASES = ((100_003, 128), (65_536, 192), (65_536, 256), (65_536, 10))
 # (16,387: 64 chunks of 256, then 3), a width that leaves half of a dgamma
 # tile empty
 GDN_BWD_EXTRA_CASES = GDN_EXTRA_CASES + ((1, 128), (63, 128), (16_387, 128), (4_099, 200))
-# the forward's wide loop (C > 128: clusters walking tiles of 128 or 192
-# rows): fewer rows than a tile, a ragged tile, 33 or 22 tiles, and 68 or 45
-# (more tiles than some clusters of 4), at C = 192, 200 and 256
+# the wide loop (C > 128: clusters walking tiles of 128 or 192 rows in the
+# forward, 128 in the backward's norm and mix launches, with and without
+# the dgamma/dbeta stage): fewer rows than a tile, a ragged tile, 33 or 22
+# tiles, and 68 or 45 (more tiles than some clusters take), at C = 192, 200
+# and 256
 GDN_WIDE_CASES = tuple((rows, c) for c in (192, 200, 256)
                        for rows in (1, 63, 65, 4_099, 8_581))
 # the forward's times (CUDA-event ms, f32 / bf16) in PERF.md before the wide
@@ -260,6 +262,19 @@ GDN_BEFORE_MS = {
     ("train", "H/8", 128, "float32"): 0.0688, ("train", "H/8", 256, "float32"): 0.0541,
     ("decompress_base", "H/8", 128, "float32"): 0.0444,
     ("decompress_base", "H/8", 256, "float32"): 0.0501,
+}
+# the backward's times (CUDA-event ms) in PERF.md before its norm and mix
+# launches at C > 128 moved onto the wide loop: (path, site, C, dtype, with
+# dgamma/dbeta) -> ms; printed beside each timed row that has one, GDN and
+# IGDN alike (PERF.md's rows are one direction each: refine IGDN)
+GDN_BWD_BEFORE_MS = {
+    ("train", "H/2", 128, "float32", True): 0.5946, ("train", "H/2", 128, "bfloat16", True): 0.4941,
+    ("train", "H/2", 192, "float32", True): 1.0622, ("train", "H/2", 192, "bfloat16", True): 0.8557,
+    ("train", "H/2", 192, "float32", False): 0.8086,
+    ("train", "H/2", 192, "bfloat16", False): 0.5965,
+    ("refine", "H/2", 192, "float32", False): 0.3488,
+    ("refine", "H/2", 192, "bfloat16", False): 0.2580,
+    ("train", "H/8", 256, "float32", True): 0.1730, ("train", "H/8", 256, "bfloat16", True): 0.1510,
 }
 PARTIALS_CALLS = 5  # backward calls profiled for the partials launch's device time
 PROFILE_ATTEMPTS = 3
@@ -365,6 +380,9 @@ def check_gdn(x, gamma_t, beta_t, inverse, label):
     want = gdn_kernel.gdn_reference(x, gamma_t, beta_t, inverse)
     torch.cuda.synchronize()
     check(got.dtype == dtype and got.shape == x.shape, f"{label}: output {got.dtype} {tuple(got.shape)}")
+    # a second run on the same inputs gives the same bits (a stage of the
+    # wide loop's ring refilled under a load still in flight would not)
+    check(torch.equal(got, gdn_kernel.gdn(x, gamma_t, beta_t, inverse)), f"{label}: runs differ")
     err = (got.float() - want.float()).abs().max().item()
     if dtype == torch.float32:
         # tolerance 1e-5: the split tensor-core sum and cuBLAS's float32 sum
@@ -655,9 +673,11 @@ def gdn_backward_site_records(path, sites, rng, gamma_t, beta_t, dev, inverses=(
                     inverse=inverse, **({} if param_grads else {"param_grads": False}),
                     shape=[rows, c], dtype=dname, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, peak=peak, library_ms=None, **stage))
+                before = GDN_BWD_BEFORE_MS.get((path, site, c, dname, param_grads))
                 print(f"  {prefix} {site} rows={rows} {dname:8s} kernel {ms:.4f} ms  "
                       f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}, "
-                      f"{100 * bound_ms / ms:.1f}% of it){floor_note}", flush=True)
+                      f"{100 * bound_ms / ms:.1f}% of it){floor_note}"
+                      + (f"  PERF.md before: {before:.4f} ms" if before else ""), flush=True)
         del x32, g32, x, g
     return records
 
@@ -666,16 +686,24 @@ def gdn_backward_cases(dev):
     rng = np.random.default_rng(3)
     gamma_t, beta_t = gdn_params(M, rng, dev)
     records = gdn_backward_site_records("train", TRAIN_GDN_SITES, rng, gamma_t, beta_t, dev)
-    for rows, c in GDN_BWD_EXTRA_CASES:
+    for c in (192, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            esz = torch.finfo(dtype).bits // 8
+            print(f"  wide loop, backward C={c} {str(dtype).replace('torch.', '')}: norm "
+                  f"{gdn_kernel.wide_geometry(c, esz, 'norm')}, mix "
+                  f"{gdn_kernel.wide_geometry(c, esz, 'mix')}")
+    for rows, c in GDN_BWD_EXTRA_CASES + GDN_WIDE_CASES:
         gamma_c, beta_c = gdn_params(c, rng, dev)
         x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
         g32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             for inverse in (False, True):
                 name = "igdn" if inverse else "gdn"
-                check_gdn_backward(x32.to(dtype), gamma_c, beta_c, g32.to(dtype), inverse,
-                                   f"{name}-bwd rows={rows} C={c} "
-                                   f"{str(dtype).replace('torch.', '')}")
+                label = f"{name}-bwd rows={rows} C={c} {str(dtype).replace('torch.', '')}"
+                check_gdn_backward(x32.to(dtype), gamma_c, beta_c, g32.to(dtype), inverse, label)
+                if (rows, c) in GDN_WIDE_CASES:
+                    check_gdn_backward(x32.to(dtype), gamma_c, beta_c, g32.to(dtype), inverse,
+                                       f"{label} dx alone", param_grads=False)
     return records
 
 

@@ -19,17 +19,20 @@
 // than the bytes take (at N = 262,144, C = 128: 0.052 ms against 0.120 ms
 // for float32 bytes). This design moves more than those bytes, because t
 // (float32) is written once and read twice:
-//   1. norm, gdn_bwd_norm_kernel: the forward's loop (csrc/gdn_wgmma.cuh)
-//      over x tiles, n = beta + (x*x) . gamma on the tensor cores with P
-//      planes (3xTF32 for float32 x, exact 3xbf16 for bfloat16 x, as the
-//      forward); its epilogue reads g at the accumulator's positions and
-//      writes t and d1 = g*r (g*s), float32. For float32 x, d1 goes into dx;
-//      for bfloat16 x into a float32 scratch (rounding d1 to bf16 before the
-//      second term would round dx twice). Bound by its bytes.
-//   2. mix, gdn_bwd_mix_kernel: the same loop over t tiles (float32, 3xTF32
-//      for either type of x), u = t . gamma^T with Q planes (gamma[i][o] at
-//      row i); its epilogue reads x and d1 and writes dx = d1 -+ x*u in x's
-//      type. Bound by its bytes.
+//   1. norm: the forward's loop over x tiles (at C <= 128 gdn_bwd_norm_kernel
+//      on csrc/gdn_wgmma.cuh's mix_rows; at 192 and 256
+//      gdn_bwd_norm_kernel_cluster on csrc/gdn_wide.cuh's cluster loop),
+//      n = beta + (x*x) . gamma on the tensor cores with P planes (3xTF32
+//      for float32 x, exact 3xbf16 for bfloat16 x, as the forward); its
+//      epilogue reads g at the accumulator's positions and writes t and
+//      d1 = g*r (g*s, s = n*r), float32, from one r = rsqrt(n) (`terms`).
+//      For float32 x, d1 goes into dx; for bfloat16 x into a float32
+//      scratch (rounding d1 to bf16 before the second term would round dx
+//      twice). Bound by its bytes.
+//   2. mix (gdn_bwd_mix_kernel, gdn_bwd_mix_kernel_cluster): the same loops
+//      over t tiles (float32, 3xTF32 for either type of x), u = t . gamma^T
+//      with Q planes (gamma[i][o] at row i); its epilogue reads x and d1 and
+//      writes dx = d1 -+ x*u in x's type. Bound by its bytes.
 //   3. partials, gdn_bwd_partials_kernel: per (chunk of rows, tile of
 //      dgamma), (x*x)^T . t over the chunk's rows as 3xTF32 products on the
 //      tensor cores (wgmma, float32 accumulate); the blocks of the first
@@ -66,15 +69,22 @@
 // 32 banks through the 128-byte swizzle.
 //
 // Launches 1 and 2 read g, x and d1 and write t, d1 and dx straight from and
-// to registers at the accumulator's positions (a thread's two neighbouring
-// channels, four threads filling a 32-byte sector), not through TMA: beside
+// to registers at the accumulator's positions, not through TMA: beside
 // gamma's planes, shared memory holds a single float32 stage of x and g
-// together, too few for two warpgroups taking turns. Rows whose stride TMA
-// cannot describe (C % 4 in float32, C % 8 in bfloat16, an unaligned base)
-// are padded by the wrapper: zero gamma columns and x, g, unit beta, so the
-// padded channels add nothing to dx, dgamma or dbeta.
+// together, too few for two warpgroups taking turns. At C <= 128 a thread
+// takes two neighbouring channels (four threads fill a 32-byte sector) and
+// the norm's x comes from its tile in shared memory. At C = 192 and 256
+// each block of a cluster computes its slice of the output channels from
+// tiles that come once per cluster (csrc/gdn_wide.cuh says why gamma must
+// be cut there); one exchange within the quad first gives a thread four
+// neighbouring channels (16 bytes of float32), and each launch prefetches
+// its epilogue's operands in device memory into L2 when a tile starts.
+// Rows whose stride TMA cannot describe (C % 4 in float32, C % 8 in
+// bfloat16, an unaligned base) are padded by the wrapper: zero gamma
+// columns and x, g, unit beta, so the padded channels add nothing to dx,
+// dgamma or dbeta.
 
-#include "gdn_wgmma.cuh"
+#include "gdn_wide.cuh"
 
 namespace {
 
@@ -94,25 +104,27 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// t and d1 from the norm n (n >= beta > 0): GDN t = g*x*r^3, d1 = g*r with
-// r = rsqrt(n) (within 2 ulp); IGDN t = g*x/s, d1 = g*s with s = sqrt(n),
-// rounded correctly, as the plain version computes them.
+// t and d1 from the norm n (n >= beta > 0), both directions from one
+// r = rsqrt(n) (within 2 ulp): GDN t = g*x*r^3, d1 = g*r; IGDN t = g*x*r,
+// d1 = g*(n*r) (s = sqrt(n) as n*r). A correctly rounded square root and
+// division for IGDN cost the cluster loop's IGDN norm a third more time
+// than GDN's (0.56 against 0.43 ms at 262,144 rows of C = 192 on an H100);
+// with r the two take the same time.
 template <bool INVERSE>
 __device__ __forceinline__ void terms(float n, float x, float g, float& t, float& d1) {
+  const float r = rsqrtf(n);
   if (INVERSE) {
-    const float s = sqrtf(n);
-    t = g * x / s;
-    d1 = g * s;
+    t = g * x * r;
+    d1 = g * (n * r);
   } else {
-    const float r = rsqrtf(n);
     t = g * x * (r * r * r);
     d1 = g * r;
   }
 }
 
-// Launch 1's epilogue: x from the shared tile, g from device memory; t and
-// d1 (float32) out. Accumulator element 4j + 2h + e: row row0 + ra + 8h,
-// channel n0 + 8j + 2*t4 + e.
+// Launch 1's epilogue at C <= 128: x from the shared tile, g from device
+// memory; t and d1 (float32) out. Accumulator element 4j + 2h + e: row
+// row0 + ra + 8h, channel 8j + 2*t4 + e.
 template <typename T, int CP, bool INVERSE>
 struct NormEpilogue {
   const T* g;
@@ -121,7 +133,7 @@ struct NormEpilogue {
   int n_rows, c;
 
   __device__ __forceinline__ void operator()(uint8_t* tile, const float* acc,
-                                             const float* beta_s, int row0, int n0, int ra,
+                                             const float* beta_s, int row0, int ra,
                                              int t4) const {
     using K = Cfg<T, CP>;
     // channel pairs loaded before any is computed and stored: loads in flight
@@ -134,7 +146,7 @@ struct NormEpilogue {
       for (int j = 0; j < JG; ++j) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int col = n0 + 8 * (j0 + j) + 2 * t4;
+          const int col = 8 * (j0 + j) + 2 * t4;
           const int row = row0 + ra + 8 * h;
           if (row < n_rows && col < c) {
             gv[j][h] = *reinterpret_cast<const Pair<T>*>(g + static_cast<int64_t>(row) * c + col);
@@ -145,7 +157,7 @@ struct NormEpilogue {
       for (int j = 0; j < JG; ++j) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int col = n0 + 8 * (j0 + j) + 2 * t4;
+          const int col = 8 * (j0 + j) + 2 * t4;
           const int row = row0 + ra + 8 * h;
           if (row < n_rows && col < c) {
             const Pair<T> xr = *reinterpret_cast<const Pair<T>*>(
@@ -153,8 +165,8 @@ struct NormEpilogue {
             const float2 xv = widen(xr), gf = widen(gv[j][h]);
             const int v = 4 * (j0 + j) + 2 * h;
             float t0, t1, d0, d1v;
-            terms<INVERSE>(acc[v] + beta_s[col - n0], xv.x, gf.x, t0, d0);
-            terms<INVERSE>(acc[v + 1] + beta_s[col - n0 + 1], xv.y, gf.y, t1, d1v);
+            terms<INVERSE>(acc[v] + beta_s[col], xv.x, gf.x, t0, d0);
+            terms<INVERSE>(acc[v + 1] + beta_s[col + 1], xv.y, gf.y, t1, d1v);
             const int64_t off = static_cast<int64_t>(row) * c + col;
             store_pair(t + off, t0, t1);
             store_pair(d1 + off, d0, d1v);
@@ -165,10 +177,10 @@ struct NormEpilogue {
   }
 };
 
-// Launch 2's epilogue: u = t . gamma^T in the accumulator; x and d1 from
-// device memory; dx = d1 - x*u (GDN) or d1 + x*u (IGDN) out, in x's type.
-// For float32 x, d1 is dx itself: each element is read and then written by
-// the same thread.
+// Launch 2's epilogue at C <= 128: u = t . gamma^T in the accumulator; x
+// and d1 from device memory; dx = d1 - x*u (GDN) or d1 + x*u (IGDN) out, in
+// x's type. For float32 x, d1 is dx itself: each element is read and then
+// written by the same thread.
 template <typename T, int CP, bool INVERSE>
 struct MixEpilogue {
   const T* x;
@@ -177,7 +189,7 @@ struct MixEpilogue {
   int n_rows, c;
 
   __device__ __forceinline__ void operator()(uint8_t*, const float* acc, const float*,
-                                             int row0, int n0, int ra, int t4) const {
+                                             int row0, int ra, int t4) const {
     using K = Cfg<float, CP>;
     // channel pairs loaded before any is computed and stored: loads in flight
     // to cover device memory's latency, in few enough registers
@@ -190,7 +202,7 @@ struct MixEpilogue {
       for (int j = 0; j < JG; ++j) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int col = n0 + 8 * (j0 + j) + 2 * t4;
+          const int col = 8 * (j0 + j) + 2 * t4;
           const int row = row0 + ra + 8 * h;
           if (row < n_rows && col < c) {
             const int64_t off = static_cast<int64_t>(row) * c + col;
@@ -203,7 +215,7 @@ struct MixEpilogue {
       for (int j = 0; j < JG; ++j) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int col = n0 + 8 * (j0 + j) + 2 * t4;
+          const int col = 8 * (j0 + j) + 2 * t4;
           const int row = row0 + ra + 8 * h;
           if (row < n_rows && col < c) {
             const float2 xf = widen(xv[j][h]);
@@ -218,7 +230,8 @@ struct MixEpilogue {
   }
 };
 
-// Launch 1. x: (n_rows, c) through x_map; t, d1: (n_rows, c) float32.
+// Launch 1 at CP <= 128. x: (n_rows, c) through x_map; t, d1: (n_rows, c)
+// float32.
 template <typename T, int CP, bool INVERSE>
 __global__ void __launch_bounds__(Cfg<T, CP>::THREADS, 1)
 gdn_bwd_norm_kernel(const __grid_constant__ CUtensorMap x_map, const T* __restrict__ g,
@@ -228,14 +241,235 @@ gdn_bwd_norm_kernel(const __grid_constant__ CUtensorMap x_map, const T* __restri
                                 NormEpilogue<T, CP, INVERSE>{g, t, d1, n_rows, c});
 }
 
-// Launch 2. t: (n_rows, c) float32 through t_map; x, dx: (n_rows, c) in x's
-// type; d1 float32 (dx itself for float32 x, so neither is __restrict__).
+// Launch 2 at CP <= 128. t: (n_rows, c) float32 through t_map; x, dx:
+// (n_rows, c) in x's type; d1 float32 (dx itself for float32 x, so neither
+// is __restrict__).
 template <typename T, int CP, bool INVERSE>
 __global__ void __launch_bounds__(Cfg<float, CP>::THREADS, 1)
 gdn_bwd_mix_kernel(const __grid_constant__ CUtensorMap t_map, const T* __restrict__ x,
                    const float* __restrict__ gamma, const float* d1, T* dx, int n_rows, int c) {
   mix_rows<float, CP, true, false>(&t_map, nullptr, gamma, nullptr, n_rows, c,
                                    MixEpilogue<T, CP, INVERSE>{x, d1, dx, n_rows, c});
+}
+
+// --- launches 1 and 2 at CP = 192 and 256: epilogues of csrc/gdn_wide.cuh's loop
+
+// Four neighbouring channels of a row in device memory: a float4 (float32)
+// or two bf16 pairs (bfloat16), as float32, and back.
+template <typename T>
+using Quad = typename std::conditional<std::is_same<T, float>::value, float4, uint2>::type;
+__device__ __forceinline__ float4 widen(float4 v) { return v; }
+__device__ __forceinline__ float4 widen(uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+__device__ __forceinline__ void store_quad(float* p, const float* a) {
+  *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+}
+__device__ __forceinline__ void store_quad(__nv_bfloat16* p, const float* a) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(bf16x2_bits(__floats2bfloat162_rn(a[0], a[1])),
+                                            bf16x2_bits(__floats2bfloat162_rn(a[2], a[3])));
+}
+
+// The 4 values of 16-channel piece jp of row ra + 8h in the accumulator's
+// layout (element 4j + 2h + e, j = 2 jp + {0, 1}), as float32 in
+// quad_swap's order: from float32 registers (the accumulator, x of float32
+// rows) or bf16 pairs (x of bfloat16 rows, pair 2j + h).
+__device__ __forceinline__ void piece(const float* v, int jp, int h, float* a) {
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    a[2 * jj] = v[4 * (2 * jp + jj) + 2 * h];
+    a[2 * jj + 1] = v[4 * (2 * jp + jj) + 2 * h + 1];
+  }
+}
+__device__ __forceinline__ void piece(const uint32_t* v, int jp, int h, float* a) {
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const uint32_t w = v[2 * (2 * jp + jj) + h];
+    a[2 * jj] = __uint_as_float(w << 16);
+    a[2 * jj + 1] = __uint_as_float(w & 0xffff0000u);
+  }
+}
+
+// Asks for the line holding p to be brought into L2.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
+}
+
+// The epilogues' operands in device memory, at the lane's four channels of
+// each piece of the tile's rows: into L2 when the tile starts, so that the
+// epilogue's loads wait on L2 and not on device memory.
+template <int NB, int N0, typename T>
+__device__ __forceinline__ void prefetch_pieces(const T* a, long long row, int t4, int n_rows,
+                                                int c) {
+  const int sub = quad_channel(t4);
+#pragma unroll
+  for (int jp = 0; jp < NB / 16; ++jp) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long r = row + 8 * h;
+      const int col = N0 + 16 * jp + sub;
+      if (r < n_rows && col < c) prefetch_l2(a + r * c + col);
+    }
+  }
+}
+
+// Pieces of 16 channels (of a row pair) whose loads are in flight together
+// in the cluster loop's epilogues: few enough that their operands fit in
+// registers beside the accumulator (and the norm's x).
+__host__ __device__ constexpr int wide_piece_group(int pieces) {
+  return pieces % 4 == 0 ? 4 : 3;
+}
+
+// Launch 1's epilogue on the cluster loop, the block's channels N0 + [0,
+// NB): n = acc + beta and x (from the loop's registers) exchanged by
+// quad_swap, then g from device memory at the lane's four channels (a
+// group of pieces' loads issued before any is used), t and d1 (float32)
+// out in 16-byte pieces.
+template <typename T, bool INVERSE>
+struct WideNormOut {
+  const T* g;
+  float* t;
+  float* d1;
+  int c;
+
+  template <int NB, int N0>
+  __device__ __forceinline__ void prefetch(long long row, int t4, int n_rows) const {
+    prefetch_pieces<NB, N0>(g, row, t4, n_rows, c);
+  }
+
+  template <int NB, int N0, typename XReg>
+  __device__ __forceinline__ void put(const float* acc, const XReg* xs, const float* beta_s,
+                                      long long row, int t4, int n_rows) const {
+    constexpr int JP = NB / 16;
+    constexpr int JG = wide_piece_group(JP);
+    static_assert(JP % JG == 0, "whole groups of pieces");
+    const bool odd = t4 & 1;
+    const int sub = quad_channel(t4);
+#pragma unroll
+    for (int j0 = 0; j0 < JP; j0 += JG) {
+      Quad<T> gq[JG][2];
+#pragma unroll
+      for (int j = 0; j < JG; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long r = row + 8 * h;
+          const int col = N0 + 16 * (j0 + j) + sub;
+          if (r < n_rows && col < c) gq[j][h] = *reinterpret_cast<const Quad<T>*>(g + r * c + col);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < JG; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float n[4], xv[4];
+          piece(acc, j0 + j, h, n);
+          piece(xs, j0 + j, h, xv);
+          quad_swap(n, odd);
+          quad_swap(xv, odd);
+          const long long r = row + 8 * h;
+          const int col = N0 + 16 * (j0 + j) + sub;
+          if (r < n_rows && col < c) {
+            const float4 b = *reinterpret_cast<const float4*>(beta_s + 16 * (j0 + j) + sub);
+            const float4 gv = widen(gq[j][h]);
+            float tv[4], dv[4];
+            terms<INVERSE>(n[0] + b.x, xv[0], gv.x, tv[0], dv[0]);
+            terms<INVERSE>(n[1] + b.y, xv[1], gv.y, tv[1], dv[1]);
+            terms<INVERSE>(n[2] + b.z, xv[2], gv.z, tv[2], dv[2]);
+            terms<INVERSE>(n[3] + b.w, xv[3], gv.w, tv[3], dv[3]);
+            store_quad(t + r * c + col, tv);
+            store_quad(d1 + r * c + col, dv);
+          }
+        }
+      }
+    }
+  }
+};
+
+// Launch 2's epilogue on the cluster loop: u = t . gamma^T in the
+// accumulator, exchanged by quad_swap; x and d1 from device memory at the
+// lane's four channels (a group of pieces' loads issued before any is
+// used); dx = d1 -+ x*u out in x's type, as MixEpilogue computes it.
+template <typename T, bool INVERSE>
+struct WideMixOut {
+  const T* x;
+  const float* d1;
+  T* dx;
+  int c;
+
+  template <int NB, int N0>
+  __device__ __forceinline__ void prefetch(long long row, int t4, int n_rows) const {
+    prefetch_pieces<NB, N0>(x, row, t4, n_rows, c);
+    prefetch_pieces<NB, N0>(d1, row, t4, n_rows, c);
+  }
+
+  template <int NB, int N0, typename XReg>
+  __device__ __forceinline__ void put(const float* acc, const XReg*, const float*, long long row,
+                                      int t4, int n_rows) const {
+    constexpr int JP = NB / 16;
+    constexpr int JG = wide_piece_group(JP);
+    static_assert(JP % JG == 0, "whole groups of pieces");
+    const bool odd = t4 & 1;
+    const int sub = quad_channel(t4);
+#pragma unroll
+    for (int j0 = 0; j0 < JP; j0 += JG) {
+      Quad<T> xq[JG][2];
+      float4 dq[JG][2];
+#pragma unroll
+      for (int j = 0; j < JG; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long r = row + 8 * h;
+          const int col = N0 + 16 * (j0 + j) + sub;
+          if (r < n_rows && col < c) {
+            xq[j][h] = *reinterpret_cast<const Quad<T>*>(x + r * c + col);
+            dq[j][h] = *reinterpret_cast<const float4*>(d1 + r * c + col);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < JG; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float u[4];
+          piece(acc, j0 + j, h, u);
+          quad_swap(u, odd);
+          const long long r = row + 8 * h;
+          const int col = N0 + 16 * (j0 + j) + sub;
+          if (r < n_rows && col < c) {
+            const float4 xf = widen(xq[j][h]);
+            const float4 d = dq[j][h];
+            const float s = INVERSE ? 1.0f : -1.0f;
+            const float o[4] = {d.x + s * xf.x * u[0], d.y + s * xf.y * u[1],
+                                d.z + s * xf.z * u[2], d.w + s * xf.w * u[3]};
+            store_quad(dx + r * c + col, o);
+          }
+        }
+      }
+    }
+  }
+};
+
+// Launch 1 at CP = 192 and 256 (x_map: x in boxes of Wide<T, CP,
+// WIDE_NORM>'s tile rows).
+template <typename T, int CP, bool INVERSE>
+__global__ void __launch_bounds__(Wide<T, CP, WIDE_NORM>::THREADS, 1)
+gdn_bwd_norm_kernel_cluster(const __grid_constant__ CUtensorMap x_map, const T* __restrict__ g,
+                            const float* __restrict__ gamma, const float* __restrict__ beta,
+                            float* __restrict__ t, float* __restrict__ d1, int n_rows, int c) {
+  wide_rows<Wide<T, CP, WIDE_NORM>>(&x_map, gamma, beta, n_rows, c,
+                                    WideNormOut<T, INVERSE>{g, t, d1, c});
+}
+
+// Launch 2 at CP = 192 and 256 (t_map: boxes of Wide<float, CP, WIDE_MIX>'s
+// tile rows).
+template <typename T, int CP, bool INVERSE>
+__global__ void __launch_bounds__(Wide<float, CP, WIDE_MIX>::THREADS, 1)
+gdn_bwd_mix_kernel_cluster(const __grid_constant__ CUtensorMap t_map, const T* __restrict__ x,
+                           const float* __restrict__ gamma, const float* d1, T* dx, int n_rows,
+                           int c) {
+  wide_rows<Wide<float, CP, WIDE_MIX>>(&t_map, gamma, nullptr, n_rows, c,
+                                       WideMixOut<T, INVERSE>{x, d1, dx, c});
 }
 
 // Launch 3's blocks: a block owns a BM x BN tile of dgamma (inputs i0 ..,
@@ -489,8 +723,9 @@ gdn_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ dgamma
   }
 }
 
-// The launches' arguments: x and t in 64-row boxes (the rows launches) and
-// in PROWS-row boxes (the partials launch).
+// The launches' arguments: x and t in boxes of the rows launches' tile rows
+// (64 at C <= 128, the cluster loop's at 192 and 256) and in PROWS-row
+// boxes (the partials launch).
 template <typename T>
 struct RowsArgs {
   CUtensorMap x_map, t_map, xp_map, tp_map;
@@ -504,16 +739,29 @@ struct RowsArgs {
   int n, c;
 };
 
+// Launches 1 and 2: persistent blocks at CP <= 128, clusters at 192 and 256.
 template <typename T, int CP, bool INVERSE>
 cudaError_t launch_rows(const RowsArgs<T>& a, cudaStream_t stream) {
-  static int norm_sms[MAX_DEVICES] = {}, mix_sms[MAX_DEVICES] = {};
-  const cudaError_t err = launch_persistent<Cfg<T, CP>>(
-      gdn_bwd_norm_kernel<T, CP, INVERSE>, norm_sms, a.n, stream, a.x_map, a.g, a.gamma, a.beta,
-      a.t, a.d1, a.n, a.c);
-  if (err != cudaSuccess) return err;
-  return launch_persistent<Cfg<float, CP>>(gdn_bwd_mix_kernel<T, CP, INVERSE>, mix_sms, a.n,
-                                           stream, a.t_map, a.x, a.gamma,
-                                           static_cast<const float*>(a.d1), a.dx, a.n, a.c);
+  const float* d1 = a.d1;
+  cudaError_t err;
+  if constexpr (CP <= 128) {
+    static int norm_sms[MAX_DEVICES] = {}, mix_sms[MAX_DEVICES] = {};
+    err = launch_persistent<Cfg<T, CP>>(gdn_bwd_norm_kernel<T, CP, INVERSE>, norm_sms, a.n,
+                                        stream, a.x_map, a.g, a.gamma, a.beta, a.t, a.d1, a.n,
+                                        a.c);
+    if (err != cudaSuccess) return err;
+    return launch_persistent<Cfg<float, CP>>(gdn_bwd_mix_kernel<T, CP, INVERSE>, mix_sms, a.n,
+                                             stream, a.t_map, a.x, a.gamma, d1, a.dx, a.n, a.c);
+  } else {
+    static int norm_clusters[MAX_DEVICES] = {}, mix_clusters[MAX_DEVICES] = {};
+    err = launch_clusters<Wide<T, CP, WIDE_NORM>>(gdn_bwd_norm_kernel_cluster<T, CP, INVERSE>,
+                                                  norm_clusters, a.n, stream, a.x_map, a.g,
+                                                  a.gamma, a.beta, a.t, a.d1, a.n, a.c);
+    if (err != cudaSuccess) return err;
+    return launch_clusters<Wide<float, CP, WIDE_MIX>>(
+        gdn_bwd_mix_kernel_cluster<T, CP, INVERSE>, mix_clusters, a.n, stream, a.t_map, a.x,
+        a.gamma, d1, a.dx, a.n, a.c);
+  }
 }
 
 template <typename T, int CP>
@@ -582,8 +830,11 @@ int run(const void* x, const void* g, const void* gamma, const void* beta, void*
   float* part = a.t + n * c * (is_bf16 ? 2 : 1);
   a.n = static_cast<int>(n);
   a.c = c;
-  if (!make_map(&a.x_map, const_cast<void*>(x), n, c, is_bf16) ||
-      !make_map(&a.t_map, a.t, n, c, false) ||
+  const bool wide = c > 128;
+  const int x_rows = wide ? wide_tile_rows(is_bf16 ? 2 : 4, c, WIDE_NORM) : ROWS;
+  const int t_rows = wide ? wide_tile_rows(4, c, WIDE_MIX) : ROWS;
+  if (!make_map(&a.x_map, const_cast<void*>(x), n, c, is_bf16, x_rows) ||
+      !make_map(&a.t_map, a.t, n, c, false, t_rows) ||
       (dgamma != nullptr && (!make_map(&a.xp_map, const_cast<void*>(x), n, c, is_bf16, PROWS) ||
                              !make_map(&a.tp_map, a.t, n, c, false, PROWS)))) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -90,18 +90,18 @@ __device__ __forceinline__ void epilogue_pair(__nv_bfloat16, uint8_t* p, float n
 template <typename T, int CP, bool INVERSE>
 struct ForwardEpilogue {
   __device__ __forceinline__ void operator()(uint8_t* tile, const float* acc,
-                                             const float* beta_s, int, int n0, int ra,
+                                             const float* beta_s, int, int ra,
                                              int t4) const {
     using K = Cfg<T, CP>;
 #pragma unroll
     for (int j = 0; j < K::NB / 8; ++j) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int col = n0 + 8 * j + 2 * t4;
+        const int col = 8 * j + 2 * t4;
         uint8_t* p = tile + (col / K::COLS) * BOX_TILE_BYTES +
                      swz(ra + 8 * h, (col % K::COLS) * K::ESZ);
-        epilogue_pair<INVERSE>(T(), p, acc[4 * j + 2 * h] + beta_s[col - n0],
-                               acc[4 * j + 2 * h + 1] + beta_s[col - n0 + 1]);
+        epilogue_pair<INVERSE>(T(), p, acc[4 * j + 2 * h] + beta_s[col],
+                               acc[4 * j + 2 * h + 1] + beta_s[col + 1]);
       }
     }
   }
@@ -178,7 +178,7 @@ extern "C" int gdn_forward(const void* x, const void* gamma, const void* beta, v
   }
   // the wide loop (c > 128) reads boxes of a whole tile and writes out without TMA
   const bool wide = c > 128;
-  const int box_rows = wide ? wide_tile_rows(esz, c) : ROWS;
+  const int box_rows = wide ? wide_tile_rows(esz, c, WIDE_FORWARD) : ROWS;
   CUtensorMap x_map, out_map;
   if (!make_map(&x_map, const_cast<void*>(x), n, c, is_bf16 != 0, box_rows) ||
       (!wide && !make_map(&out_map, out, n, c, is_bf16 != 0))) {

@@ -4,22 +4,17 @@
 // an (N, C) x (C, C) channel mix of 64-row tiles with gamma resident in
 // shared memory, on Hopper's wgmma with TMA-fed tiles (sm_90a).
 //
-// Which widths it serves: the forward at C <= 128 (CP 64 and 128), and
-// the backward's norm and mix launches at every width. The forward at
-// CP = 192 and 256 runs the loop of csrc/gdn_wide.cuh instead: there gamma
-// of every output channel does not fit in one block beside a ring of row
-// tiles, and this loop's answer (each block a slice of the outputs, each
-// block loading and splitting every tile for itself, a stage refilled only
-// after its epilogue and store) reads the tiles several times and leaves a
-// warpgroup waiting for a load on every tile.
+// Which widths it serves: C <= 128 (CP 64 and 128), the forward and the
+// backward's norm and mix launches. At CP = 192 and 256 all three run the
+// loop of csrc/gdn_wide.cuh instead: there gamma of every output channel
+// does not fit in one block beside a ring of row tiles, so a cluster of
+// blocks holds it in slices and shares each tile's loads.
 //
-//   - Persistent blocks, one per SM, each walking 64-row tiles. Each block
-//     computes a fixed slice of NB output channels for all its rows; for the
-//     widths where gamma fits (float32 C <= 128, bfloat16 C <= 192) that slice
-//     is all of them, so the rows are read from device memory once. gamma of
-//     the slice (hi and lo planes) stays in shared memory for the block's
-//     life, in the K-major, 128-byte-swizzled layout wgmma reads as its B
-//     operand.
+//   - Persistent blocks, one per SM, each walking 64-row tiles and
+//     computing every output channel of them, so the rows are read from
+//     device memory once. gamma (hi and lo planes) stays in shared memory
+//     for the block's life, in the K-major, 128-byte-swizzled layout wgmma
+//     reads as its B operand.
 //   - A ring of row tiles (as many as shared memory holds, up to 8) stays in
 //     flight through TMA (cp.async.bulk.tensor, 128-byte swizzle), each stage
 //     with an mbarrier. The ragged last tile and the channels past C come
@@ -62,14 +57,6 @@ constexpr int SMEM_LIMIT = 232448;              // dynamic shared memory a block
 constexpr int SMEM_RESERVE = 2048;              // alignment slack, beta, mbarriers
 constexpr int MAX_DEVICES = 64;
 
-// Output channels per block: all of them where both gamma planes fit beside
-// at least two row tiles, else a slice (the grid then covers CP / NB slices).
-// The slices serve the backward's launches at CP = 192 and 256; the forward
-// at those widths has its own geometry (csrc/gdn_wide.cuh, `Wide`).
-constexpr int nb_of(int esz, int cp) {
-  return esz == 4 ? (cp <= 128 ? cp : cp == 192 ? 64 : 32) : (cp <= 192 ? cp : 128);
-}
-
 // T: the type of the tiles in the ring (the product's A operand before the
 // split); CP: C padded to a multiple of 64.
 template <typename T, int CP>
@@ -78,11 +65,10 @@ struct Cfg {
   static constexpr int COLS = BOX_BYTES / ESZ;           // channels per box: 32 or 64
   static constexpr int BOXES = CP / COLS;                // K blocks per tile
   static constexpr int KSTEPS = 4;                       // wgmma k-steps (32 bytes) per box
-  static constexpr int NB = nb_of(ESZ, CP);
-  static constexpr int SLICES = CP / NB;
-  // warpgroups taking turns on tiles: three where registers allow (bf16 has
-  // less CUDA-core work per byte to hide behind the copies), else two
-  static constexpr int CONSUMERS = (ESZ == 2 && CP <= 192) ? 3 : 2;
+  static constexpr int NB = CP;                          // output channels per block: all
+  // warpgroups taking turns on tiles: three for bf16 (less CUDA-core work
+  // per byte to hide behind the copies), two for float32
+  static constexpr int CONSUMERS = ESZ == 2 ? 3 : 2;
   static constexpr int THREADS = 128 * CONSUMERS;
   static constexpr int PLANE_BYTES = NB * CP * ESZ;      // one gamma plane
   static constexpr int STAGE_BYTES = BOXES * BOX_TILE_BYTES;
@@ -90,8 +76,7 @@ struct Cfg {
   static constexpr int STAGES = FIT < 8 ? FIT : 8;
   static constexpr int SMEM = 1024 + 2 * PLANE_BYTES + STAGES * STAGE_BYTES + NB * 4 +
                               STAGES * 8;
-  static_assert(CP % 64 == 0 && CP <= 256, "CP: a multiple of 64 up to 256");
-  static_assert(NB % COLS == 0 && CP % NB == 0, "NB: whole boxes");
+  static_assert(CP == 64 || CP == 128, "CP 64 and 128; csrc/gdn_wide.cuh serves 192 and 256");
   static_assert(STAGES >= CONSUMERS, "a tile in flight for each consumer");
   static_assert(SMEM <= SMEM_LIMIT, "shared memory");
 };
@@ -188,33 +173,11 @@ __device__ __forceinline__ uint32_t tf32_rna(float v) {
 }
 
 // m64nNk8 (TF32) and m64nNk16 (bf16) with A (four 32-bit registers a
-// thread) from registers, B from shared memory, float32 accumulate. N = 96
-// is the wide forward's (csrc/gdn_wide.cuh), the others mix_rows' too.
+// thread) from registers, B from shared memory, float32 accumulate: N = 64
+// and 128 for mix_rows, the partials launch and csrc/gdn_wide.cuh, 96 for
+// the latter alone.
 template <int N>
 struct Mma;
-
-template <> struct Mma<32> {
-  static __device__ __forceinline__ void tf32(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void bf16(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
 
 template <> struct Mma<64> {
   static __device__ __forceinline__ void tf32(float* d, const uint32_t* a, uint64_t b) {
@@ -321,58 +284,6 @@ template <> struct Mma<128> {
   }
 };
 
-template <> struct Mma<192> {
-  static __device__ __forceinline__ void tf32(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-        "}, {%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void bf16(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
 template <typename T, int N>
 __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t b) {
   if constexpr (std::is_same<T, float>::value) {
@@ -450,13 +361,13 @@ __device__ __forceinline__ void load_a(__nv_bfloat16, const uint8_t* box, int ra
 // The block's part of acc = A . B over the rows of `in_map` (n_rows x c, a
 // ring of 64-row tiles of type T): A is the tile squared (P planes, the norm)
 // or as it is (MIX: Q planes, u = t . gamma^T). For each tile, the calling
-// warpgroup's `epilogue(tile, acc, beta_s, row0, n0, ra, t4)` then gets the
+// warpgroup's `epilogue(tile, acc, beta_s, row0, ra, t4)` then gets the
 // tile in shared memory (T, 128-byte swizzled boxes), its accumulator
-// (element 4j + 2h + e: row row0 + ra + 8h, channel n0 + 8j + 2*t4 + e),
-// beta of the slice (ones past c; only where `beta` is given), the tile's
-// first row, the slice's first channel and the thread's fragment
-// coordinates. With STORE the epilogue has written its result into the tile
-// in place, and the slice's boxes go to `out_map` through TMA.
+// (element 4j + 2h + e: row row0 + ra + 8h, channel 8j + 2*t4 + e), beta
+// (ones past c; only where `beta` is given), the tile's first row and the
+// thread's fragment coordinates. With STORE the epilogue has written its
+// result into the tile in place, and the tile's boxes go to `out_map`
+// through TMA.
 template <typename T, int CP, bool MIX, bool STORE, typename Epilogue>
 __device__ __forceinline__ void mix_rows(const CUtensorMap* in_map, const CUtensorMap* out_map,
                                          const float* __restrict__ gamma,
@@ -472,9 +383,8 @@ __device__ __forceinline__ void mix_rows(const CUtensorMap* in_map, const CUtens
   float* beta_s = reinterpret_cast<float*>(stages + K::STAGES * K::STAGE_BYTES);
   uint64_t* full = reinterpret_cast<uint64_t*>(beta_s + K::NB);
 
-  const int n0 = (blockIdx.x % K::SLICES) * K::NB;  // first output channel of the block
-  const int tile0 = blockIdx.x / K::SLICES;
-  const int tile_step = gridDim.x / K::SLICES;
+  const int tile0 = blockIdx.x;
+  const int tile_step = gridDim.x;
   const int tiles = (n_rows + ROWS - 1) / ROWS;
   const int my_tiles = tile0 < tiles ? (tiles - tile0 + tile_step - 1) / tile_step : 0;
   // the block's tile i goes to ring stage i % STAGES
@@ -488,23 +398,23 @@ __device__ __forceinline__ void mix_rows(const CUtensorMap* in_map, const CUtens
     }
   };
 
-  // gamma of the slice as wgmma's B, zero padded: row o (output channel
-  // n0 + o) holds input channels k, one 128-byte swizzled row per box of K.
-  // P reads gamma[k][n0 + o], Q gamma[n0 + o][k], each k-fastest where
-  // that is the contiguous walk of gamma.
+  // gamma as wgmma's B, zero padded: row o (output channel o) holds input
+  // channels k, one 128-byte swizzled row per box of K. P reads
+  // gamma[k][o], Q gamma[o][k], each k-fastest where that is the
+  // contiguous walk of gamma.
   for (int idx = threadIdx.x; idx < K::NB * CP; idx += K::THREADS) {
     const int o = MIX ? idx / CP : idx % K::NB;
     const int k = MIX ? idx % CP : idx / K::NB;
     float g = 0.0f;
-    if (k < c && n0 + o < c) {
-      g = MIX ? gamma[static_cast<int64_t>(n0 + o) * c + k] : gamma[static_cast<int64_t>(k) * c + n0 + o];
+    if (k < c && o < c) {
+      g = MIX ? gamma[static_cast<int64_t>(o) * c + k] : gamma[static_cast<int64_t>(k) * c + o];
     }
     const uint32_t off = (k / K::COLS) * (K::NB * BOX_BYTES) + swz(o, (k % K::COLS) * K::ESZ);
     split_store(T(), g_hi, g_lo, off, g);
   }
   if (beta != nullptr) {
     for (int i = threadIdx.x; i < K::NB; i += K::THREADS) {
-      beta_s[i] = n0 + i < c ? beta[n0 + i] : 1.0f;
+      beta_s[i] = i < c ? beta[i] : 1.0f;
     }
   }
   if (threadIdx.x == 0) {
@@ -559,13 +469,12 @@ __device__ __forceinline__ void mix_rows(const CUtensorMap* in_map, const CUtens
     for (int v = 0; v < K::NB / 2; ++v) fence_operand(acc[v]);
 
     const int row0 = (tile0 + i * tile_step) * ROWS;
-    epilogue(tile, acc, beta_s, row0, n0, ra, t4);
+    epilogue(tile, acc, beta_s, row0, ra, t4);
     fence_async_smem();
     named_bar_sync(1 + wg, 128);  // the warpgroup is done with the stage
     if (threadIdx.x % 128 == 0) {
       if (STORE) {
-        for (int jb = 0; jb < K::NB / K::COLS; ++jb) {
-          const int box = n0 / K::COLS + jb;
+        for (int box = 0; box < K::BOXES; ++box) {
           tma_store(out_map, smem_u32(tile + box * BOX_TILE_BYTES), box * K::COLS, row0);
         }
         bulk_commit();
@@ -623,8 +532,7 @@ bool make_map(CUtensorMap* map, void* ptr, long long n, int c, bool is_bf16,
 }
 
 // Launches `kernel` (a mix_rows kernel of configuration K) as persistent
-// blocks over n rows: the SM count rounded down to whole slices, at most one
-// block per (tile, slice). `sms_of` is the kernel instance's own per-device
+// blocks over n rows: one per SM, at most one per tile. `sms_of` is the kernel instance's own per-device
 // cache: its shared-memory opt-in and the SM count are taken once per device
 // (each call costs host time that a small launch would otherwise wait on).
 template <typename K, typename Kernel, typename... Args>
@@ -645,8 +553,7 @@ cudaError_t launch_persistent(Kernel kernel, int* sms_of, int n, cudaStream_t st
     sms_of[dev] = sms;
   }
   const long long tiles = (n + ROWS - 1) / ROWS;
-  long long blocks = static_cast<long long>(sms_of[dev] / K::SLICES) * K::SLICES;
-  if (blocks > tiles * K::SLICES) blocks = tiles * K::SLICES;
+  const long long blocks = sms_of[dev] < tiles ? sms_of[dev] : tiles;
   kernel<<<static_cast<unsigned>(blocks), K::THREADS, K::SMEM, stream>>>(args...);
   return cudaGetLastError();
 }

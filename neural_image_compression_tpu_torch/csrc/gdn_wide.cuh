@@ -1,7 +1,11 @@
-// The GDN / IGDN forward at the wide widths, CP = 192 and 256 (C from 129
-// to 256): a thread-block cluster per group of row tiles, on Hopper's wgmma
-// with TMA-fed tiles (sm_90a). csrc/gdn_kernel.cu launches it; the narrower
-// widths run csrc/gdn_wgmma.cuh's mix_rows.
+// The GDN / IGDN channel mix at the wide widths, CP = 192 and 256 (C from
+// 129 to 256): a thread-block cluster per group of row tiles, on Hopper's
+// wgmma with TMA-fed tiles (sm_90a). Three launches run on it, each with an
+// epilogue of its own (`Wide`'s LAUNCH): the forward (csrc/gdn_kernel.cu,
+// out = x * rsqrt(beta + (x*x) . gamma)), and the backward's norm and mix
+// (csrc/gdn_bwd_kernel.cu: the same product, its epilogue writing t and
+// d1; u = t . gamma^T over float32 t, its epilogue writing dx). The
+// narrower widths run csrc/gdn_wgmma.cuh's mix_rows.
 //
 // Why a loop of its own: gamma's hi and lo planes take 2 * C * C * sizeof
 // (float32: 288 KB at C = 192, 512 KB at 256; bfloat16 half that), more
@@ -15,35 +19,50 @@
 //   - A cluster of S blocks (`Wide::S`) walks the same row tiles; block
 //     rank r holds gamma's planes for output channels [r NB, (r + 1) NB),
 //     NB = CP / S, resident for its life (K-major, 128-byte swizzle, as
-//     mix_rows holds them). S is as small as shared memory allows: float32
-//     192 in 2 x 96, 256 in 4 x 64; bfloat16 192 in 2 x 96, 256 in 2 x 128.
-//   - Each x box (a tile's rows x 128 bytes: one K block of the tile) is
-//     fetched from L2 once per cluster: the cluster's rank 0 issues it with
+//     mix_rows holds them): P planes (row o: gamma[:, r NB + o]) for the
+//     forward and the norm, Q planes (row o: gamma[r NB + o, :]) for the
+//     mix. S is as small as shared memory allows: float32 192 in 2 x 96,
+//     256 in 4 x 64; bfloat16 192 in 2 x 96, 256 in 2 x 128 (the mix's
+//     tiles are float32 t whatever x's type).
+//   - Each x box (t box for the mix: a tile's rows x 128 bytes, one K block
+//     of the tile) is fetched from L2 once per cluster: rank 0 issues it with
 //     cp.async.bulk.tensor .multicast::cluster into the same ring stage of
 //     every block, and it signals each block's own "full" mbarrier. Every
 //     block's producer arms its own barrier for each box. A stage is
-//     refilled once every consumer warp of every block has released it: the
-//     warps arrive on rank 0's "empty" mbarrier of that stage through the
-//     cluster's shared memory window (mapa), 4 x consumers x S a phase.
+//     refilled once every consumer warp of every block that reads it has
+//     released it: the warps arrive on rank 0's "empty" mbarrier of that
+//     stage through the cluster's shared memory window (mapa), 4 x S a
+//     phase for each warpgroup that reads the stage.
 //   - Loads never wait on an epilogue: a producer thread keeps the ring (as
-//     many boxes as shared memory holds beside the planes, 64 to 144 KB)
-//     full, and a consumer warp releases a box as soon as it has read the
-//     box into registers (its A fragments, and the x values its epilogue
-//     needs), before its products run. A block-scope fence first makes
-//     each lane's reads of the box complete: a read may wait behind the
-//     warp's last stores to device memory, and without it the next box can
-//     land first (wrong rows in some launches at C = 192 on an H100). The epilogue
-//     writes out from registers to device memory, 16 bytes a lane after an
-//     exchange within each quad, so no store reads the ring either.
-//   - Two or three consumer warpgroups share each tile, 64 rows each, with
-//     M = 64 wgmma (m64nNBk8 TF32, m64nNBk16 bf16), and each builds the next
-//     box's split fragments while the previous box's products run (one
-//     set of fragments at bfloat16 256, where registers allow no second).
-//     The wgmma of one warpgroup hides behind another's: three beat two
-//     wherever their registers hold (`wide_consumers_of`). Block rank is a
-//     template parameter of the consumer loop, so which boxes hold the
-//     block's own output channels, and where, is known when it is compiled
-//     (the x values for the epilogue land in registers).
+//     many boxes as shared memory holds beside the planes, 80 to 144 KB)
+//     full, and a consumer warp releases a box once the products that read
+//     it are issued: their issue waits for every lane's loads of the box, and
+//     every value loaded from it feeds a fragment (the x values the forward's
+//     and the norm's epilogues need are taken from the same loads,
+//     load_a_x), so no load of the box is in flight when the next one may
+//     land. (Released right after the loads, before the products, behind a
+//     block-scope fence, the next box still landed under the backward's
+//     reads: other bits in a few rows in 1 to 4 of 4 launches at 65,536 and
+//     262,144 rows of C = 192 on an H100.) The epilogues write from
+//     registers to device memory, after an exchange within each quad that
+//     gives a lane 16 contiguous bytes (or 4 bf16 channels), so no store
+//     reads the ring either. The backward's read their other operands (g; x
+//     and d1) straight from device memory at those positions, prefetched
+//     into L2 when the tile starts, every load of a group issued before any
+//     is used.
+//   - The consumer warpgroups share each tile, 64 rows each. A consumer runs
+//     M = 64 wgmma (m64nNBk8 TF32, m64nNBk16 bf16) and builds the next box's
+//     split fragments while the previous box's products run (one set of
+//     fragments in the forward at bfloat16 256, where registers allow no
+//     second). The wgmma of one warpgroup hides behind another's: in the
+//     forward three beat two wherever their registers hold
+//     (`wide_consumers_of`). Block rank is a template parameter of the
+//     consumer loop, so which boxes hold the block's own output channels,
+//     and where, is known when it is compiled (the x values for the
+//     epilogue land in registers; the mix needs none). The backward's
+//     launches run two consumers: ptxas holds a kernel of 512 threads to 128
+//     registers a thread, and three consumers' products and epilogue loads
+//     spilled there (1.3 to 1.8 KB a thread at 192).
 //   - 384 or 512 threads: the consumers and a producer warpgroup, which
 //     hands its registers to them (setmaxnreg: 40 a thread for the
 //     producer, 232 or 152 for the consumers, from the 168 or 128 of the
@@ -66,35 +85,51 @@ namespace {
 
 constexpr int WIDE_MIN_RING = 64 * 1024;  // bytes of x the ring holds at least
 
+// The launches on the loop, each with its epilogue: the forward, the
+// backward's norm (the forward's product; t and d1 out) and its mix (u =
+// t . gamma^T over float32 t tiles; dx out).
+enum WideLaunch { WIDE_FORWARD, WIDE_NORM, WIDE_MIX };
+
 // Blocks per cluster: the fewest whose gamma slices (hi and lo planes) fit
-// beside a ring of at least 64 KB.
+// beside a ring of at least 64 KB. esz: the ring's element size (4 for the
+// mix, whose tiles are float32 t).
 constexpr int wide_cluster_of(int esz, int cp) { return esz == 4 && cp == 256 ? 4 : 2; }
-// Consumer warpgroups a block, each taking 64 rows of a tile: three where
-// their registers hold (the wgmma of one hides behind another's: float32
-// 256 takes a third less time with three than with two on an H100), two
-// for float32 192, whose 96-channel accumulator and x need more than three
-// warpgroups' 152 registers a thread. tools/gdn_variants.py with
-// tools/gdn_wide_variants.json times these choices undone (PERF.md §6).
-constexpr int wide_consumers_of(int esz, int cp) { return esz == 4 && cp == 192 ? 2 : 3; }
+// Consumer warpgroups a block, each taking 64 rows of a tile. The forward:
+// three where their registers hold (the wgmma of one hides behind
+// another's: float32 256 takes a third less time with three than with two
+// on an H100), two at float32 192, whose 96-channel accumulator and x need
+// more than three warpgroups' registers. The backward's norm and mix: two,
+// whose 168 registers a thread hold the accumulator, two fragment sets and
+// a group of the epilogue's loads without spilling. tools/gdn_variants.py
+// with tools/gdn_wide_variants.json times these choices undone (PERF.md §6).
+constexpr int wide_consumers_of(int esz, int cp, int launch) {
+  return launch != WIDE_FORWARD || (esz == 4 && cp == 192) ? 2 : 3;
+}
 // Sets of split fragments a consumer holds: two let it build the next
-// box's while the products of this one run; bfloat16 256 keeps one (its
-// 128-channel accumulator and x leave no room for two beside 152
-// registers), and its three consumers overlap each other instead.
-constexpr int wide_fragment_sets_of(int esz, int cp) { return esz == 2 && cp == 256 ? 1 : 2; }
-// Rows of a tile (and of x's TMA box) at width c.
-constexpr int wide_tile_rows(int esz, int c) {
-  return ROWS * wide_consumers_of(esz, (c + 63) / 64 * 64);
+// box's while the products of this one run; the forward at bfloat16 256
+// keeps one (its 128-channel accumulator and x leave no room for two), and
+// its three consumers overlap each other instead.
+constexpr int wide_fragment_sets_of(int esz, int cp, int launch) {
+  return launch == WIDE_FORWARD && esz == 2 && cp == 256 ? 1 : 2;
+}
+// Rows of a tile (and of the ring's TMA box) at width c.
+constexpr int wide_tile_rows(int esz, int c, int launch) {
+  return ROWS * wide_consumers_of(esz, (c + 63) / 64 * 64, launch);
 }
 
-template <typename T, int CP>
+// T: the ring's type (x's; float32 t for the mix); CP: C padded to 192 or 256.
+template <typename T, int CP_, int LAUNCH = WIDE_FORWARD>
 struct Wide {
+  using Elem = T;
+  static constexpr int CP = CP_;
+  static constexpr bool MIX = LAUNCH == WIDE_MIX;  // Q planes, the tiles not squared
   static constexpr int ESZ = sizeof(T);
   static constexpr int COLS = BOX_BYTES / ESZ;           // channels per box: 32 or 64
   static constexpr int BOXES = CP / COLS;                // K blocks per tile
   static constexpr int KSTEPS = 4;                       // wgmma k-steps (32 bytes) per box
   static constexpr int S = wide_cluster_of(ESZ, CP);
   static constexpr int NB = CP / S;                      // output channels per block
-  static constexpr int CONSUMERS = wide_consumers_of(ESZ, CP);
+  static constexpr int CONSUMERS = wide_consumers_of(ESZ, CP, LAUNCH);
   static constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
   static constexpr int TILE_ROWS = ROWS * CONSUMERS;
   static constexpr int BOX = TILE_ROWS * BOX_BYTES;      // one stage: one K block of a tile
@@ -106,7 +141,7 @@ struct Wide {
   static constexpr int SHARED_REGS =
       (LAUNCH_REGS * (CONSUMERS + 1) - PRODUCER_REGS) / CONSUMERS / 8 * 8;
   static constexpr int CONSUMER_REGS = SHARED_REGS < 232 ? SHARED_REGS : 232;
-  static constexpr int FRAGS = wide_fragment_sets_of(ESZ, CP);
+  static constexpr int FRAGS = wide_fragment_sets_of(ESZ, CP, LAUNCH);
   static constexpr int PLANE_BYTES = NB * CP * ESZ;      // one gamma plane
   static constexpr int STAGES = (SMEM_LIMIT - SMEM_RESERVE - 2 * PLANE_BYTES) / BOX;
   // each consumer warp of each block releases every stage
@@ -114,6 +149,7 @@ struct Wide {
   static constexpr int SMEM = 1024 + 2 * PLANE_BYTES + STAGES * BOX + NB * 4 +
                               2 * STAGES * 8;
   static_assert(CP == 192 || CP == 256, "the wide loop serves CP 192 and 256");
+  static_assert(!MIX || ESZ == 4, "the mix's tiles are float32 t");
   static_assert(S >= 2 && CP % S == 0 && NB % (ESZ == 4 ? 16 : 32) == 0 && NB <= 128,
                 "S; NB: a wgmma N, whole 16-byte pieces of the epilogue's quads");
   static_assert(STAGES * BOX >= WIDE_MIN_RING, "a ring of at least 64 KB");
@@ -124,7 +160,8 @@ struct Wide {
 };
 
 // The geometry each instantiation gets (tests/test_torch_kernels.py holds
-// ops/kernels/gdn_kernel.py's mirror, `wide_geometry`, to these lines).
+// ops/kernels/gdn_kernel.py's mirror, `wide_geometry`, to these lines): the
+// forward's,
 static_assert(Wide<float, 192>::S == 2 && Wide<float, 192>::NB == 96 &&
               Wide<float, 192>::CONSUMERS == 2 && Wide<float, 192>::STAGES == 5 &&
               Wide<float, 192>::SMEM == 230864, "f32 192");
@@ -137,6 +174,34 @@ static_assert(Wide<__nv_bfloat16, 192>::S == 2 && Wide<__nv_bfloat16, 192>::NB =
 static_assert(Wide<__nv_bfloat16, 256>::S == 2 && Wide<__nv_bfloat16, 256>::NB == 128 &&
               Wide<__nv_bfloat16, 256>::CONSUMERS == 3 && Wide<__nv_bfloat16, 256>::STAGES == 4 &&
               Wide<__nv_bfloat16, 256>::SMEM == 230976, "bf16 256");
+// the norm's (two consumers; the forward's clusters and widths),
+static_assert(Wide<float, 192, WIDE_NORM>::S == 2 && Wide<float, 192, WIDE_NORM>::NB == 96 &&
+              Wide<float, 192, WIDE_NORM>::CONSUMERS == 2 &&
+              Wide<float, 192, WIDE_NORM>::STAGES == 5 &&
+              Wide<float, 192, WIDE_NORM>::SMEM == 230864, "norm f32 192");
+static_assert(Wide<float, 256, WIDE_NORM>::S == 4 && Wide<float, 256, WIDE_NORM>::NB == 64 &&
+              Wide<float, 256, WIDE_NORM>::CONSUMERS == 2 &&
+              Wide<float, 256, WIDE_NORM>::STAGES == 6 &&
+              Wide<float, 256, WIDE_NORM>::SMEM == 230752, "norm f32 256");
+static_assert(Wide<__nv_bfloat16, 192, WIDE_NORM>::S == 2 &&
+              Wide<__nv_bfloat16, 192, WIDE_NORM>::NB == 96 &&
+              Wide<__nv_bfloat16, 192, WIDE_NORM>::CONSUMERS == 2 &&
+              Wide<__nv_bfloat16, 192, WIDE_NORM>::STAGES == 9 &&
+              Wide<__nv_bfloat16, 192, WIDE_NORM>::SMEM == 222736, "norm bf16 192");
+static_assert(Wide<__nv_bfloat16, 256, WIDE_NORM>::S == 2 &&
+              Wide<__nv_bfloat16, 256, WIDE_NORM>::NB == 128 &&
+              Wide<__nv_bfloat16, 256, WIDE_NORM>::CONSUMERS == 2 &&
+              Wide<__nv_bfloat16, 256, WIDE_NORM>::STAGES == 6 &&
+              Wide<__nv_bfloat16, 256, WIDE_NORM>::SMEM == 231008, "norm bf16 256");
+// and the mix's (float32 t tiles for either x)
+static_assert(Wide<float, 192, WIDE_MIX>::S == 2 && Wide<float, 192, WIDE_MIX>::NB == 96 &&
+              Wide<float, 192, WIDE_MIX>::CONSUMERS == 2 &&
+              Wide<float, 192, WIDE_MIX>::STAGES == 5 &&
+              Wide<float, 192, WIDE_MIX>::SMEM == 230864, "mix 192");
+static_assert(Wide<float, 256, WIDE_MIX>::S == 4 && Wide<float, 256, WIDE_MIX>::NB == 64 &&
+              Wide<float, 256, WIDE_MIX>::CONSUMERS == 2 &&
+              Wide<float, 256, WIDE_MIX>::STAGES == 6 &&
+              Wide<float, 256, WIDE_MIX>::SMEM == 230752, "mix 256");
 
 // --- cluster PTX ----------------------------------------------------------------
 
@@ -173,10 +238,10 @@ __device__ __forceinline__ void cluster_sync() {
 // One arrival on the mbarrier at the same offset as `bar` in the block of
 // rank `rank`, ordered after this thread's earlier accesses at the
 // default (block) scope: it tells the producer that this warp has read a
-// stage of its own block (the caller fences its lanes' reads first). A
-// cluster-scope release would also wait for the warp's earlier stores to
-// device memory (the last tile's outputs): about 1.4x slower at C = 192 on
-// an H100.
+// stage of its own block (the caller makes sure its lanes' loads from the
+// stage are complete first). A cluster-scope release would also wait for
+// the warp's earlier stores to device memory (the last tile's outputs):
+// about 1.4x slower at C = 192 on an H100.
 __device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, uint32_t rank) {
   asm volatile(
       "{\n.reg .b32 remote;\n"
@@ -205,41 +270,87 @@ __device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorM
 
 // --- the consumers ----------------------------------------------------------------
 
-// The x values of box kc at this thread's accumulator positions among the
-// block's output channels N0 + [0, NB): element 4j + 2h + e (float32) or
-// bf16 pair 2j + h, row ra + 8h, channel N0 + 8j + 2 t4 + e. Called from
-// the unrolled box loop, so kc and j are constants and xs stays in
-// registers.
+// The A fragments of box kc for the forward and the norm (load_a's: x
+// squared, split) and, from the same loads, x at the accumulator's
+// positions among the block's channels N0 + [0, NB): element 4j + 2h + e
+// (float32) or bf16 pair 2j + h, row ra + 8h, channel N0 + 8j + 2 t4 + e.
+// Called from the unrolled box loop, so kc and j are constants and xs
+// stays in registers. In bfloat16 a lane's fragment pairs are those
+// positions; in float32 a lane holds channels t4 and t4 + 4 of each k-step
+// and the accumulator wants 2 t4 and 2 t4 + 1, which the quad exchanges:
+// lane 2 (t4 & 1) + e holds channel 2 t4 + e in its lower or upper half
+// (t4 >> 1). Each lane is read by one lane in each of two shuffles a value
+// pair (lane t4 reads lane 2 (t4 & 1) + (t4 >> 1), then 2 (t4 & 1) + 1 -
+// (t4 >> 1)), so it sends the half its reader wants: the upper in the
+// first if it is odd, in the second if it is even (half the shuffles of
+// four a pair, and fewer spills: the norm 7% faster at 262,144 rows of
+// float32 C = 192 on an H100). Every value loaded from the box
+// goes into a fragment, so the products' issue that follows waits for all
+// of the box's loads.
 template <int NB, int N0>
-__device__ __forceinline__ void take_x(float, const uint8_t* box, int kc, int ra, int t4,
-                                       float* xs) {
+__device__ __forceinline__ void load_a_x(float, const uint8_t* box, int kc, int ra, int t4,
+                                         uint32_t* hi, uint32_t* lo, float* xs) {
+  const bool odd = t4 & 1, upper = t4 >> 1;
+  const int src_a = 2 * (t4 & 1) + (t4 >> 1), src_b = 2 * (t4 & 1) + 1 - (t4 >> 1);
 #pragma unroll
-  for (int j = 0; j < NB / 8; ++j) {
-    const int col = N0 + 8 * j;
-    if (col / 32 == kc) {
+  for (int ks = 0; ks < 4; ++ks) {
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = ra + 8 * (q & 1);
+      const int col = 8 * ks + t4 + 4 * (q >> 1);
+      v[q] = *reinterpret_cast<const float*>(box + swz(row, 4 * col));
+      const float s = v[q] * v[q];
+      const uint32_t h = tf32_rna(s);
+      hi[4 * ks + q] = h;
+      lo[4 * ks + q] = tf32_rna(s - __uint_as_float(h));
+    }
+    const int c8 = 32 * kc + 8 * ks;  // the k-step's first channel
+    if (c8 >= N0 && c8 < N0 + NB) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float2 v =
-            *reinterpret_cast<const float2*>(box + swz(ra + 8 * h, (col % 32 + 2 * t4) * 4));
-        xs[4 * j + 2 * h] = v.x;
-        xs[4 * j + 2 * h + 1] = v.y;
+        const float a = __shfl_sync(0xffffffffu, odd ? v[h + 2] : v[h], src_a, 4);
+        const float b = __shfl_sync(0xffffffffu, odd ? v[h] : v[h + 2], src_b, 4);
+        xs[4 * ((c8 - N0) / 8) + 2 * h] = upper ? b : a;
+        xs[4 * ((c8 - N0) / 8) + 2 * h + 1] = upper ? a : b;
       }
     }
   }
 }
 template <int NB, int N0>
-__device__ __forceinline__ void take_x(__nv_bfloat16, const uint8_t* box, int kc, int ra, int t4,
-                                       uint32_t* xs) {
+__device__ __forceinline__ void load_a_x(__nv_bfloat16, const uint8_t* box, int kc, int ra,
+                                         int t4, uint32_t* hi, uint32_t* lo, uint32_t* xs) {
 #pragma unroll
-  for (int j = 0; j < NB / 8; ++j) {
-    const int col = N0 + 8 * j;
-    if (col / 64 == kc) {
+  for (int ks = 0; ks < 4; ++ks) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        xs[2 * j + h] =
-            *reinterpret_cast<const uint32_t*>(box + swz(ra + 8 * h, (col % 64 + 2 * t4) * 2));
-      }
+    for (int q = 0; q < 4; ++q) {
+      const int row = ra + 8 * (q & 1);
+      const int col = 16 * ks + 2 * t4 + 8 * (q >> 1);
+      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(box + swz(row, 2 * col));
+      const __nv_bfloat162 h = __hmul2(x, x);
+      hi[4 * ks + q] = bf16x2_bits(h);
+      lo[4 * ks + q] = bf16x2_bits(__hfma2(x, x, __hneg2(h)));
+      // channels c8 + 2 t4 + {0, 1} of row ra + 8 (q & 1): pair 2 j + (q & 1)
+      const int c8 = 64 * kc + 16 * ks + 8 * (q >> 1);
+      if (c8 >= N0 && c8 < N0 + NB) xs[2 * ((c8 - N0) / 8) + (q & 1)] = bf16x2_bits(x);
     }
+  }
+}
+
+// The exchange within a quad (the 4 lanes of a row) that turns a lane's 4
+// accumulator-layout values of 16 channels (a[0..1] at 2 t4 + {0, 1},
+// a[2..3] at 8 + 2 t4 + {0, 1}) into 4 neighbouring channels,
+// quad_channel(t4) + [0, 4): lane bit 0 swapped with a's index bit 1.
+__device__ __forceinline__ int quad_channel(int t4) { return 8 * (t4 & 1) + 4 * (t4 >> 1); }
+__device__ __forceinline__ void quad_swap(float* a, bool odd) {
+  const float s0 = __shfl_xor_sync(0xffffffffu, odd ? a[0] : a[2], 1);
+  const float s1 = __shfl_xor_sync(0xffffffffu, odd ? a[1] : a[3], 1);
+  if (odd) {
+    a[0] = s0;
+    a[1] = s1;
+  } else {
+    a[2] = s0;
+    a[3] = s1;
   }
 }
 
@@ -254,12 +365,13 @@ __device__ __forceinline__ float wide_scale(float norm) {
   return r;
 }
 
-// The epilogue of one warpgroup's 64 rows: out = x * rsqrt(acc + beta) (or
-// sqrt) over the block's channels N0 + [0, NB), written from registers in
-// 16-byte pieces. In the accumulator's layout a quad (4 lanes) holds a row
-// in pieces of 8 (float32) or 4 (bf16) bytes; one (float32) or two (bf16)
-// exchanges within the quad give each lane 16 contiguous bytes, so a warp's
-// store covers 64 contiguous bytes of each of 8 rows (two whole sectors).
+// The forward's epilogue of one warpgroup's 64 rows: out = x * rsqrt(acc +
+// beta) (or sqrt) over the block's channels N0 + [0, NB), written from
+// registers in 16-byte pieces. In the accumulator's layout a quad (4 lanes)
+// holds a row in pieces of 8 (float32) or 4 (bf16) bytes; one (float32,
+// quad_swap) or two (bf16) exchanges within the quad give each lane 16
+// contiguous bytes, so a warp's store covers 64 contiguous bytes of each of
+// 8 rows (two whole sectors).
 // Rows are masked to n_rows, channels to c (a multiple of 4 for float32, 8
 // for bf16, so a 16-byte piece is all in or all out).
 template <bool INVERSE, int NB, int N0>
@@ -280,18 +392,8 @@ __device__ __forceinline__ void put_out(float* out, const float* acc, const floa
         a[2 * jj] = xs[v] * wide_scale<INVERSE>(acc[v] + b.x);
         a[2 * jj + 1] = xs[v + 1] * wide_scale<INVERSE>(acc[v + 1] + b.y);
       }
-      // swap lane bit 0 with a's index bit 1: lane t4 then holds channels
-      // 16 jp + 8 (t4 & 1) + 4 (t4 >> 1) + [0, 4)
-      const float s0 = __shfl_xor_sync(0xffffffffu, odd ? a[0] : a[2], 1);
-      const float s1 = __shfl_xor_sync(0xffffffffu, odd ? a[1] : a[3], 1);
-      if (odd) {
-        a[0] = s0;
-        a[1] = s1;
-      } else {
-        a[2] = s0;
-        a[3] = s1;
-      }
-      const int col = N0 + 16 * jp + 8 * (t4 & 1) + 4 * (t4 >> 1);
+      quad_swap(a, odd);
+      const int col = N0 + 16 * jp + quad_channel(t4);
       if (row + 8 * h < n_rows && col < c) {
         *reinterpret_cast<float4*>(out + (row + 8 * h) * c + col) =
             make_float4(a[0], a[1], a[2], a[3]);
@@ -349,19 +451,42 @@ __device__ __forceinline__ void put_out(__nv_bfloat16* out, const float* acc, co
   }
 }
 
-// The consumer warpgroups of the block of rank RANK: for each of the
-// cluster's tiles, acc = (x*x) . gamma[:, slice] box by box, then the
-// epilogue. Box i of the block's walk sits in stage i % STAGES.
-template <typename T, int CP, bool INVERSE, int RANK>
+// The forward's epilogue: put_out into out (n_rows x c, x's type).
+template <typename T, bool INVERSE>
+struct WideForwardOut {
+  T* out;
+  int c;
+
+  template <int NB, int N0>
+  __device__ __forceinline__ void prefetch(long long, int, int) const {}
+
+  template <int NB, int N0, typename XReg>
+  __device__ __forceinline__ void put(const float* acc, const XReg* xs, const float* beta_s,
+                                      long long row, int t4, int n_rows) const {
+    put_out<INVERSE, NB, N0>(out, acc, xs, beta_s, row, t4, n_rows, c);
+  }
+};
+
+// The consumer warpgroups of the block of rank RANK: each takes 64 rows of
+// every tile of the cluster, whose box i sits in stage i % STAGES. For each
+// tile, epi.prefetch<NB, N0>(row, t4, n_rows) (the epilogue's operands in
+// device memory into L2, where it has any), acc = A . gamma[:, slice] box
+// by box (A: the tile squared, or as it is for the mix), then the launch's
+// epilogue, epi.put<NB, N0>(acc, xs, beta_s, row, t4, n_rows): the
+// accumulator (element 4j + 2h + e: row row + 8h, channel N0 + 8j + 2 t4 +
+// e), x at the same positions (float32 values or bf16 pairs from load_a_x;
+// unset for the mix), beta of the block's channels, the warp's rows and
+// the lane's quad index.
+template <typename W, int RANK, typename Epilogue>
 __device__ __forceinline__ void wide_consume(const uint8_t* ring, const uint64_t* full,
                                              uint32_t empty0, uint32_t hi_base,
-                                             uint32_t lo_base, const float* beta_s, T* out,
-                                             int n_rows, int c, int tile0, int tile_step,
-                                             int tiles) {
-  using W = Wide<T, CP>;
+                                             uint32_t lo_base, const float* beta_s,
+                                             const Epilogue& epi, int n_rows, int tile0,
+                                             int tile_step, int tiles) {
+  using T = typename W::Elem;
   constexpr int N0 = RANK * W::NB;
   using XReg = typename std::conditional<W::ESZ == 4, float, uint32_t>::type;
-  constexpr int XREGS = W::ESZ == 4 ? W::NB / 2 : W::NB / 4;
+  constexpr int XREGS = W::MIX ? 1 : W::ESZ == 4 ? W::NB / 2 : W::NB / 4;
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
   const int ra = ((threadIdx.x / 32) % 4) * 16 + lane / 4;  // rows ra and ra + 8
@@ -373,6 +498,8 @@ __device__ __forceinline__ void wide_consume(const uint8_t* ring, const uint64_t
   uint32_t phase = 0;
 
   for (int tile = tile0; tile < tiles; tile += tile_step) {
+    const long long row = static_cast<long long>(tile) * W::TILE_ROWS + wg * ROWS + ra;
+    epi.template prefetch<W::NB, N0>(row, t4, n_rows);
 #pragma unroll
     for (int v = 0; v < W::NB / 2; ++v) {
       acc[v] = 0.0f;
@@ -390,17 +517,10 @@ __device__ __forceinline__ void wide_consume(const uint8_t* ring, const uint64_t
       const uint8_t* box = ring + stage * W::BOX + wg * BOX_TILE_BYTES;
       uint32_t* hi = a_hi[kc % W::FRAGS];
       uint32_t* lo = a_lo[kc % W::FRAGS];
-      load_a<true>(T(), box, ra, t4, hi, lo);
-      take_x<W::NB, N0>(T(), box, kc, ra, t4, xs);
-      // the warp is done with the box: each lane's reads of it have been
-      // performed (the fence; a read may still wait behind the last tile's
-      // stores to device memory), then one arrival a warp on rank 0's "empty"
-      __threadfence_block();
-      __syncwarp();
-      if (lane == 0) mbar_arrive_remote(empty0 + 8 * stage, 0);
-      if (++stage == W::STAGES) {
-        stage = 0;
-        phase ^= 1;
+      if constexpr (W::MIX) {
+        load_a<false>(T(), box, ra, t4, hi, lo);
+      } else {
+        load_a_x<W::NB, N0>(T(), box, kc, ra, t4, hi, lo, xs);
       }
       wgmma_fence();
 #pragma unroll
@@ -412,45 +532,53 @@ __device__ __forceinline__ void wide_consume(const uint8_t* ring, const uint64_t
         mma<T, W::NB>(acc, hi + 4 * ks, b_hi);
       }
       wgmma_commit();
+      // the products' issue has waited for each lane's loads of the box:
+      // the warp is done with it, one arrival on rank 0's "empty"
+      __syncwarp();
+      if (lane == 0) mbar_arrive_remote(empty0 + 8 * stage, 0);
+      if (++stage == W::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
     wgmma_wait<0>();
 #pragma unroll
     for (int v = 0; v < W::NB / 2; ++v) fence_operand(acc[v]);
 
-    const long long row = static_cast<long long>(tile) * W::TILE_ROWS + wg * ROWS + ra;
-    put_out<INVERSE, W::NB, N0>(out, acc, xs, beta_s, row, t4, n_rows, c);
+    epi.template put<W::NB, N0>(acc, xs, beta_s, row, t4, n_rows);
   }
 }
 
-template <typename T, int CP, bool INVERSE, int RANK = 0>
+template <typename W, typename Epilogue, int RANK = 0>
 __device__ __forceinline__ void wide_consume_rank(int rank, const uint8_t* ring,
                                                   const uint64_t* full, uint32_t empty0,
                                                   uint32_t hi_base, uint32_t lo_base,
-                                                  const float* beta_s, T* out, int n_rows, int c,
-                                                  int tile0, int tile_step, int tiles) {
-  if constexpr (RANK < Wide<T, CP>::S) {
+                                                  const float* beta_s, const Epilogue& epi,
+                                                  int n_rows, int tile0, int tile_step,
+                                                  int tiles) {
+  if constexpr (RANK < W::S) {
     if (rank == RANK) {
-      wide_consume<T, CP, INVERSE, RANK>(ring, full, empty0, hi_base, lo_base, beta_s, out,
-                                         n_rows, c, tile0, tile_step, tiles);
+      wide_consume<W, RANK>(ring, full, empty0, hi_base, lo_base, beta_s, epi, n_rows, tile0,
+                            tile_step, tiles);
     } else {
-      wide_consume_rank<T, CP, INVERSE, RANK + 1>(rank, ring, full, empty0, hi_base, lo_base,
-                                                  beta_s, out, n_rows, c, tile0, tile_step,
-                                                  tiles);
+      wide_consume_rank<W, Epilogue, RANK + 1>(rank, ring, full, empty0, hi_base, lo_base,
+                                               beta_s, epi, n_rows, tile0, tile_step, tiles);
     }
   }
 }
 
-// --- the kernel -------------------------------------------------------------------
+// --- the kernels ------------------------------------------------------------------
 
-// out = x * rsqrt(beta + (x*x) . gamma) (sqrt for IGDN) over the rows of
-// x_map (n_rows x c, T, boxes of a tile's rows x 128 bytes), out (n_rows, c)
-// in T.
-template <typename T, int CP, bool INVERSE>
-__global__ void __launch_bounds__(Wide<T, CP>::THREADS, 1)
-gdn_rows_kernel_cluster(const __grid_constant__ CUtensorMap x_map, T* __restrict__ out,
-                        const float* __restrict__ gamma, const float* __restrict__ beta,
-                        int n_rows, int c) {
-  using W = Wide<T, CP>;
+// The body of every launch on the loop, over the rows of in_map (n_rows x
+// c, W's type, boxes of a tile's rows x 128 bytes): gamma's planes of the
+// block's output channels (P, or Q for the mix) and, but for the mix,
+// beta's into shared memory; then the producer warpgroup and the
+// consumers, which hand each tile's accumulator to `epi`.
+template <typename W, typename Epilogue>
+__device__ __forceinline__ void wide_rows(const CUtensorMap* in_map,
+                                          const float* __restrict__ gamma,
+                                          const float* __restrict__ beta, int n_rows, int c,
+                                          const Epilogue& epi) {
   extern __shared__ uint8_t smem_raw[];
   // the swizzle is keyed to address bits 7-9: align the boxes to 1024 bytes
   // (the same offset in every block of the cluster, as multicast needs)
@@ -468,17 +596,28 @@ gdn_rows_kernel_cluster(const __grid_constant__ CUtensorMap x_map, T* __restrict
   const int tile_step = static_cast<int>(cluster_count_x());
   const int tiles = (n_rows - 1) / W::TILE_ROWS + 1;  // n_rows + TILE_ROWS may overflow
 
-  // gamma of the slice as wgmma's B (P planes: row o holds gamma[k][n0 + o]
-  // over k), zero padded; beta of the slice, ones past c
-  for (int idx = threadIdx.x; idx < W::NB * CP; idx += W::THREADS) {
-    const int o = idx % W::NB;
-    const int k = idx / W::NB;
-    const float g = (k < c && n0 + o < c) ? gamma[static_cast<int64_t>(k) * c + n0 + o] : 0.0f;
+  // gamma of the slice as wgmma's B, zero padded: row o (output channel
+  // n0 + o) holds input channels k; P reads gamma[k][n0 + o], Q gamma[n0 +
+  // o][k], each k-fastest where that is the contiguous walk of gamma. beta
+  // of the slice, ones past c. Unrolled, so that a thread has several of
+  // gamma's loads in flight (the backward's launches at 16,384 rows of
+  // C = 192 take 8% less time so on an H100)
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < W::NB * W::CP; idx += W::THREADS) {
+    const int o = W::MIX ? idx / W::CP : idx % W::NB;
+    const int k = W::MIX ? idx % W::CP : idx / W::NB;
+    float g = 0.0f;
+    if (k < c && n0 + o < c) {
+      g = W::MIX ? gamma[static_cast<int64_t>(n0 + o) * c + k]
+                 : gamma[static_cast<int64_t>(k) * c + n0 + o];
+    }
     const uint32_t off = (k / W::COLS) * (W::NB * BOX_BYTES) + swz(o, (k % W::COLS) * W::ESZ);
-    split_store(T(), g_hi, g_lo, off, g);
+    split_store(typename W::Elem(), g_hi, g_lo, off, g);
   }
-  for (int i = threadIdx.x; i < W::NB; i += W::THREADS) {
-    beta_s[i] = n0 + i < c ? beta[n0 + i] : 1.0f;
+  if constexpr (!W::MIX) {
+    for (int i = threadIdx.x; i < W::NB; i += W::THREADS) {
+      beta_s[i] = n0 + i < c ? beta[n0 + i] : 1.0f;
+    }
   }
   if (threadIdx.x == 0) {
     for (int s = 0; s < W::STAGES; ++s) {
@@ -509,7 +648,7 @@ gdn_rows_kernel_cluster(const __grid_constant__ CUtensorMap x_map, T* __restrict
             if (i >= W::STAGES) mbar_wait_cluster(smem_u32(&empty[stage]), phase ^ 1);
             mbar_expect_tx(full_s, W::BOX);
             const uint32_t dst = ring_u32 + stage * W::BOX;
-            tma_load_multicast(dst, &x_map, full_s, kc * W::COLS, tile * W::TILE_ROWS, mask);
+            tma_load_multicast(dst, in_map, full_s, kc * W::COLS, tile * W::TILE_ROWS, mask);
           } else {
             // the stage's previous box has landed here (so this arrival
             // opens the next phase); its bytes may come before or after it
@@ -535,15 +674,24 @@ gdn_rows_kernel_cluster(const __grid_constant__ CUtensorMap x_map, T* __restrict
     }
   } else {
     setmaxnreg_inc<W::CONSUMER_REGS>();
-    wide_consume_rank<T, CP, INVERSE>(rank, ring, full, smem_u32(&empty[0]), smem_u32(g_hi),
-                                      smem_u32(g_lo), beta_s, out, n_rows, c, tile0, tile_step,
-                                      tiles);
+    wide_consume_rank<W>(rank, ring, full, smem_u32(&empty[0]), smem_u32(g_hi), smem_u32(g_lo),
+                         beta_s, epi, n_rows, tile0, tile_step, tiles);
   }
+}
+
+// The forward: out = x * rsqrt(beta + (x*x) . gamma) (sqrt for IGDN) over
+// the rows of x_map (n_rows x c, T), out (n_rows, c) in T.
+template <typename T, int CP, bool INVERSE>
+__global__ void __launch_bounds__(Wide<T, CP>::THREADS, 1)
+gdn_rows_kernel_cluster(const __grid_constant__ CUtensorMap x_map, T* __restrict__ out,
+                        const float* __restrict__ gamma, const float* __restrict__ beta,
+                        int n_rows, int c) {
+  wide_rows<Wide<T, CP>>(&x_map, gamma, beta, n_rows, c, WideForwardOut<T, INVERSE>{out, c});
 }
 
 // --- host side ------------------------------------------------------------------
 
-// Launches `kernel` (a gdn_rows_kernel_cluster of geometry W) over n rows:
+// Launches `kernel` (a wide_rows kernel of geometry W) over n rows:
 // clusters of W::S blocks, as many as the card holds at once, at most one a
 // tile. `clusters_of` is the instance's own per-device cache of
 // that count (its shared-memory opt-in and the occupancy query are taken

@@ -322,29 +322,36 @@ def _launch(x, gamma, beta, inverse):
     return out
 
 
-# csrc/gdn_wide.cuh's `Wide`, the forward's launch geometry at C > 128
+# csrc/gdn_wide.cuh's `Wide`, the launch geometry of its cluster loop at C > 128
 _SMEM_LIMIT, _SMEM_RESERVE = 232448, 2048
+WIDE_LAUNCHES = ("forward", "norm", "mix")
 
 
-def wide_geometry(c: int, element_size: int) -> dict:
-    """The forward kernel's launch geometry at c from 129 to 256 channels, as
-    csrc/gdn_wide.cuh computes it (tests hold the two together): the padded
-    width ``cp``, blocks a ``cluster``, output channels a block ``nb``,
-    ``consumers`` (warpgroups of 64 rows: ``tile_rows`` a tile), ring
-    ``stages`` (boxes of ``tile_rows`` rows x 128 bytes) and dynamic shared
-    memory ``smem`` in bytes a block."""
+def wide_geometry(c: int, element_size: int, launch: str = "forward") -> dict:
+    """The launch geometry of csrc/gdn_wide.cuh's cluster loop at c from 129
+    to 256 channels, as it computes it (tests hold the two together), for
+    ``launch``: the forward, or the backward's norm (x tiles) or mix
+    (float32 t tiles, whatever x's ``element_size``): the padded width
+    ``cp``, blocks a ``cluster``, output channels a block ``nb``,
+    ``consumers`` (warpgroups of 64 rows sharing each tile of
+    ``tile_rows``), ring ``stages`` (boxes of ``tile_rows`` rows x 128
+    bytes) and dynamic shared memory ``smem`` in bytes a block."""
     if not 128 < c <= MAX_CHANNELS:
         raise ValueError(f"the wide loop takes 129 to {MAX_CHANNELS} channels, not {c}")
+    if launch not in WIDE_LAUNCHES:
+        raise ValueError(f"launch must be one of {WIDE_LAUNCHES}, not {launch!r}")
+    esz = 4 if launch == "mix" else element_size
     cp = -(-c // 64) * 64
-    f32 = element_size == 4
+    f32 = esz == 4
     cluster = 4 if f32 and cp == 256 else 2
-    consumers = 2 if f32 and cp == 192 else 3
+    consumers = 2 if launch != "forward" or (f32 and cp == 192) else 3
     nb = cp // cluster
-    plane = nb * cp * element_size
-    box = 64 * consumers * 128
+    plane = nb * cp * esz
+    tile_rows = 64 * consumers
+    box = tile_rows * 128
     stages = (_SMEM_LIMIT - _SMEM_RESERVE - 2 * plane) // box
     smem = 1024 + 2 * plane + stages * box + nb * 4 + 2 * stages * 8
-    return dict(cp=cp, cluster=cluster, nb=nb, consumers=consumers, tile_rows=64 * consumers,
+    return dict(cp=cp, cluster=cluster, nb=nb, consumers=consumers, tile_rows=tile_rows,
                 stages=stages, smem=smem)
 
 

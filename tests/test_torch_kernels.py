@@ -148,13 +148,21 @@ def _split_product(a, b, rnd):
     return a_lo.astype(f) @ b_hi + a_hi.astype(f) @ b_lo + a_hi.astype(f) @ b_hi
 
 
-def _backward_terms(n, x, g, inverse):
-    """t and d1 from the norm, in float32 as the norm launch's epilogue."""
+def _backward_terms(n, x, g, inverse, ulps=2, seed=0):
+    """t and d1 from the norm, in float32 as the norm launch's epilogue
+    computes them (`terms`): both directions from r = rsqrt(n), IGDN's
+    sqrt(n) as n * r. The card's rsqrtf is within 2 ulp of the correctly
+    rounded value, so r here is that value moved ``ulps`` up or down (a
+    seeded draw an element): the emulation carries the kernel's error
+    bound, not a better r."""
     n = n.astype(np.float32)
+    r = (1.0 / np.sqrt(n.astype(np.float64))).astype(np.float32)
+    away = np.where(np.random.default_rng(seed).random(r.shape) < 0.5,
+                    np.float32(0.0), np.float32(np.inf))
+    for _ in range(ulps):
+        r = np.nextafter(r, away)
     if inverse:
-        s = np.sqrt(n)
-        return g * x / s, g * s
-    r = np.float32(1.0) / np.sqrt(n)
+        return g * x * r, g * (n * r)
     return g * x * (r * r * r), g * r
 
 
@@ -177,7 +185,7 @@ def _within_backward_tolerance(got, want, shrink=1.0):
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("c", [16, 128, 192])
+@pytest.mark.parametrize("c", [16, 128, 192, 256])
 def test_mix_launch_three_tf32_products_keep_float32_grade_dx(c, inverse):
     # csrc/gdn_bwd_kernel.cu launch 2: u = t . gamma^T as 3xTF32 (t and gamma
     # each split hi/lo), after launch 1's 3xTF32 norm and float32 t, d1
@@ -199,7 +207,7 @@ def test_mix_launch_three_tf32_products_keep_float32_grade_dx(c, inverse):
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("c", [16, 128])
+@pytest.mark.parametrize("c", [16, 128, 192, 256])
 def test_norm_launch_three_bf16_products_keep_dgamma_dbeta(c, inverse):
     # csrc/gdn_bwd_kernel.cu launch 1 for bfloat16 rows: the norm as 3xbf16
     # (x^2 split exactly, gamma hi/lo), t in float32, then dgamma and dbeta
@@ -254,11 +262,107 @@ def test_wide_geometry_mirrors_the_sizes_csrc_asserts(c, element_size):
     assert geo["smem"] <= 232448 and geo["cluster"] * geo["nb"] == geo["cp"]
 
 
+# and the backward's norm and mix launches on the same loop: one assert for
+# each (launch, ring type, width) instantiation (the mix's ring is float32 t
+# whatever x's type)
+_WIDE_BWD_ASSERT = re.compile(
+    r"static_assert\(Wide<(float|__nv_bfloat16), (\d+), WIDE_(NORM|MIX)>::S == (\d+)\s*&&\s*"
+    r"Wide<\1, \2, WIDE_\3>::NB == (\d+)\s*&&\s*Wide<\1, \2, WIDE_\3>::CONSUMERS == (\d+)"
+    r"\s*&&\s*Wide<\1, \2, WIDE_\3>::STAGES == (\d+)\s*&&\s*Wide<\1, \2, WIDE_\3>::SMEM == "
+    r"(\d+)")
+
+
+@pytest.mark.parametrize("launch,c,element_size", [
+    ("norm", 192, 4), ("norm", 256, 4), ("norm", 192, 2), ("norm", 256, 2),
+    ("mix", 192, 4), ("mix", 256, 4), ("mix", 192, 2), ("mix", 256, 2)])
+def test_wide_backward_geometry_mirrors_the_sizes_csrc_asserts(launch, c, element_size):
+    source = (Path(gdn_kernel.__file__).resolve().parents[2] / "csrc" / "gdn_wide.cuh").read_text()
+    asserted = {(launch_.lower(), int(cp), 4 if t == "float" else 2): tuple(map(int, rest))
+                for t, cp, launch_, *rest in _WIDE_BWD_ASSERT.findall(source)}
+    assert len(asserted) == 6  # norm: 2 types x 2 widths; mix: float32 t x 2 widths
+    ring = 4 if launch == "mix" else element_size
+    geo = gdn_kernel.wide_geometry(c, element_size, launch)
+    assert (geo["cluster"], geo["nb"], geo["consumers"], geo["stages"],
+            geo["smem"]) == asserted[launch, c, ring]
+    # two consumers share each tile, 64 rows each
+    assert geo["consumers"] == 2 and geo["tile_rows"] == 64 * geo["consumers"]
+    for width in (c - 63, c - 1):
+        assert gdn_kernel.wide_geometry(width, element_size, launch) == geo
+    assert geo["smem"] <= 232448 and geo["cluster"] * geo["nb"] == geo["cp"]
+    # the norm's product is the forward's: the same clusters and slices
+    if launch == "norm":
+        forward = gdn_kernel.wide_geometry(c, element_size)
+        assert (geo["cluster"], geo["nb"]) == (forward["cluster"], forward["nb"])
+
+
+def test_wide_geometry_refuses_an_unknown_launch():
+    with pytest.raises(ValueError, match="launch must be one of"):
+        gdn_kernel.wide_geometry(192, 4, "partials")
+
+
 def test_wide_geometry_refuses_the_narrow_widths():
     with pytest.raises(ValueError, match="129 to 256"):
         gdn_kernel.wide_geometry(128, 4)
     with pytest.raises(ValueError, match="129 to 256"):
         gdn_kernel.wide_geometry(257, 2)
+
+
+def _cluster_products(a, b, c, element_size, launch, rnd):
+    """a @ b as csrc/gdn_wide.cuh's cluster loop takes it for ``launch``
+    ("norm": a = x*x, b = gamma; "mix": a = t, b = gamma^T): both operands
+    zero-padded to the padded width and split into hi and lo by ``rnd``;
+    block rank r of the cluster computes its output channels [r NB, (r + 1)
+    NB) with K over the whole padded width, box by box (128 bytes of the
+    ring's type) and k-step by k-step (32 bytes) in the kernel's order, the
+    three products of each step (lo*hi, hi*lo, hi*hi) each summed exactly
+    and added into a float32 accumulator."""
+    geo = gdn_kernel.wide_geometry(c, element_size, launch)
+    cp, nb = geo["cp"], geo["nb"]
+    ring = 4 if launch == "mix" else element_size
+    cols, kstep = 128 // ring, 32 // ring
+    ap = np.zeros((a.shape[0], cp), np.float32)
+    ap[:, :c] = a
+    bp = np.zeros((cp, cp), np.float32)
+    bp[:c, :c] = b
+    a_hi, a_lo = _split(ap, rnd)
+    b_hi, b_lo = _split(bp, rnd)
+    acc = np.zeros_like(ap)
+    for r in range(geo["cluster"]):
+        o = slice(r * nb, (r + 1) * nb)
+        for box in range(cp // cols):
+            for ks in range(4):
+                k = slice(box * cols + ks * kstep, box * cols + (ks + 1) * kstep)
+                for pa, pb in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+                    acc[:, o] += (pa[:, k].astype(np.float64) @ pb[k, o]).astype(np.float32)
+    return acc[:, :c]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [192, 200, 256])
+def test_cluster_launches_keep_dx_dgamma_dbeta(c, dtype, inverse):
+    # csrc/gdn_bwd_kernel.cu at C = 192 and 256 (200 pads to 256): launches
+    # 1 and 2 on the cluster loop, each rank's products over its slice of
+    # the outputs and t, d1 from one rsqrt, then launches 3 and 4
+    # (unchanged) on the float32 t of launch 1; dx before its rounding to
+    # x's type
+    x, gamma, beta = _gdn_operands(8192, c, seed=500 + c)
+    g = np.random.default_rng(600 + c).standard_normal(x.shape, dtype=np.float32)
+    esz, rnd = 4, _tf32_rna
+    if dtype == "bfloat16":
+        x, g, esz, rnd = _bf16(x), _bf16(g), 2, _bf16
+    n = _cluster_products(x * x, gamma, c, esz, "norm", rnd) + beta
+    t, d1 = _backward_terms(n, x, g, inverse)
+    u = _cluster_products(t, gamma.T, c, esz, "mix", _tf32_rna)
+    dx = d1 + np.float32(1.0 if inverse else -1.0) * x * u
+    s_hi, s_lo = (_by_chunk(a, x.shape[0]) for a in _split_rna_trunc(x * x))
+    squares = np.ascontiguousarray(np.concatenate([s_lo, s_hi, s_hi], axis=1).transpose(0, 2, 1))
+    sums, tsums = _partials_launch(squares, t)
+    half = np.float32(0.5 if inverse else -0.5)
+    want_dx, want_dgamma, want_dbeta = _backward_float64(x, gamma, beta, g, inverse)
+    assert _within_backward_tolerance(dx, want_dx)
+    assert _within_backward_tolerance(half * sums, want_dgamma)
+    assert _within_backward_tolerance(half * tsums, want_dbeta)
 
 
 def _split_rna_trunc(a):
@@ -320,7 +424,9 @@ def _partials_case(c, dtype, inverse):
     """squares, t as the norm launch writes it (float32) and dgamma, dbeta
     in float64 from the same inputs, with the sign's half."""
     x, g, n, n64, squares = _partials_rows(c, dtype)
-    t = _backward_terms(n, x, g, inverse)[0]
+    # r correctly rounded: the tolerance here is a tenth, for the partials'
+    # products; the tests of launches 1 and 2 hold r's 2 ulp to the whole
+    t = _backward_terms(n, x, g, inverse, ulps=0)[0]
     root = np.sqrt(n64)
     t64 = g * x / root if inverse else g * x / (n64 * root)
     half = 0.5 if inverse else -0.5
@@ -602,18 +708,24 @@ def _assert_grad_close(got, want, name, dtype=torch.float32):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("inverse", [False, True])
 # the train step's three sites (batch 16 at 256x256), ragged rows (also at
-# the widths where gamma is cut into slices: 192, 256), widths that leave
+# the widths where a cluster holds gamma in slices: 192, 256), widths that leave
 # ragged 64-channel groups, and widths the wrapper pads (10; 100 in bf16);
 # the dgamma/dbeta partials launch's edges: fewer rows than one 32-row tile
 # (1), a ragged second tile (63), a last chunk of 3 rows (16,387: 64 chunks
 # of 256, then 3), a width that leaves half of the second dgamma tile empty
-# (200), the residual family's H/2 site (262,144 x 192)
+# (200), the residual family's H/2 site (262,144 x 192); the norm and mix
+# launches' cluster loop at C = 192, 200 and 256 (two consumers sharing
+# 128-row tiles): fewer rows than a consumer's 64, one tile whose second
+# consumer has one row (65), 33 and 68 tiles (more than some clusters take:
+# clusters walk unequal numbers)
 @pytest.mark.parametrize("n,c", [(262_144, 128), (65_536, 128), (16_384, 128),
                                  (100_003, 128), (77, 100), (300, 16), (513, 256),
                                  (4096, 192), (64, 10), (1001, 192), (70, 256),
                                  (1001, 10), (1, 128), (63, 128), (63, 10), (16_387, 128),
                                  (16_387, 200), (1, 256), (16_387, 256), (1, 200),
-                                 (262_144, 192), (100_003, 200)])
+                                 (262_144, 192), (100_003, 200)]
+                         + [(n, c) for c in (192, 200, 256) for n in (1, 63, 65, 4_099, 8_581)
+                            if (n, c) not in ((1, 200), (1, 256))])
 def test_gdn_backward_kernel_matches_plain_on_card(cuda_device, dtype, inverse, n, c):
     x, gamma, beta, g = (t.to(cuda_device) for t in _gdn_case(n, c, seed=1))
     x, g = x.to(dtype), g.to(dtype)
@@ -635,15 +747,17 @@ def test_gdn_backward_kernel_matches_plain_on_card(cuda_device, dtype, inverse, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,c", [(98_304, 128), (1001, 10)])
-def test_gdn_backward_dx_only_on_card(cuda_device, dtype, n, c):
+@pytest.mark.parametrize("n,c", [(98_304, 128), (1001, 10), (98_304, 192)]
+                         + [(n, c) for c in (192, 200, 256) for n in (1, 63, 65, 4_099, 8_581)])
+def test_gdn_backward_dx_only_on_card(cuda_device, dtype, n, c, inverse):
     # without the dgamma/dbeta stage: the same dx bits, one launch, no stage
     x, gamma, beta, g = (t.to(cuda_device) for t in _gdn_case(n, c, seed=4))
     x, g = x.to(dtype), g.to(dtype)
-    full = gdn_kernel.gdn_backward(x, gamma, beta, g, True)
+    full = gdn_kernel.gdn_backward(x, gamma, beta, g, inverse)
     before = (gdn_kernel.gdn_backward.launches, gdn_kernel.gdn_backward.param_launches)
-    dx, dgamma, dbeta = gdn_kernel.gdn_backward(x, gamma, beta, g, True, param_grads=False)
+    dx, dgamma, dbeta = gdn_kernel.gdn_backward(x, gamma, beta, g, inverse, param_grads=False)
     torch.cuda.synchronize()
     assert (gdn_kernel.gdn_backward.launches, gdn_kernel.gdn_backward.param_launches) == (
         before[0] + 1, before[1])
@@ -672,6 +786,27 @@ def test_gdn_kernels_take_rows_at_an_unaligned_address_on_card(cuda_device, dtyp
     want = gdn_kernel.gdn_backward_reference(x, gamma, beta, g)
     for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
         _assert_grad_close(a, b, name, dtype if name == "dx" else torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gdn_backward_wide_rows_at_an_unaligned_address_on_card(cuda_device, dtype):
+    # C = 192 rows 4 bytes past an aligned address: the cluster loop runs on
+    # the wrapper's aligned, padded copies, and gives the aligned rows' bits
+    x, gamma, beta, g = (t.to(cuda_device) for t in _gdn_case(4_099, 192, seed=5))
+    x, g = x.to(dtype), g.to(dtype)
+    shift = 4 // x.element_size()
+    xs = torch.empty(x.numel() + shift, dtype=dtype, device=cuda_device)[shift:].view_as(x)
+    gs = torch.empty(g.numel() + shift, dtype=dtype, device=cuda_device)[shift:].view_as(g)
+    xs.copy_(x)
+    gs.copy_(g)
+    assert xs.data_ptr() % 16 and gs.data_ptr() % 16
+    got = gdn_kernel.gdn_backward(xs, gamma, beta, gs)
+    want = gdn_kernel.gdn_backward_reference(x, gamma, beta, g)
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+        _assert_grad_close(a, b, name, dtype if name == "dx" else torch.float32)
+    for a, b in zip(got, gdn_kernel.gdn_backward(x, gamma, beta, g)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

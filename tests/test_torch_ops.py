@@ -122,7 +122,7 @@ def test_gdn_golden_forward(inverse):
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("c", [6, 16, 128])
+@pytest.mark.parametrize("c", [6, 16, 128, 192, 256])
 def test_gdn_backward_reference_matches_jax_vjp(c, inverse):
     """The plain backward (the kernel's formula) against jax.vjp of the
     JAX package's _gdn_reference, which its gdn_fused_op's backward is."""

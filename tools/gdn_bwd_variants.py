@@ -1,29 +1,40 @@
 #!/usr/bin/env python3
 """Time variants of the GDN backward's source against each other on one card.
 
-Each variant is csrc/gdn_bwd_kernel.cu with text substitutions applied, or
-another gdn_bwd_kernel.cu taken as it is (a path); each is built by nvcc
-(all in parallel, with the port's flags) into _build/bwd_variants/ and
-called through its C entry point in place of the port's own. At each train
-site (rows, C), f32 and bf16, GDN: the backward against its plain version
-(chip_smoke.check_gdn_backward, unless the variant is marked unchecked),
-the dgamma/dbeta partials launch's device time from torch.profiler
-(chip_smoke.partials_stage) and the whole backward's time from CUDA
-events. The variants run in turns (first to last, then last to first) so
-that drift of the card's clock shows. Prints ptxas's register and spill
-lines of each variant's partials instantiations and one summary line per
-case.
+Each variant is the backward's sources (csrc/gdn_bwd_kernel.cu and the
+headers it includes, csrc/gdn_wgmma.cuh and csrc/gdn_wide.cuh) with text
+substitutions applied, each [old, new] to the one source that holds old,
+or another commit's sources taken as they are: its csrc/ directory
+(unpacked with git archive), or its gdn_bwd_kernel.cu alone, built against
+this checkout's headers. Each is built by nvcc (all in parallel, with the
+port's flags) into _build/bwd_variants/<name>/ and called through its C
+entry point in place of the port's own. At each --shape ROWS:C (default
+every train site with the dgamma/dbeta stage, and refinement's C=192 rows),
+f32 and bf16, GDN and IGDN: the backward against its plain version
+(chip_smoke.check_gdn_backward, unless the variant is marked unchecked);
+each launch's device time from torch.profiler (norm, mix, partials,
+reduce: chip_smoke.partials_stage) beside the norm and mix launches' bytes
+floor; the whole backward's time and that of dx alone (no dgamma/dbeta
+stage) from CUDA events; and whether dx, dgamma and dbeta are
+bit-identical to the first variant's. The variants run in turns (first to
+last, then last to first) so that drift of the card's clock shows. Prints
+ptxas's register and spill lines of each variant's rows and partials
+instantiations and one summary line per case.
 
-    python3 tools/gdn_bwd_variants.py variants.json
+    python3 tools/gdn_bwd_variants.py variants.json [--shape ROWS:C ...]
 
-(about 2 minutes a variant). variants.json maps a name to [substitutions
+(about 4 minutes a variant). variants.json maps a name to [substitutions
 or a path, checked]; the source as it stands is {"base": [[], true]}, the
-parent commit's (unpacked with git archive) {"parent": ["<dir>/neural_
-image_compression_tpu_torch/csrc/gdn_bwd_kernel.cu", true]}. A variant
-that computes something else on purpose (one product of the three, to see
-what the products cost) is [subs, false].
+parent commit's {"parent": ["<dir>/neural_image_compression_tpu_torch/csrc",
+true]}. A variant that computes something else on purpose (one product of
+the three, to see what the products cost) is [subs, false].
+tools/gdn_bwd_wide_variants.json holds the cluster loop's backward design
+choices (C > 128), each undone: no L2 prefetch, the gamma prologue not
+unrolled, IGDN's terms correctly rounded. tools/gdn_repeats.py takes the
+same file to look for bits that move from run to run.
 """
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -41,43 +52,53 @@ from neural_image_compression_tpu_torch.ops.kernels import _build, gdn_kernel  #
 
 # every train site with the dgamma/dbeta stage (batch 16 of 256x256): H/2,
 # H/4 and H/8 at C=128 (the flagship; the LST's C=128 is H/8's rows) and
-# C=192 (the residual and scalable families), the LST's C=256
-CASES = ((262_144, 128), (65_536, 128), (16_384, 128), (262_144, 192), (65_536, 192),
-         (16_384, 192), (16_384, 256))
+# C=192 (the residual and scalable families), the LST's C=256; refinement's
+# H/2 rows at C=192 (one 768x512 image)
+CASES = ("262144:128", "65536:128", "16384:128", "262144:192", "65536:192", "16384:192",
+         "16384:256", "98304:192")
+SOURCES = ("gdn_bwd_kernel.cu", "gdn_wgmma.cuh", "gdn_wide.cuh")
+OUTPUTS = ("dx", "dgamma", "dbeta")
 
 
 def build(variants):
-    source = (_build.CSRC / "gdn_bwd_kernel.cu").read_text()
-    out_dir = _build.BUILD_DIR / "bwd_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
+    out_root = _build.BUILD_DIR / "bwd_variants"
     procs = {}
     for name, (subs, _) in variants.items():
-        src = Path(subs).read_text() if isinstance(subs, str) else source
-        for old, new in ([] if isinstance(subs, str) else subs):
-            if old not in src:
-                raise SystemExit(f"variant {name}: {old!r} not in the source")
-            src = src.replace(old, new)
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(src)
-        lib = out_dir / f"lib{name}.so"
-        # -I: the variant lives in _build/bwd_variants/, its header in csrc/
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib),
-               str(cu)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
+        if isinstance(subs, str) and Path(subs).is_dir():
+            srcs = {f.name: f.read_text() for f in Path(subs).glob("*.cu*")}
+            subs = []
+        elif isinstance(subs, str):
+            srcs, subs = {"gdn_bwd_kernel.cu": Path(subs).read_text()}, []
+        else:
+            srcs = {f: (_build.CSRC / f).read_text() for f in SOURCES}
+        for old, new in subs:
+            holders = [f for f, src in srcs.items() if old in src]
+            if len(holders) != 1:
+                raise SystemExit(f"variant {name}: {old!r} is in {holders or 'no source'}")
+            srcs[holders[0]] = srcs[holders[0]].replace(old, new)
+        out_dir = out_root / name
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for f, src in srcs.items():
+            (out_dir / f).write_text(src)
+        # the variant's own headers come first (beside its .cu), then csrc/'s
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+               "-o", str(out_dir / f"lib{name}.so"), str(out_dir / "gdn_bwd_kernel.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
     entries = {}
-    for name, (proc, lib) in procs.items():
+    for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"variant {name}: nvcc exited {proc.returncode}\n{log}")
         lines = log.splitlines()
         for k, line in enumerate(lines):
-            if "partials_kernel" in line and "Compiling" in line:
-                inst = line.split("partials_kernel", 1)[1].split("EEEv", 1)[0]
+            if "Compiling" in line and any(f"gdn_bwd_{s}_kernel" in line
+                                           for s in ("norm", "mix", "partials")):
+                inst = line.split("gdn_bwd_", 1)[1].split("EEEv", 1)[0]
                 usage = " ".join(x.split(":", 1)[-1].strip() for x in lines[k + 1:k + 4]
                                  if "registers" in x or "spill" in x)
                 print(f"  {name} {inst}: {usage}")
-        fn = ctypes.CDLL(str(lib)).gdn_backward
+        fn = ctypes.CDLL(str(out_root / name / f"lib{name}.so")).gdn_backward
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -85,40 +106,82 @@ def build(variants):
     return entries
 
 
+def rows_floor_ms(rows, c, esz):
+    """The norm and mix launches' bytes floor: norm reads x and g and writes
+    t and d1 (float32), mix reads t, x and d1 and writes dx."""
+    return rows * c * (2 * esz + 8 + 2 * esz + 8) / cs.HBM_BYTES_PER_S * 1e3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("gdn_bwd_variants: no CUDA device", file=sys.stderr)
         return 1
-    variants = json.loads(Path(sys.argv[1]).read_text())
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("variants", type=Path)
+    parser.add_argument("--shape", action="append", help="ROWS:C (repeatable)")
+    args = parser.parse_args()
+    variants = json.loads(args.variants.read_text())
     torch.backends.cuda.matmul.allow_tf32 = False
     entries = build(variants)
     print(cs.card_line(), flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     data = []
-    for rows, c in CASES:
+    for shape in args.shape or CASES:
+        rows, c = map(int, shape.split(":"))
         gamma, beta = cs.gdn_params(c, rng, dev)
         x = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
         g = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
         data.append((rows, c, gamma, beta, x, g))
-    runs = {}
-    for name in list(variants) + list(variants)[::-1]:
+    runs, first_bits, same = {}, {}, {}
+    order = list(variants)
+    for name in order + order[::-1]:
         gdn_kernel._backward_entry = lambda fn=entries[name]: fn
         for rows, c, gamma, beta, x32, g32 in data:
             for dtype in (torch.float32, torch.bfloat16):
                 x, g = x32.to(dtype), g32.to(dtype)
-                label = f"{name} rows={rows} C={c} {str(dtype).replace('torch.', '')}"
-                if variants[name][1]:
-                    cs.check_gdn_backward(x, gamma, beta, g, False, label)
-                stage = cs.partials_stage(x, gamma, beta, g, False, label)
-                whole = cs.median_ms(lambda: gdn_kernel.gdn_backward(x, gamma, beta, g))
-                runs.setdefault((rows, c, label.rsplit(" ", 1)[1]), {}).setdefault(
-                    name, []).append((stage["ms"], whole))
-    print("== partials ms (profiler) / whole backward ms (CUDA events), each run")
-    for (rows, c, dname), by_name in runs.items():
-        print(f"rows={rows} C={c} {dname}: " + "  ".join(
-            f"{name} " + ", ".join(f"{p if p is None else round(p, 4)}/{w:.4f}" for p, w in r)
-            for name, r in by_name.items()))
+                dname = str(dtype).replace("torch.", "")
+                for inverse in (False, True):
+                    direction = "igdn" if inverse else "gdn"
+                    label = f"{name} rows={rows} C={c} {dname} {direction}"
+                    if variants[name][1]:
+                        cs.check_gdn_backward(x, gamma, beta, g, inverse, label)
+                    got = gdn_kernel.gdn_backward(x, gamma, beta, g, inverse)
+                    key = (rows, c, dname, direction)
+                    if name == order[0]:
+                        first_bits.setdefault(key, got)
+                    else:
+                        same.setdefault((key, name), [
+                            o for o, a, b in zip(OUTPUTS, got, first_bits[key])
+                            if torch.equal(a, b)])
+                    del got
+                    stage = cs.partials_stage(x, gamma, beta, g, inverse, label)
+                    whole = cs.median_ms(
+                        lambda: gdn_kernel.gdn_backward(x, gamma, beta, g, inverse))
+                    dx_ms = cs.median_ms(lambda: gdn_kernel.gdn_backward(
+                        x, gamma, beta, g, inverse, param_grads=False))
+                    runs.setdefault(key, {}).setdefault(name, []).append(
+                        (stage["launches_ms"], whole, dx_ms))
+    print(f"== each run: norm + mix ms (profiler; share of their bytes floor), partials ms, "
+          f"whole backward / dx alone ms (CUDA events); bits of dx, dgamma, dbeta against "
+          f"{order[0]}'s")
+    for (rows, c, dname, direction), by_name in runs.items():
+        floor = rows_floor_ms(rows, c, 4 if dname == "float32" else 2)
+        cells = []
+        for name, r in by_name.items():
+            each = []
+            for launches, whole, dx_ms in r:
+                norm, mix = launches.get("norm"), launches.get("mix")
+                rows_ms = (f"{norm:.4f} + {mix:.4f} ({100 * floor / (norm + mix):.1f}%)"
+                           if norm and mix else "not measured")
+                part = launches.get("partials")
+                each.append(f"{rows_ms}, {part if part is None else round(part, 4)}, "
+                            f"{whole:.4f} / {dx_ms:.4f}")
+            held = same.get(((rows, c, dname, direction), name))
+            bits = "" if held is None else f" [same bits: {', '.join(held) or 'none'}]"
+            cells.append(f"{name} " + " | ".join(each) + bits)
+        print(f"rows={rows} C={c} {dname} {direction} (rows floor {floor:.4f} ms): "
+              + "  ".join(cells), flush=True)
     return 0
 
 

@@ -9,10 +9,11 @@ _build/variants/<name>/ and called through its C entry point at each
 --shape ROWS:C (default the flagship's H/2 site of chip_smoke.py, C =
 128), f32 and bf16, GDN and IGDN. Each variant's output is checked against
 the plain version after every one of --checks launches (a race shows as a
-wrong launch among many). The variants run in turns (first to last, then
-last to first) so that drift of the card's clock shows. Prints ptxas's
-register and spill lines per variant and one line of times per shape,
-dtype and direction.
+wrong launch among many) and against the first variant's output, bit for
+bit ("same bits" or "other bits"). The variants run in turns (first to
+last, then last to first) so that drift of the card's clock shows. Prints ptxas's
+register and spill lines of each variant's row kernels and one line of
+times per shape, dtype and direction.
 
     python3 tools/gdn_variants.py variants.json [--shape ROWS:C ...] [--checks N]
 
@@ -25,7 +26,7 @@ with git archive) beside this one: its csrc/ directory, taken as it is, or
 its gdn_kernel.cu alone, built against this checkout's headers.
 tools/gdn_wide_variants.json holds the wide loop's (C > 128) design
 choices, each undone: two consumer warpgroups everywhere, a cluster-scope
-release, no fence before it, no output stores, no products.
+release, no output stores, no products.
 """
 
 import argparse
@@ -78,9 +79,13 @@ def build(variants):
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"variant {name}: nvcc exited {proc.returncode}\n{log}")
-        usage = sorted({line.strip() for line in log.splitlines()
-                        if "registers" in line or "spill" in line})
-        print(f"{name}: " + " ; ".join(usage), flush=True)
+        lines = log.splitlines()
+        for k, line in enumerate(lines):
+            if "Compiling" in line and "gdn_rows_kernel" in line:
+                inst = line.split("gdn_rows_kernel", 1)[1].split("EEEv", 1)[0]
+                usage = " ".join(x.split(":", 1)[-1].strip() for x in lines[k + 1:k + 4]
+                                 if "registers" in x or "spill" in x)
+                print(f"{name} gdn_rows_kernel{inst}: {usage}", flush=True)
         fn = ctypes.CDLL(str(out_root / name / f"lib{name}.so")).gdn_forward
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                                ctypes.c_int, ctypes.c_void_p]
@@ -145,16 +150,18 @@ def main() -> int:
             for inverse in (False, True):
                 want = gdn_kernel.gdn_reference(x, g, b, inverse).float()
                 order = list(entries.items())
+                first = run(order[0][1], x, inverse)
                 cells = []
                 for name, fn in order + order[::-1]:
                     ok = all(torch.allclose(run(fn, x, inverse).float(), want, rtol=tol, atol=tol)
                              for _ in range(args.checks))
+                    bits = "same bits" if torch.equal(run(fn, x, inverse), first) else "other bits"
                     ms = median_ms(lambda: run(fn, x, inverse))
-                    cells.append(f"{name} {ms:.4f} ms ({100 * bound_ms / ms:.1f}%)"
+                    cells.append(f"{name} {ms:.4f} ms ({100 * bound_ms / ms:.1f}%, {bits})"
                                  + ("" if ok else " WRONG"))
                 print(f"rows={rows} C={C} {str(dtype).replace('torch.', '')} "
                       f"{'igdn' if inverse else 'gdn'}: " + ", ".join(cells), flush=True)
-        del x32, x, want
+        del x32, x, want, first
         torch.cuda.empty_cache()
     return 0
 
