@@ -242,39 +242,42 @@ GDN_EXTRA_CASES = ((100_003, 128), (65_536, 192), (65_536, 256), (65_536, 10))
 GDN_BWD_EXTRA_CASES = GDN_EXTRA_CASES + ((1, 128), (63, 128), (16_387, 128), (4_099, 200))
 # the wide loop (C > 128: clusters walking tiles of 128 or 192 rows in the
 # forward, 128 in the backward's norm and mix launches, with and without
-# the dgamma/dbeta stage): fewer rows than a tile, a ragged tile, 33 or 22
-# tiles, and 68 or 45 (more tiles than some clusters take), at C = 192, 200
-# and 256
+# the dgamma/dbeta stage): fewer rows than a tile, a ragged tile, one whole
+# tile (128), 33 or 22 tiles, 68 or 45 (more tiles than some clusters
+# take), and the LST's train rows, whole (16,384) and ragged (16,387),
+# at C = 192, 200 and 256
 GDN_WIDE_CASES = tuple((rows, c) for c in (192, 200, 256)
-                       for rows in (1, 63, 65, 4_099, 8_581))
-# the forward's times (CUDA-event ms, f32 / bf16) in PERF.md before the wide
-# loop replaced the C > 128 forward: (path, site, C, dtype) -> ms; printed
-# beside each timed row that has one, with the C=128 rows of the unchanged
-# loop
+                       for rows in (1, 63, 65, 128, 4_099, 8_581, 16_384, 16_387))
+# the forward's times (CUDA-event ms, f32 / bf16) in PERF.md: at C > 128
+# the latest before this version of the wide loop (fragments loaded in
+# channel order, exchanged within the quad for x), at C = 128 the unchanged
+# loop's: (path, site, C, dtype) -> ms; printed beside each timed row that
+# has one
 GDN_BEFORE_MS = {
     ("serve", "H/2", 128, "float32"): 1.6778, ("train", "H/2", 128, "float32"): 0.1123,
     ("codec", "H/2", 128, "float32"): 0.0565,
-    ("serve", "H/2", 192, "float32"): 4.9281, ("serve", "H/2", 192, "bfloat16"): 1.8872,
-    ("train", "H/2", 192, "float32"): 0.3033, ("train", "H/2", 192, "bfloat16"): 0.1420,
-    ("codec", "H/2", 192, "float32"): 0.1303, ("codec", "H/2", 192, "bfloat16"): 0.0671,
+    ("serve", "H/2", 192, "float32"): 3.9360, ("serve", "H/2", 192, "bfloat16"): 1.6791,
+    ("train", "H/2", 192, "float32"): 0.2146, ("train", "H/2", 192, "bfloat16"): 0.1099,
+    ("codec", "H/2", 192, "float32"): 0.0930, ("codec", "H/2", 192, "bfloat16"): 0.0883,
     ("serve", "H/8", 128, "float32"): 0.1252, ("serve", "H/8", 128, "bfloat16"): 0.0942,
-    ("serve", "H/8", 256, "float32"): 0.7955, ("serve", "H/8", 256, "bfloat16"): 0.2122,
-    ("train", "H/8", 128, "float32"): 0.0688, ("train", "H/8", 256, "float32"): 0.0541,
+    ("serve", "H/8", 256, "float32"): 0.5666, ("serve", "H/8", 256, "bfloat16"): 0.1792,
+    ("train", "H/8", 128, "float32"): 0.0688, ("train", "H/8", 256, "float32"): 0.0751,
     ("decompress_base", "H/8", 128, "float32"): 0.0444,
-    ("decompress_base", "H/8", 256, "float32"): 0.0501,
+    ("decompress_base", "H/8", 256, "float32"): 0.0676,
 }
-# the backward's times (CUDA-event ms) in PERF.md before its norm and mix
-# launches at C > 128 moved onto the wide loop: (path, site, C, dtype, with
-# dgamma/dbeta) -> ms; printed beside each timed row that has one, GDN and
-# IGDN alike (PERF.md's rows are one direction each: refine IGDN)
+# the backward's times (CUDA-event ms) in PERF.md: at C > 128 the latest
+# before this version of the wide loop, at C = 128 the unchanged loop's:
+# (path, site, C, dtype, with dgamma/dbeta) -> ms;
+# printed beside each timed row that has one, GDN and IGDN alike (PERF.md's
+# rows are one direction each: refine IGDN)
 GDN_BWD_BEFORE_MS = {
     ("train", "H/2", 128, "float32", True): 0.5946, ("train", "H/2", 128, "bfloat16", True): 0.4941,
-    ("train", "H/2", 192, "float32", True): 1.0622, ("train", "H/2", 192, "bfloat16", True): 0.8557,
-    ("train", "H/2", 192, "float32", False): 0.8086,
-    ("train", "H/2", 192, "bfloat16", False): 0.5965,
-    ("refine", "H/2", 192, "float32", False): 0.3488,
-    ("refine", "H/2", 192, "bfloat16", False): 0.2580,
-    ("train", "H/8", 256, "float32", True): 0.1730, ("train", "H/8", 256, "bfloat16", True): 0.1510,
+    ("train", "H/2", 192, "float32", True): 0.9976, ("train", "H/2", 192, "bfloat16", True): 0.8341,
+    ("train", "H/2", 192, "float32", False): 0.7465,
+    ("train", "H/2", 192, "bfloat16", False): 0.5788,
+    ("refine", "H/2", 192, "float32", False): 0.3129,
+    ("refine", "H/2", 192, "bfloat16", False): 0.2403,
+    ("train", "H/8", 256, "float32", True): 0.2110, ("train", "H/8", 256, "bfloat16", True): 0.1650,
 }
 PARTIALS_CALLS = 5  # backward calls profiled for the partials launch's device time
 PROFILE_ATTEMPTS = 3

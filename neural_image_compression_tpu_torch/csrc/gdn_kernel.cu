@@ -47,7 +47,7 @@
 //     not fit in one block there, so a thread-block cluster holds them in
 //     slices, each x box comes from L2 once per cluster (TMA multicast), a
 //     producer thread keeps a ring of boxes in flight that the consumers
-//     release as soon as they have read them into registers, and the
+//     release once the products that read them are issued, and the
 //     epilogue writes out from registers. That file says why.
 // A row stride that is not a multiple of 16 bytes cannot be described to
 // TMA: the wrapper pads such x (test widths only) before the launch.

@@ -34,35 +34,49 @@
 //     stage through the cluster's shared memory window (mapa), 4 x S a
 //     phase for each warpgroup that reads the stage.
 //   - Loads never wait on an epilogue: a producer thread keeps the ring (as
-//     many boxes as shared memory holds beside the planes, 80 to 144 KB)
+//     many boxes as shared memory holds beside the planes, 72 to 144 KB)
 //     full, and a consumer warp releases a box once the products that read
-//     it are issued: their issue waits for every lane's loads of the box, and
-//     every value loaded from it feeds a fragment (the x values the forward's
-//     and the norm's epilogues need are taken from the same loads,
-//     load_a_x), so no load of the box is in flight when the next one may
-//     land. (Released right after the loads, before the products, behind a
-//     block-scope fence, the next box still landed under the backward's
-//     reads: other bits in a few rows in 1 to 4 of 4 launches at 65,536 and
-//     262,144 rows of C = 192 on an H100.) The epilogues write from
-//     registers to device memory, after an exchange within each quad that
-//     gives a lane 16 contiguous bytes (or 4 bf16 channels), so no store
-//     reads the ring either. The backward's read their other operands (g; x
-//     and d1) straight from device memory at those positions, prefetched
-//     into L2 when the tile starts, every load of a group issued before any
-//     is used.
+//     it are issued: their issue waits for every lane's loads of the box,
+//     and every value loaded from it feeds a fragment, so no load of the
+//     box is in flight when the next one may land. (Released right after
+//     the loads, before the products, behind a block-scope fence, the next
+//     box still landed under the backward's reads: other bits in a few rows
+//     in 1 to 4 of 4 launches at 65,536 and 262,144 rows of C = 192 on an
+//     H100.)
+//   - The x values the forward's and the norm's epilogues need come from
+//     those same loads (load_step) and stay in registers for the tile. A
+//     float32 fragment's k slots t4 and t4 + 4 hold channels 2 t4 and
+//     2 t4 + 1 of each k-step (gamma's P planes are written in the same
+//     slot order), so one 8-byte load of a row gives a lane both of its
+//     slots' values, which are also x at the accumulator's positions: no
+//     exchange within the quad, and on an H100 the outputs' bits are those
+//     of the slots in channel order. (Reading x again from L2 in the
+//     epilogue, at the 16 bytes a lane stores, measured slower on an H100
+//     even with the loads issued under the tile's last products: the
+//     forward at 4,718,592 rows of float32 C = 192 4.2-4.4 ms against
+//     3.4-3.7.) The epilogues write from registers to device memory, after
+//     an exchange within each quad that gives a lane 16 contiguous bytes
+//     (or 4 bf16 channels), so no store reads the ring either. The
+//     backward's read their other operands (g; x and d1) straight from
+//     device memory at those positions, prefetched into L2 when the tile
+//     starts, every load of a group issued before any is used.
 //   - The consumer warpgroups share each tile, 64 rows each. A consumer runs
-//     M = 64 wgmma (m64nNBk8 TF32, m64nNBk16 bf16) and builds the next box's
-//     split fragments while the previous box's products run (one set of
-//     fragments in the forward at bfloat16 256, where registers allow no
-//     second). The wgmma of one warpgroup hides behind another's: in the
-//     forward three beat two wherever their registers hold
-//     (`wide_consumers_of`). Block rank is a template parameter of the
+//     M = 64 wgmma (m64nNBk8 TF32, m64nNBk16 bf16) and builds the next split
+//     fragments (a box's in the forward, a k-step's in the backward) while
+//     the previous ones' products run, or, where registers allow one set
+//     only (the forward at float32 192 and bfloat16 256), overlaps the other
+//     consumers' products instead. The forward runs three consumers (the
+//     wgmma of one hides behind another's); the backward's launches two:
+//     ptxas holds a kernel of 512 threads to 128 registers a thread, and
+//     three consumers' products and epilogue loads spilled there (1.3 to
+//     1.8 KB a thread at 192). Block rank is a template parameter of the
 //     consumer loop, so which boxes hold the block's own output channels,
-//     and where, is known when it is compiled (the x values for the
-//     epilogue land in registers; the mix needs none). The backward's
-//     launches run two consumers: ptxas holds a kernel of 512 threads to 128
-//     registers a thread, and three consumers' products and epilogue loads
-//     spilled there (1.3 to 1.8 KB a thread at 192).
+//     and where, is known when it is compiled.
+//   - gamma's planes are the consumers' first work, while rank 0's first
+//     boxes are in flight: each thread loads four 16-byte chunks' values of
+//     gamma before it splits them into the planes, one conflict-free store
+//     a chunk and plane, and the consumers meet on a barrier of their own
+//     before their first product.
 //   - 384 or 512 threads: the consumers and a producer warpgroup, which
 //     hands its registers to them (setmaxnreg: 40 a thread for the
 //     producer, 232 or 152 for the consumers, from the 168 or 128 of the
@@ -95,22 +109,33 @@ enum WideLaunch { WIDE_FORWARD, WIDE_NORM, WIDE_MIX };
 // mix, whose tiles are float32 t).
 constexpr int wide_cluster_of(int esz, int cp) { return esz == 4 && cp == 256 ? 4 : 2; }
 // Consumer warpgroups a block, each taking 64 rows of a tile. The forward:
-// three where their registers hold (the wgmma of one hides behind
-// another's: float32 256 takes a third less time with three than with two
-// on an H100), two at float32 192, whose 96-channel accumulator and x need
-// more than three warpgroups' registers. The backward's norm and mix: two,
+// three (the wgmma of one hides behind another's: float32 256 takes a
+// third less time with three than with two on an H100, float32 192 up to
+// a tenth less, with one fragment set). The backward's norm and mix: two,
 // whose 168 registers a thread hold the accumulator, two fragment sets and
 // a group of the epilogue's loads without spilling. tools/gdn_variants.py
-// with tools/gdn_wide_variants.json times these choices undone (PERF.md §6).
+// with tools/gdn_wide_variants.json times these choices undone (PERF.md
+// §6).
 constexpr int wide_consumers_of(int esz, int cp, int launch) {
-  return launch != WIDE_FORWARD || (esz == 4 && cp == 192) ? 2 : 3;
+  return launch != WIDE_FORWARD ? 2 : 3;
 }
 // Sets of split fragments a consumer holds: two let it build the next
-// box's while the products of this one run; the forward at bfloat16 256
-// keeps one (its 128-channel accumulator and x leave no room for two), and
-// its three consumers overlap each other instead.
+// set's while the products of this one run; the forward keeps one where
+// its accumulator and x leave no room for two in the 128 registers ptxas
+// gives a thread of a 512-thread kernel (float32 192: 48 + 48, bfloat16
+// 256: 64 + 32), and its three consumers overlap each other instead.
 constexpr int wide_fragment_sets_of(int esz, int cp, int launch) {
-  return launch == WIDE_FORWARD && esz == 2 && cp == 256 ? 1 : 2;
+  return launch == WIDE_FORWARD && ((esz == 4 && cp == 192) || (esz == 2 && cp == 256)) ? 1
+                                                                                        : 2;
+}
+// k-steps (of 4 a box) a fragment set covers, one commit of products a
+// set: the forward's sets cover a box; the backward's launches, whose two
+// consumers leave the tensor cores idle more often, one k-step, so that a
+// consumer's next products are issued sooner (the mix at 262,144 rows of
+// float32 C = 192 3.5% faster on an H100; the forward's bfloat16 rows 2-3%
+// slower so).
+constexpr int wide_fragment_steps_of(int esz, int cp, int launch) {
+  return launch == WIDE_FORWARD ? 4 : 1;
 }
 // Rows of a tile (and of the ring's TMA box) at width c.
 constexpr int wide_tile_rows(int esz, int c, int launch) {
@@ -142,6 +167,7 @@ struct Wide {
       (LAUNCH_REGS * (CONSUMERS + 1) - PRODUCER_REGS) / CONSUMERS / 8 * 8;
   static constexpr int CONSUMER_REGS = SHARED_REGS < 232 ? SHARED_REGS : 232;
   static constexpr int FRAGS = wide_fragment_sets_of(ESZ, CP, LAUNCH);
+  static constexpr int FRAG_STEPS = wide_fragment_steps_of(ESZ, CP, LAUNCH);
   static constexpr int PLANE_BYTES = NB * CP * ESZ;      // one gamma plane
   static constexpr int STAGES = (SMEM_LIMIT - SMEM_RESERVE - 2 * PLANE_BYTES) / BOX;
   // each consumer warp of each block releases every stage
@@ -163,8 +189,8 @@ struct Wide {
 // ops/kernels/gdn_kernel.py's mirror, `wide_geometry`, to these lines): the
 // forward's,
 static_assert(Wide<float, 192>::S == 2 && Wide<float, 192>::NB == 96 &&
-              Wide<float, 192>::CONSUMERS == 2 && Wide<float, 192>::STAGES == 5 &&
-              Wide<float, 192>::SMEM == 230864, "f32 192");
+              Wide<float, 192>::CONSUMERS == 3 && Wide<float, 192>::STAGES == 3 &&
+              Wide<float, 192>::SMEM == 222640, "f32 192");
 static_assert(Wide<float, 256>::S == 4 && Wide<float, 256>::NB == 64 &&
               Wide<float, 256>::CONSUMERS == 3 && Wide<float, 256>::STAGES == 4 &&
               Wide<float, 256>::SMEM == 230720, "f32 256");
@@ -270,70 +296,107 @@ __device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorM
 
 // --- the consumers ----------------------------------------------------------------
 
-// The A fragments of box kc for the forward and the norm (load_a's: x
-// squared, split) and, from the same loads, x at the accumulator's
-// positions among the block's channels N0 + [0, NB): element 4j + 2h + e
-// (float32) or bf16 pair 2j + h, row ra + 8h, channel N0 + 8j + 2 t4 + e.
-// Called from the unrolled box loop, so kc and j are constants and xs
-// stays in registers. In bfloat16 a lane's fragment pairs are those
-// positions; in float32 a lane holds channels t4 and t4 + 4 of each k-step
-// and the accumulator wants 2 t4 and 2 t4 + 1, which the quad exchanges:
-// lane 2 (t4 & 1) + e holds channel 2 t4 + e in its lower or upper half
-// (t4 >> 1). Each lane is read by one lane in each of two shuffles a value
-// pair (lane t4 reads lane 2 (t4 & 1) + (t4 >> 1), then 2 (t4 & 1) + 1 -
-// (t4 >> 1)), so it sends the half its reader wants: the upper in the
-// first if it is odd, in the second if it is even (half the shuffles of
-// four a pair, and fewer spills: the norm 7% faster at 262,144 rows of
-// float32 C = 192 on an H100). Every value loaded from the box
-// goes into a fragment, so the products' issue that follows waits for all
-// of the box's loads.
-template <int NB, int N0>
-__device__ __forceinline__ void load_a_x(float, const uint8_t* box, int kc, int ra, int t4,
-                                         uint32_t* hi, uint32_t* lo, float* xs) {
-  const bool odd = t4 & 1, upper = t4 >> 1;
-  const int src_a = 2 * (t4 & 1) + (t4 >> 1), src_b = 2 * (t4 & 1) + 1 - (t4 >> 1);
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    float v[4];
+// The A fragments of k-step ks of box kc (4 registers of hi and of lo): for
+// the forward and the norm x squared and split, and from the same loads x
+// at the accumulator's positions among the block's channels N0 + [0, NB)
+// (element 4j + 2h + e (float32) or bf16 pair 2j + h: row ra + 8h, channel
+// N0 + 8j + 2 t4 + e); for the mix t split as it is. Called from the
+// unrolled box loop, so kc, ks and j are constants and xs stays in
+// registers. Every value loaded from the box goes into a fragment, so the
+// products' issue that follows waits for all of the k-step's loads.
+//
+// float32 x: a TF32 k-step takes 8 channels, and the fragment's k slots t4
+// and t4 + 4 hold channels 2 t4 and 2 t4 + 1 of it (gamma's P planes are
+// written in the same order, wide_slot_channel, so each product takes the
+// same terms), so one 8-byte load of a row gives a lane both of its slots'
+// values, and they are x at the accumulator's positions too: no exchange
+// within the quad. bfloat16 x: a k-step of 16 channels, the lane's pairs at
+// 2 t4 and 8 + 2 t4, which are the accumulator's positions. float32 t (the
+// mix, Q planes in channel order): slots t4 and t4 + 4 are channels t4 and
+// t4 + 4, as load_a reads them.
+template <typename W, int N0, typename XReg>
+__device__ __forceinline__ void load_step(const uint8_t* box, int kc, int ks, int ra, int t4,
+                                          uint32_t* hi, uint32_t* lo, XReg* xs) {
+  if constexpr (W::MIX) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int row = ra + 8 * (q & 1);
-      const int col = 8 * ks + t4 + 4 * (q >> 1);
-      v[q] = *reinterpret_cast<const float*>(box + swz(row, 4 * col));
-      const float s = v[q] * v[q];
-      const uint32_t h = tf32_rna(s);
-      hi[4 * ks + q] = h;
-      lo[4 * ks + q] = tf32_rna(s - __uint_as_float(h));
+      const float v = *reinterpret_cast<const float*>(
+          box + swz(ra + 8 * (q & 1), 4 * (8 * ks + t4 + 4 * (q >> 1))));
+      const uint32_t h = tf32_rna(v);
+      hi[q] = h;
+      lo[q] = tf32_rna(v - __uint_as_float(h));
     }
-    const int c8 = 32 * kc + 8 * ks;  // the k-step's first channel
-    if (c8 >= N0 && c8 < N0 + NB) {
+  } else if constexpr (W::ESZ == 4) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float a = __shfl_sync(0xffffffffu, odd ? v[h + 2] : v[h], src_a, 4);
-        const float b = __shfl_sync(0xffffffffu, odd ? v[h] : v[h + 2], src_b, 4);
-        xs[4 * ((c8 - N0) / 8) + 2 * h] = upper ? b : a;
-        xs[4 * ((c8 - N0) / 8) + 2 * h + 1] = upper ? a : b;
+    for (int h = 0; h < 2; ++h) {
+      const float2 v =
+          *reinterpret_cast<const float2*>(box + swz(ra + 8 * h, 4 * (8 * ks + 2 * t4)));
+      // fragment register q: row ra + 8 (q & 1), slot t4 + 4 (q >> 1)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float s = e ? v.y * v.y : v.x * v.x;
+        const uint32_t hs = tf32_rna(s);
+        hi[2 * e + h] = hs;
+        lo[2 * e + h] = tf32_rna(s - __uint_as_float(hs));
+      }
+      const int c8 = 32 * kc + 8 * ks;  // the k-step's first channel
+      if (c8 >= N0 && c8 < N0 + W::NB) {
+        xs[4 * ((c8 - N0) / 8) + 2 * h] = v.x;
+        xs[4 * ((c8 - N0) / 8) + 2 * h + 1] = v.y;
       }
     }
-  }
-}
-template <int NB, int N0>
-__device__ __forceinline__ void load_a_x(__nv_bfloat16, const uint8_t* box, int kc, int ra,
-                                         int t4, uint32_t* hi, uint32_t* lo, uint32_t* xs) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  } else {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int row = ra + 8 * (q & 1);
       const int col = 16 * ks + 2 * t4 + 8 * (q >> 1);
       const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(box + swz(row, 2 * col));
       const __nv_bfloat162 h = __hmul2(x, x);
-      hi[4 * ks + q] = bf16x2_bits(h);
-      lo[4 * ks + q] = bf16x2_bits(__hfma2(x, x, __hneg2(h)));
+      hi[q] = bf16x2_bits(h);
+      lo[q] = bf16x2_bits(__hfma2(x, x, __hneg2(h)));
       // channels c8 + 2 t4 + {0, 1} of row ra + 8 (q & 1): pair 2 j + (q & 1)
       const int c8 = 64 * kc + 16 * ks + 8 * (q >> 1);
-      if (c8 >= N0 && c8 < N0 + NB) xs[2 * ((c8 - N0) / 8) + (q & 1)] = bf16x2_bits(x);
+      if (c8 >= N0 && c8 < N0 + W::NB) xs[2 * ((c8 - N0) / 8) + (q & 1)] = bf16x2_bits(x);
     }
+  }
+}
+
+// 16 bytes of gamma's hi and lo planes from 4 (float32: TF32 hi and lo) or
+// 8 (bfloat16: bf16 hi and lo) values, as split_store splits each.
+__device__ __forceinline__ void split_store_chunk(float, uint8_t* hi, uint8_t* lo,
+                                                  const float* g) {
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    h[j] = tf32_rna(g[j]);
+    l[j] = tf32_rna(g[j] - __uint_as_float(h[j]));
+  }
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+__device__ __forceinline__ void split_store_chunk(__nv_bfloat16, uint8_t* hi, uint8_t* lo,
+                                                  const float* g) {
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 hv = __floats2bfloat162_rn(g[2 * j], g[2 * j + 1]);
+    const float2 hf = __bfloat1622float2(hv);
+    h[j] = bf16x2_bits(hv);
+    l[j] = bf16x2_bits(__floats2bfloat162_rn(g[2 * j] - hf.x, g[2 * j + 1] - hf.y));
+  }
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// The input channel that k slot s of gamma's planes holds: the float32 P
+// planes (the forward's and the norm's) in load_step's order within each
+// k-step of 8, every other plane in channel order.
+template <typename W>
+__device__ __forceinline__ int wide_slot_channel(int s) {
+  if constexpr (W::ESZ == 4 && !W::MIX) {
+    return (s & ~7) | ((s & 3) << 1) | ((s >> 2) & 1);
+  } else {
+    return s;
   }
 }
 
@@ -371,9 +434,12 @@ __device__ __forceinline__ float wide_scale(float norm) {
 // holds a row in pieces of 8 (float32) or 4 (bf16) bytes; one (float32,
 // quad_swap) or two (bf16) exchanges within the quad give each lane 16
 // contiguous bytes, so a warp's store covers 64 contiguous bytes of each of
-// 8 rows (two whole sectors).
-// Rows are masked to n_rows, channels to c (a multiple of 4 for float32, 8
-// for bf16, so a 16-byte piece is all in or all out).
+// 8 rows (two whole sectors). x comes from the box loop's registers, in
+// the accumulator's layout (xs). Rows are masked to n_rows, channels to c
+// (a multiple of 4 for float32, 8 for bf16, so a 16-byte piece is all in
+// or all out).
+//
+// float32: the products in the accumulator's layout, then exchanged.
 template <bool INVERSE, int NB, int N0>
 __device__ __forceinline__ void put_out(float* out, const float* acc, const float* xs,
                                         const float* beta_s, long long row, int t4, int n_rows,
@@ -401,6 +467,8 @@ __device__ __forceinline__ void put_out(float* out, const float* acc, const floa
     }
   }
 }
+// bfloat16, x as bf16 pairs in the accumulator's layout: the outputs
+// rounded to bf16 pairs, then a 4 x 4 transpose within the quad.
 template <bool INVERSE, int NB, int N0>
 __device__ __forceinline__ void put_out(__nv_bfloat16* out, const float* acc, const uint32_t* xs,
                                         const float* beta_s, long long row, int t4, int n_rows,
@@ -474,7 +542,7 @@ struct WideForwardOut {
 // by box (A: the tile squared, or as it is for the mix), then the launch's
 // epilogue, epi.put<NB, N0>(acc, xs, beta_s, row, t4, n_rows): the
 // accumulator (element 4j + 2h + e: row row + 8h, channel N0 + 8j + 2 t4 +
-// e), x at the same positions (float32 values or bf16 pairs from load_a_x;
+// e), x at the same positions (float32 values or bf16 pairs from load_step;
 // unset for the mix), beta of the block's channels, the warp's rows and
 // the lane's quad index.
 template <typename W, int RANK, typename Epilogue>
@@ -493,7 +561,7 @@ __device__ __forceinline__ void wide_consume(const uint8_t* ring, const uint64_t
   const int t4 = lane % 4;
   float acc[W::NB / 2];
   XReg xs[XREGS];
-  uint32_t a_hi[W::FRAGS][16], a_lo[W::FRAGS][16];
+  uint32_t a_hi[W::FRAGS][4 * W::FRAG_STEPS], a_lo[W::FRAGS][4 * W::FRAG_STEPS];
   int stage = 0;
   uint32_t phase = 0;
 
@@ -508,30 +576,34 @@ __device__ __forceinline__ void wide_consume(const uint8_t* ring, const uint64_t
 #pragma unroll
     for (int kc = 0; kc < W::BOXES; ++kc) {
       mbar_wait(smem_u32(&full[stage]), phase);
-      // the products that read this fragment set are done
-      if constexpr (W::FRAGS == 2) {
-        if (kc >= 2) wgmma_wait<1>();
-      } else {
-        if (kc >= 1) wgmma_wait<0>();
-      }
       const uint8_t* box = ring + stage * W::BOX + wg * BOX_TILE_BYTES;
-      uint32_t* hi = a_hi[kc % W::FRAGS];
-      uint32_t* lo = a_lo[kc % W::FRAGS];
-      if constexpr (W::MIX) {
-        load_a<false>(T(), box, ra, t4, hi, lo);
-      } else {
-        load_a_x<W::NB, N0>(T(), box, kc, ra, t4, hi, lo, xs);
-      }
-      wgmma_fence();
+      // the box's k-steps in groups of FRAG_STEPS, one commit a group
 #pragma unroll
-      for (int ks = 0; ks < W::KSTEPS; ++ks) {
-        const uint32_t off = kc * (W::NB * BOX_BYTES) + ks * 32;
-        const uint64_t b_hi = desc_b128(hi_base + off), b_lo = desc_b128(lo_base + off);
-        mma<T, W::NB>(acc, lo + 4 * ks, b_hi);
-        mma<T, W::NB>(acc, hi + 4 * ks, b_lo);
-        mma<T, W::NB>(acc, hi + 4 * ks, b_hi);
+      for (int k0 = 0; k0 < W::KSTEPS; k0 += W::FRAG_STEPS) {
+        const int u = (kc * W::KSTEPS + k0) / W::FRAG_STEPS;  // the tile's group
+        // the products that read this fragment set are done
+        if constexpr (W::FRAGS == 2) {
+          if (u >= 2) wgmma_wait<1>();
+        } else {
+          if (u >= 1) wgmma_wait<0>();
+        }
+        uint32_t* hi = a_hi[u % W::FRAGS];
+        uint32_t* lo = a_lo[u % W::FRAGS];
+#pragma unroll
+        for (int ks = 0; ks < W::FRAG_STEPS; ++ks) {
+          load_step<W, N0>(box, kc, k0 + ks, ra, t4, hi + 4 * ks, lo + 4 * ks, xs);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < W::FRAG_STEPS; ++ks) {
+          const uint32_t off = kc * (W::NB * BOX_BYTES) + (k0 + ks) * 32;
+          const uint64_t b_hi = desc_b128(hi_base + off), b_lo = desc_b128(lo_base + off);
+          mma<T, W::NB>(acc, lo + 4 * ks, b_hi);
+          mma<T, W::NB>(acc, hi + 4 * ks, b_lo);
+          mma<T, W::NB>(acc, hi + 4 * ks, b_hi);
+        }
+        wgmma_commit();
       }
-      wgmma_commit();
       // the products' issue has waited for each lane's loads of the box:
       // the warp is done with it, one arrival on rank 0's "empty"
       __syncwarp();
@@ -569,11 +641,64 @@ __device__ __forceinline__ void wide_consume_rank(int rank, const uint8_t* ring,
 
 // --- the kernels ------------------------------------------------------------------
 
+// gamma's planes of the block's output channels n0 + [0, NB) as wgmma's B,
+// zero padded: row o (output channel n0 + o) holds the input channels k in
+// the slot order of wide_slot_channel; P reads gamma[k][n0 + o], Q gamma[n0
+// + o][k]. beta of the slice, ones past c (not for the mix). The planes are
+// written in 16-byte chunks of a row's slots (4 float32 or 8 bf16), one
+// store to each plane a chunk, conflict-free through the swizzle: for P
+// neighbouring threads take neighbouring rows (their loads of gamma
+// neighbouring output channels), for Q neighbouring chunks of a row.
+// Thread `first` of STRIDE takes every STRIDE-th chunk, GROUP chunks'
+// loads of gamma in flight before it splits and stores them.
+template <typename W, int STRIDE>
+__device__ __forceinline__ void wide_gamma(int first, uint8_t* g_hi, uint8_t* g_lo,
+                                           float* beta_s, const float* __restrict__ gamma,
+                                           const float* __restrict__ beta, int n0, int c) {
+  constexpr int V = 16 / W::ESZ;               // slots a chunk
+  constexpr int CHUNKS = W::NB * (W::CP / V);  // chunks of one plane
+  constexpr int GROUP = 4;
+  for (int base = first; base < CHUNKS; base += GROUP * STRIDE) {
+    float g[GROUP][V];
+#pragma unroll
+    for (int i = 0; i < GROUP; ++i) {
+      const int q = base + i * STRIDE;
+      const int o = W::MIX ? q / (W::CP / V) : q % W::NB;
+      const int s0 = V * (W::MIX ? q % (W::CP / V) : q / W::NB);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int k = wide_slot_channel<W>(s0 + j);
+        g[i][j] = 0.0f;
+        if (q < CHUNKS && k < c && n0 + o < c) {
+          g[i][j] = W::MIX ? gamma[static_cast<int64_t>(n0 + o) * c + k]
+                           : gamma[static_cast<int64_t>(k) * c + n0 + o];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < GROUP; ++i) {
+      const int q = base + i * STRIDE;
+      const int o = W::MIX ? q / (W::CP / V) : q % W::NB;
+      const int s0 = V * (W::MIX ? q % (W::CP / V) : q / W::NB);
+      if (q < CHUNKS) {
+        const uint32_t off =
+            (s0 / W::COLS) * (W::NB * BOX_BYTES) + swz(o, (s0 % W::COLS) * W::ESZ);
+        split_store_chunk(typename W::Elem(), g_hi + off, g_lo + off, g[i]);
+      }
+    }
+  }
+  if constexpr (!W::MIX) {
+    for (int i = first; i < W::NB; i += STRIDE) beta_s[i] = n0 + i < c ? beta[n0 + i] : 1.0f;
+  }
+}
+
 // The body of every launch on the loop, over the rows of in_map (n_rows x
-// c, W's type, boxes of a tile's rows x 128 bytes): gamma's planes of the
-// block's output channels (P, or Q for the mix) and, but for the mix,
-// beta's into shared memory; then the producer warpgroup and the
-// consumers, which hand each tile's accumulator to `epi`.
+// c, W's type, boxes of a tile's rows x 128 bytes): the barriers, then the
+// producer warpgroup, which starts filling the ring at once, and the
+// consumers, which meanwhile put gamma's planes of the block's output
+// channels (P, or Q for the mix) and, but for the mix, beta's into shared
+// memory, meet on a barrier of their own and then hand each tile's
+// accumulator to `epi`.
 template <typename W, typename Epilogue>
 __device__ __forceinline__ void wide_rows(const CUtensorMap* in_map,
                                           const float* __restrict__ gamma,
@@ -596,29 +721,6 @@ __device__ __forceinline__ void wide_rows(const CUtensorMap* in_map,
   const int tile_step = static_cast<int>(cluster_count_x());
   const int tiles = (n_rows - 1) / W::TILE_ROWS + 1;  // n_rows + TILE_ROWS may overflow
 
-  // gamma of the slice as wgmma's B, zero padded: row o (output channel
-  // n0 + o) holds input channels k; P reads gamma[k][n0 + o], Q gamma[n0 +
-  // o][k], each k-fastest where that is the contiguous walk of gamma. beta
-  // of the slice, ones past c. Unrolled, so that a thread has several of
-  // gamma's loads in flight (the backward's launches at 16,384 rows of
-  // C = 192 take 8% less time so on an H100)
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < W::NB * W::CP; idx += W::THREADS) {
-    const int o = W::MIX ? idx / W::CP : idx % W::NB;
-    const int k = W::MIX ? idx % W::CP : idx / W::NB;
-    float g = 0.0f;
-    if (k < c && n0 + o < c) {
-      g = W::MIX ? gamma[static_cast<int64_t>(n0 + o) * c + k]
-                 : gamma[static_cast<int64_t>(k) * c + n0 + o];
-    }
-    const uint32_t off = (k / W::COLS) * (W::NB * BOX_BYTES) + swz(o, (k % W::COLS) * W::ESZ);
-    split_store(typename W::Elem(), g_hi, g_lo, off, g);
-  }
-  if constexpr (!W::MIX) {
-    for (int i = threadIdx.x; i < W::NB; i += W::THREADS) {
-      beta_s[i] = n0 + i < c ? beta[n0 + i] : 1.0f;
-    }
-  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < W::STAGES; ++s) {
       mbar_init(smem_u32(&full[s]), 1);
@@ -626,8 +728,6 @@ __device__ __forceinline__ void wide_rows(const CUtensorMap* in_map,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  fence_async_smem();  // gamma is read by wgmma
-  __syncthreads();
   // every block's barriers exist before any box or remote arrival reaches them
   cluster_sync();
 
@@ -674,6 +774,11 @@ __device__ __forceinline__ void wide_rows(const CUtensorMap* in_map,
     }
   } else {
     setmaxnreg_inc<W::CONSUMER_REGS>();
+    // gamma while the first boxes are in flight; every consumer's stores
+    // are done, and visible to wgmma, before any consumer's first product
+    wide_gamma<W, 128 * W::CONSUMERS>(threadIdx.x, g_hi, g_lo, beta_s, gamma, beta, n0, c);
+    fence_async_smem();
+    named_bar_sync(1, 128 * W::CONSUMERS);
     wide_consume_rank<W>(rank, ring, full, smem_u32(&empty[0]), smem_u32(g_hi), smem_u32(g_lo),
                          beta_s, epi, n_rows, tile0, tile_step, tiles);
   }

@@ -344,7 +344,7 @@ def wide_geometry(c: int, element_size: int, launch: str = "forward") -> dict:
     cp = -(-c // 64) * 64
     f32 = esz == 4
     cluster = 4 if f32 and cp == 256 else 2
-    consumers = 2 if launch != "forward" or (f32 and cp == 192) else 3
+    consumers = 2 if launch != "forward" else 3
     nb = cp // cluster
     plane = nb * cp * esz
     tile_rows = 64 * consumers

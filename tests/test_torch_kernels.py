@@ -639,11 +639,13 @@ def cuda_device(monkeypatch):
 # padded route; 192, 200 and 256 the wide loop (csrc/gdn_wide.cuh: clusters
 # walking tiles of 128 or 192 rows) at 1, 63 and 65 rows, at 4,099 rows (33
 # or 22 tiles) and at 8,581 (68 or 45 tiles: more tiles than some clusters
-# of 4, so clusters walk unequal numbers of tiles)
+# of 4, so clusters walk unequal numbers of tiles); one 128-row tile and the
+# scalable model's LST train rows, whole (16,384) and ragged (16,387)
 @pytest.mark.parametrize("n,c", [(1000, 128), (77, 100), (300, 16), (513, 256),
                                  (100003, 128), (4096, 192), (64, 10),
                                  (1, 192), (63, 192), (65, 200), (4_099, 200), (8_581, 192),
-                                 (1, 256), (63, 256), (65, 256), (4_099, 256), (8_581, 256)])
+                                 (1, 256), (63, 256), (65, 256), (4_099, 256), (8_581, 256)]
+                         + [(n, c) for c in (192, 200, 256) for n in (128, 16_384, 16_387)])
 def test_gdn_kernel_matches_plain_on_card(cuda_device, dtype, inverse, n, c):
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to(cuda_device, dtype)
@@ -716,16 +718,18 @@ def _assert_grad_close(got, want, name, dtype=torch.float32):
 # (200), the residual family's H/2 site (262,144 x 192); the norm and mix
 # launches' cluster loop at C = 192, 200 and 256 (two consumers sharing
 # 128-row tiles): fewer rows than a consumer's 64, one tile whose second
-# consumer has one row (65), 33 and 68 tiles (more than some clusters take:
-# clusters walk unequal numbers)
+# consumer has one row (65), one whole tile (128), 33 and 68 tiles (more
+# than some clusters take: clusters walk unequal numbers), the LST's train
+# rows, whole and ragged
 @pytest.mark.parametrize("n,c", [(262_144, 128), (65_536, 128), (16_384, 128),
                                  (100_003, 128), (77, 100), (300, 16), (513, 256),
                                  (4096, 192), (64, 10), (1001, 192), (70, 256),
                                  (1001, 10), (1, 128), (63, 128), (63, 10), (16_387, 128),
                                  (16_387, 200), (1, 256), (16_387, 256), (1, 200),
                                  (262_144, 192), (100_003, 200)]
-                         + [(n, c) for c in (192, 200, 256) for n in (1, 63, 65, 4_099, 8_581)
-                            if (n, c) not in ((1, 200), (1, 256))])
+                         + [(n, c) for c in (192, 200, 256)
+                            for n in (1, 63, 65, 128, 4_099, 8_581, 16_384, 16_387)
+                            if (n, c) not in ((1, 200), (1, 256), (16_387, 200), (16_387, 256))])
 def test_gdn_backward_kernel_matches_plain_on_card(cuda_device, dtype, inverse, n, c):
     x, gamma, beta, g = (t.to(cuda_device) for t in _gdn_case(n, c, seed=1))
     x, g = x.to(dtype), g.to(dtype)
@@ -750,7 +754,8 @@ def test_gdn_backward_kernel_matches_plain_on_card(cuda_device, dtype, inverse, 
 @pytest.mark.parametrize("inverse", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,c", [(98_304, 128), (1001, 10), (98_304, 192)]
-                         + [(n, c) for c in (192, 200, 256) for n in (1, 63, 65, 4_099, 8_581)])
+                         + [(n, c) for c in (192, 200, 256)
+                            for n in (1, 63, 65, 128, 4_099, 8_581, 16_384, 16_387)])
 def test_gdn_backward_dx_only_on_card(cuda_device, dtype, n, c, inverse):
     # without the dgamma/dbeta stage: the same dx bits, one launch, no stage
     x, gamma, beta, g = (t.to(cuda_device) for t in _gdn_case(n, c, seed=4))

@@ -29,8 +29,10 @@ parent commit's {"parent": ["<dir>/neural_image_compression_tpu_torch/csrc",
 true]}. A variant that computes something else on purpose (one product of
 the three, to see what the products cost) is [subs, false].
 tools/gdn_bwd_wide_variants.json holds the cluster loop's backward design
-choices (C > 128), each undone: no L2 prefetch, the gamma prologue not
-unrolled, IGDN's terms correctly rounded. tools/gdn_repeats.py takes the
+choices (C > 128), each undone: no L2 prefetch, one chunk of gamma's loads
+in flight in place of four, gamma's planes written before the first box is
+asked for, fragments a box at a time in place of a k-step, IGDN's terms
+correctly rounded. tools/gdn_repeats.py takes the
 same file to look for bits that move from run to run.
 """
 
@@ -91,6 +93,10 @@ def build(variants):
         if proc.returncode:
             raise SystemExit(f"variant {name}: nvcc exited {proc.returncode}\n{log}")
         lines = log.splitlines()
+        # ptxas's warnings (a wgmma pipeline it serializes, for one)
+        for line in lines:
+            if "warning" in line.lower():
+                print(f"  {name} {line.strip()}", flush=True)
         for k, line in enumerate(lines):
             if "Compiling" in line and any(f"gdn_bwd_{s}_kernel" in line
                                            for s in ("norm", "mix", "partials")):

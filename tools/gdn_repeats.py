@@ -10,14 +10,14 @@ launch's tile rows) and the channels.
 
 - The forward (this checkout's kernel, through ops/kernels/gdn_kernel.gdn)
   at the residual and scalable models' serve rows and the train step's
-  H/2 rows (4,718,592 and 262,144) at C = 192 and 256, float32 and
-  bfloat16, GDN and IGDN.
+  H/2 rows (4,718,592 and 262,144) at C = 192 and 256, and the LST's
+  train rows (16,384 at C = 256), float32 and bfloat16, GDN and IGDN.
 - The backward, each variant of variants.json built as
   tools/gdn_bwd_variants.py builds it, through its C entry point (dx
   alone, no dgamma/dbeta stage), each run with its own scratch filled
   with NaN: the scratch's t (the norm launch's output) and dx (the mix
-  launch's), at 262,144, 65,536 and 98,304 rows of C = 192 and 262,144 of
-  256, float32 and bfloat16, GDN.
+  launch's), at 262,144, 65,536 and 98,304 rows of C = 192 and 262,144
+  and 16,384 of 256, float32 and bfloat16, GDN.
 
     python3 tools/gdn_repeats.py variants.json
 """
@@ -37,8 +37,9 @@ import chip_smoke as cs  # noqa: E402
 import gdn_bwd_variants as gv  # noqa: E402
 from neural_image_compression_tpu_torch.ops.kernels import gdn_kernel  # noqa: E402
 
-FORWARD_CASES = ((4_718_592, 192), (262_144, 192), (4_718_592, 256), (262_144, 256))
-BACKWARD_CASES = ((262_144, 192), (65_536, 192), (262_144, 256), (98_304, 192))
+FORWARD_CASES = ((4_718_592, 192), (262_144, 192), (4_718_592, 256), (262_144, 256),
+                 (16_384, 256))
+BACKWARD_CASES = ((262_144, 192), (65_536, 192), (262_144, 256), (98_304, 192), (16_384, 256))
 REPEATS = 4
 DTYPES = (torch.float32, torch.bfloat16)
 

@@ -25,8 +25,9 @@ A name may map to a path instead, to time another commit's kernel (unpacked
 with git archive) beside this one: its csrc/ directory, taken as it is, or
 its gdn_kernel.cu alone, built against this checkout's headers.
 tools/gdn_wide_variants.json holds the wide loop's (C > 128) design
-choices, each undone: two consumer warpgroups everywhere, a cluster-scope
-release, no output stores, no products.
+choices, each undone: two consumer warpgroups everywhere, two (with two
+fragment sets) at float32 192, gamma's planes written before the first box
+is asked for, a cluster-scope release, no output stores, no products.
 """
 
 import argparse
@@ -80,6 +81,10 @@ def build(variants):
         if proc.returncode:
             raise SystemExit(f"variant {name}: nvcc exited {proc.returncode}\n{log}")
         lines = log.splitlines()
+        # ptxas's warnings (a wgmma pipeline it serializes, for one)
+        for line in lines:
+            if "warning" in line.lower():
+                print(f"{name} {line.strip()}", flush=True)
         for k, line in enumerate(lines):
             if "Compiling" in line and "gdn_rows_kernel" in line:
                 inst = line.split("gdn_rows_kernel", 1)[1].split("EEEv", 1)[0]
