@@ -248,6 +248,17 @@ GDN_BWD_EXTRA_CASES = GDN_EXTRA_CASES + ((1, 128), (63, 128), (16_387, 128), (4_
 # at C = 192, 200 and 256
 GDN_WIDE_CASES = tuple((rows, c) for c in (192, 200, 256)
                        for rows in (1, 63, 65, 128, 4_099, 8_581, 16_384, 16_387))
+# the backward's fused launch at 65 to 128 channels (clusters of two blocks
+# walking 128-row tiles, t exchanged between them), with and without the
+# dgamma/dbeta stage: fewer rows than a consumer's 64 (1, 63) and than a
+# tile (65), one whole tile, one tile and one row (129), 33 tiles, 67 and
+# 133 (odd: the first cluster takes one more tile than the others; H100
+# holds 66 clusters of this launch), 68 (two clusters take two), 129 (the
+# LST's ragged train rows), at C = 128 and at 100 (float32 rows of 100
+# channels run as they are, the channels past 100 masked; bfloat16 rows are
+# padded to 112)
+GDN_FUSED_CASES = tuple((rows, c) for c in (128, 100)
+                        for rows in (1, 63, 65, 128, 129, 4_099, 8_575, 8_581, 16_387, 16_999))
 # the forward's times (CUDA-event ms, f32 / bf16) in PERF.md: at C > 128
 # the latest before this version of the wide loop (fragments loaded in
 # channel order, exchanged within the quad for x), at C = 128 the unchanged
@@ -266,7 +277,8 @@ GDN_BEFORE_MS = {
     ("decompress_base", "H/8", 256, "float32"): 0.0676,
 }
 # the backward's times (CUDA-event ms) in PERF.md: at C > 128 the latest
-# before this version of the wide loop, at C = 128 the unchanged loop's:
+# before this version of the wide loop, at C = 128 the two launches' before
+# the fused one:
 # (path, site, C, dtype, with dgamma/dbeta) -> ms;
 # printed beside each timed row that has one, GDN and IGDN alike (PERF.md's
 # rows are one direction each: refine IGDN)
@@ -275,6 +287,8 @@ GDN_BWD_BEFORE_MS = {
     ("train", "H/2", 192, "float32", True): 0.9976, ("train", "H/2", 192, "bfloat16", True): 0.8341,
     ("train", "H/2", 192, "float32", False): 0.7465,
     ("train", "H/2", 192, "bfloat16", False): 0.5788,
+    ("refine", "H/2", 128, "float32", False): 0.1942,
+    ("refine", "H/2", 128, "bfloat16", False): 0.1624,
     ("refine", "H/2", 192, "float32", False): 0.3129,
     ("refine", "H/2", 192, "bfloat16", False): 0.2403,
     ("train", "H/8", 256, "float32", True): 0.2110, ("train", "H/8", 256, "bfloat16", True): 0.1650,
@@ -558,29 +572,46 @@ def check_gdn_backward(x, gamma_t, beta_t, g, inverse, label, param_grads=True):
     return max(errs)
 
 
-def gdn_backward_design_bytes(rows, c, esz):
-    """Bytes the GDN backward's four launches move, each launch's inputs read
-    once and outputs written once (csrc/gdn_bwd_kernel.cu): norm reads x and
-    g and writes t and d1 (float32); mix reads t, x and d1 and writes dx;
-    partials reads x and t and writes the chunks' partials; reduce reads
-    them and writes dgamma and dbeta. gamma and beta are read by the
-    launches that use them."""
+def gdn_backward_design_bytes(rows, c, esz, param_grads=True):
+    """Bytes the GDN backward's launches move, each launch's inputs read
+    once and outputs written once (csrc/gdn_bwd_kernel.cu). From 65 to 128
+    channels the fused launch reads x and g and writes dx and, for the
+    dgamma/dbeta stage, t (float32); at the other widths norm reads x and g
+    and writes t and d1 (float32) and mix reads t, x and d1 and writes dx.
+    With param_grads, partials then reads x and t and writes the chunks'
+    partials, and reduce reads them and writes dgamma and dbeta. gamma and
+    beta are read by the launches that use them."""
     elems, params = rows * c, (c * c + c) * 4
     part = gdn_kernel._chunking(rows)[1] * c * (c + 1) * 4
-    norm = elems * (2 * esz + 8) + params
-    mix = elems * (2 * esz + 8) + c * c * 4
+    if 64 < c <= 128:
+        rows_bytes = elems * (3 * esz + (4 if param_grads else 0)) + params
+    else:
+        rows_bytes = elems * (2 * esz + 8) + params + elems * (2 * esz + 8) + c * c * 4
+    if not param_grads:
+        return rows_bytes
     partials = elems * (esz + 4) + part
     reduce = part + params
-    return norm + mix + partials + reduce
+    return rows_bytes + partials + reduce
 
 
-def partials_stage(x, gamma_t, beta_t, g, inverse, label):
+# the backward's launches as the profiler names them (gdn_bwd_<launch>_kernel):
+# one fused launch for dx from 65 to 128 channels, norm and mix at the others
+BWD_LAUNCHES_FUSED = frozenset({"fused", "partials", "reduce"})
+BWD_LAUNCHES_TWO = frozenset({"norm", "mix", "partials", "reduce"})
+
+
+def backward_launch_names(c):
+    return BWD_LAUNCHES_FUSED if 64 < c <= 128 else BWD_LAUNCHES_TWO
+
+
+def partials_stage(x, gamma_t, beta_t, g, inverse, label, expect=None):
     """The backward's dgamma/dbeta partials launch at these rows: its device
     time from torch.profiler over PARTIALS_CALLS backward calls (beside the
-    other three launches'), its bytes floor (x and t read once, the chunks'
+    other launches'), its bytes floor (x and t read once, the chunks'
     partials written) and the same stage as one PyTorch call,
     torch.mm((x.float() ** 2).T, t) with TF32 off, timed with CUDA events
-    and never called by the port."""
+    and never called by the port. The profile's launches must be one of
+    ``expect`` (sets of names; by default this checkout's at x's width)."""
     rows, c = x.shape
     for _ in range(2):
         gdn_kernel.gdn_backward(x, gamma_t, beta_t, g, inverse)
@@ -603,7 +634,7 @@ def partials_stage(x, gamma_t, beta_t, g, inverse, label):
         if launch_ms and all(n == PARTIALS_CALLS for n in counts.values()):
             break
         launch_ms = {}
-    check(not launch_ms or set(launch_ms) == {"norm", "mix", "partials", "reduce"},
+    check(not launch_ms or set(launch_ms) in (expect or (backward_launch_names(c),)),
           f"{label}: the profile's backward launches {launch_ms}")
     chunks = gdn_kernel._chunking(rows)[1]
     floor_bytes = rows * c * (x.element_size() + 4) + chunks * c * (c + 1) * 4
@@ -655,7 +686,9 @@ def gdn_backward_site_records(path, sites, rng, gamma_t, beta_t, dev, inverses=(
                     io_bytes = 3 * rows * c * x.element_size() + 2 * (c * c + c) * 4
                     bound_ms, bound_by = bound(io_bytes, 6.0 * rows * c * c + 12.0 * rows * c,
                                                peak)
-                    # what this design must move (t written once, read twice; d1)
+                    # what this design must move (from 65 to 128 channels t written
+                    # once and read once; at the other widths t written once, read
+                    # twice, and d1)
                     floor_ms = (gdn_backward_design_bytes(rows, c, x.element_size())
                                 / HBM_BYTES_PER_S * 1e3)
                     floor_note = (f"  design floor {floor_ms:.4f} ms "
@@ -670,7 +703,10 @@ def gdn_backward_site_records(path, sites, rng, gamma_t, beta_t, dev, inverses=(
                     # (N, C) x (C, C) products (the norm, t @ gamma^T), counted once
                     bound_ms, bound_by = bound(3 * rows * c * x.element_size() + (c * c + c) * 4,
                                                4.0 * rows * c * c + 10.0 * rows * c, peak)
-                    floor_note = ""
+                    floor_ms = (gdn_backward_design_bytes(rows, c, x.element_size(), False)
+                                / HBM_BYTES_PER_S * 1e3)
+                    floor_note = (f"  design floor {floor_ms:.4f} ms "
+                                  f"({100 * floor_ms / ms:.1f}% of it)")
                 records.append(dict(
                     name="gdn_backward", **KERNEL_INFO["gdn_backward"], path=path, site=site,
                     inverse=inverse, **({} if param_grads else {"param_grads": False}),
@@ -695,7 +731,12 @@ def gdn_backward_cases(dev):
             print(f"  wide loop, backward C={c} {str(dtype).replace('torch.', '')}: norm "
                   f"{gdn_kernel.wide_geometry(c, esz, 'norm')}, mix "
                   f"{gdn_kernel.wide_geometry(c, esz, 'mix')}")
-    for rows, c in GDN_BWD_EXTRA_CASES + GDN_WIDE_CASES:
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"  cluster loop, backward's fused launch C=128 "
+              f"{str(dtype).replace('torch.', '')}: "
+              f"{gdn_kernel.wide_geometry(128, torch.finfo(dtype).bits // 8, 'backward')}")
+    fused = tuple(case for case in GDN_FUSED_CASES if case not in GDN_BWD_EXTRA_CASES)
+    for rows, c in GDN_BWD_EXTRA_CASES + fused + GDN_WIDE_CASES:
         gamma_c, beta_c = gdn_params(c, rng, dev)
         x32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
         g32 = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(dev)
@@ -704,7 +745,7 @@ def gdn_backward_cases(dev):
                 name = "igdn" if inverse else "gdn"
                 label = f"{name}-bwd rows={rows} C={c} {str(dtype).replace('torch.', '')}"
                 check_gdn_backward(x32.to(dtype), gamma_c, beta_c, g32.to(dtype), inverse, label)
-                if (rows, c) in GDN_WIDE_CASES:
+                if (rows, c) in GDN_WIDE_CASES + GDN_FUSED_CASES:
                     check_gdn_backward(x32.to(dtype), gamma_c, beta_c, g32.to(dtype), inverse,
                                        f"{label} dx alone", param_grads=False)
     return records

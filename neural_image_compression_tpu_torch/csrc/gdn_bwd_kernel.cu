@@ -1,11 +1,13 @@
-// GDN / IGDN backward for Hopper (sm_90a): four launches, all but the last
-// on the tensor cores.
+// GDN / IGDN backward for Hopper (sm_90a): three or four launches, all but
+// the last on the tensor cores.
 //
 // The forward (csrc/gdn_kernel.cu) is out = x * r with r = n^(-1/2) (GDN) or
 // out = x * s with s = n^(1/2) (IGDN), n = beta + (x*x) . gamma, gamma
 // (C_in, C_out). Given g = dL/dout, with n recomputed from x:
-//   GDN:  t = g*x*r^3,  dx = g*r - x*(t . gamma^T),  dgamma = -1/2 (x*x)^T . t,  dbeta = -1/2 sum_rows t
-//   IGDN: t = g*x/s,    dx = g*s + x*(t . gamma^T),  dgamma = +1/2 (x*x)^T . t,  dbeta = +1/2 sum_rows t
+//   GDN:  t = g*x*r^3,  dx = g*r - x*(t . gamma^T),
+//         dgamma = -1/2 (x*x)^T . t,  dbeta = -1/2 sum_rows t
+//   IGDN: t = g*x/s,    dx = g*s + x*(t . gamma^T),
+//         dgamma = +1/2 (x*x)^T . t,  dbeta = +1/2 sum_rows t
 //
 // Replaces the backward of the Pallas TPU kernel neural_image_compression_tpu/
 // ops/pallas/gdn_kernel.py (`gdn_fused_op`), which is XLA autodiff of
@@ -17,22 +19,37 @@
 // 3*N*C*sizeof(x) bytes, against three (N, C) x (C, C) products, 6*N*C^2
 // operations, which the tensor cores (495 TFLOP/s TF32) run in less time
 // than the bytes take (at N = 262,144, C = 128: 0.052 ms against 0.120 ms
-// for float32 bytes). This design moves more than those bytes, because t
-// (float32) is written once and read twice:
-//   1. norm: the forward's loop over x tiles (at C <= 128 gdn_bwd_norm_kernel
-//      on csrc/gdn_wgmma.cuh's mix_rows; at 192 and 256
-//      gdn_bwd_norm_kernel_cluster on csrc/gdn_wide.cuh's cluster loop),
-//      n = beta + (x*x) . gamma on the tensor cores with P planes (3xTF32
-//      for float32 x, exact 3xbf16 for bfloat16 x, as the forward); its
-//      epilogue reads g at the accumulator's positions and writes t and
-//      d1 = g*r (g*s, s = n*r), float32, from one r = rsqrt(n) (`terms`).
-//      For float32 x, d1 goes into dx; for bfloat16 x into a float32
-//      scratch (rounding d1 to bf16 before the second term would round dx
-//      twice). Bound by its bytes.
-//   2. mix (gdn_bwd_mix_kernel, gdn_bwd_mix_kernel_cluster): the same loops
-//      over t tiles (float32, 3xTF32 for either type of x), u = t . gamma^T
-//      with Q planes (gamma[i][o] at row i); its epilogue reads x and d1 and
-//      writes dx = d1 -+ x*u in x's type. Bound by its bytes.
+// for float32 bytes). dx comes from two products, n (the norm) and u = t .
+// gamma^T (the mix), with t between them:
+//   1-2, from 65 to 128 channels (CP = 128, the flagship's width): one
+//      fused launch, gdn_bwd_fused_kernel, on csrc/gdn_wide.cuh's cluster
+//      loop. A cluster of two blocks walks 128-row tiles of x (multicast
+//      once per cluster); block rank r owns channels [64 r, 64 r + 64) as
+//      the norm's outputs and as the mix's, and holds both of gamma's
+//      layouts for them. Its consumers take n on the tensor cores with P
+//      planes (3xTF32 for float32 x, exact 3xbf16 for bfloat16 x, as the
+//      forward), then t and d1 = g*r (g*s, s = n*r) from one r = rsqrt(n)
+//      (`terms`) in registers, g read at the accumulator's positions; t
+//      goes to the partner block (st.async into its shared memory), and u
+//      for the block's channels over all 128 runs on the tensor cores from
+//      registers (3xTF32, Q planes: the block's own t from its accumulator,
+//      the partner's from the exchange); dx = d1 -+ x*u out in x's type. t
+//      is written to device memory (float32) only for launch 3; d1 never.
+//      Both products run over k in the two launches' box and k-step order,
+//      so dx, dgamma and dbeta keep their bits. Bound by its bytes.
+//   1-2, at the other widths: two launches, t and d1 through device memory.
+//      1. norm: the forward's loop over x tiles (at C <= 64
+//         gdn_bwd_norm_kernel on csrc/gdn_wgmma.cuh's mix_rows; at 192 and
+//         256 gdn_bwd_norm_kernel_cluster on csrc/gdn_wide.cuh's cluster
+//         loop), n as above; its epilogue reads g at the accumulator's
+//         positions and writes t and d1, float32, from one r = rsqrt(n).
+//         For float32 x, d1 goes into dx; for bfloat16 x into a float32
+//         scratch (rounding d1 to bf16 before the second term would round
+//         dx twice). Bound by its bytes.
+//      2. mix (gdn_bwd_mix_kernel, gdn_bwd_mix_kernel_cluster): the same
+//         loops over t tiles (float32, 3xTF32 for either type of x), u = t .
+//         gamma^T with Q planes (gamma[i][o] at row i); its epilogue reads x
+//         and d1 and writes dx = d1 -+ x*u in x's type. Bound by its bytes.
 //   3. partials, gdn_bwd_partials_kernel: per (chunk of rows, tile of
 //      dgamma), (x*x)^T . t over the chunk's rows as 3xTF32 products on the
 //      tensor cores (wgmma, float32 accumulate); the blocks of the first
@@ -45,18 +62,23 @@
 //      at C = 192 and 256 the operations come close to the bytes.
 //   4. reduce: dgamma and dbeta as +-1/2 times the chunks' partials summed
 //      in chunk order, on the CUDA cores. Bound by the partials' bytes.
-// Bytes per element of (N, C): float32 x 32 (launches 1-2) + 8 (launch 3,
-// x and t read once; at C = 192 x three times and at C = 256 both twice,
-// mostly from L2), bfloat16 24 + 6, against 12 and 6 for the function
-// itself; launches 3 and 4 add chunks * C * (C + 1) * 4 twice. No atomics,
-// and every sum runs in a fixed order for a given shape (the chunks are a
-// function of N), so two runs give the same bits.
+// Bytes per element of (N, C), launches 1-2: from 65 to 128 channels 12
+// (float32 x: x, g in, dx out) or 6 (bfloat16), plus 4 for t with the
+// dgamma/dbeta stage; at the other widths 32 (float32) or 24 (bfloat16);
+// against 12 and 6 for the function itself. Launch 3 adds 8 (float32 x) or
+// 6 (x and t read once; at C = 192 x three times and at C = 256 both twice,
+// mostly from L2); launches 3 and 4 add chunks * C * (C + 1) * 4 twice. No
+// atomics, and every sum runs in a fixed order for a given shape (the
+// chunks are a function of N), so two runs give the same bits.
 //
-// Why two tensor-core launches for the rows: the products need gamma in two
-// layouts, P (row o holds gamma[:, o]) for n and Q (row i holds gamma[i, :])
-// for u, and TF32 wgmma reads shared-memory B only K-major. Both layouts,
-// each as hi and lo planes, take 4 * 64 KB at C = 128, above the 227 KB a
-// block may use.
+// Why two tensor-core launches at C <= 64 and C = 192, 256: the products
+// need gamma in two layouts, P (row o holds gamma[:, o]) for n and Q (row i
+// holds gamma[i, :]) for u, and TF32 wgmma reads shared-memory B only
+// K-major. One block holds both layouts of all 128 channels only at 4 * 64
+// KB (hi and lo planes, float32), above the 227 KB a block may use; the
+// fused launch cuts them in two across its cluster (4 * 32 KB a block at
+// float32). At C = 192 and 256 both layouts would need clusters of 4 and 8;
+// at C <= 64 (test widths) the two launches stay.
 //
 // Why launch 3 writes t into planes: its product runs over rows, so K is
 // the slow index of both x and t as they sit in device memory and in the
@@ -71,15 +93,16 @@
 // Launches 1 and 2 read g, x and d1 and write t, d1 and dx straight from and
 // to registers at the accumulator's positions, not through TMA: beside
 // gamma's planes, shared memory holds a single float32 stage of x and g
-// together, too few for two warpgroups taking turns. At C <= 128 a thread
+// together, too few for two warpgroups taking turns. At C <= 64 a thread
 // takes two neighbouring channels (four threads fill a 32-byte sector) and
-// the norm's x comes from its tile in shared memory. At C = 192 and 256
-// each block of a cluster computes its slice of the output channels from
-// tiles that come once per cluster (csrc/gdn_wide.cuh says why gamma must
-// be cut there); one exchange within the quad first gives a thread four
-// neighbouring channels (16 bytes of float32), and each launch prefetches
-// its epilogue's operands in device memory into L2 when a tile starts.
-// Rows whose stride TMA cannot describe (C % 4 in float32, C % 8 in
+// the norm's x comes from its tile in shared memory; the fused launch does
+// the same from the cluster loop's registers. At C = 192 and 256 each block
+// of a cluster computes its slice of the output channels from tiles that
+// come once per cluster (csrc/gdn_wide.cuh says why gamma must be cut
+// there); one exchange within the quad first gives a thread four
+// neighbouring channels (16 bytes of float32). The cluster launches
+// prefetch their epilogue's operands in device memory into L2 when a tile
+// starts. Rows whose stride TMA cannot describe (C % 4 in float32, C % 8 in
 // bfloat16, an unaligned base) are padded by the wrapper: zero gamma
 // columns and x, g, unit beta, so the padded channels add nothing to dx,
 // dgamma or dbeta.
@@ -122,7 +145,7 @@ __device__ __forceinline__ void terms(float n, float x, float g, float& t, float
   }
 }
 
-// Launch 1's epilogue at C <= 128: x from the shared tile, g from device
+// Launch 1's epilogue at C <= 64: x from the shared tile, g from device
 // memory; t and d1 (float32) out. Accumulator element 4j + 2h + e: row
 // row0 + ra + 8h, channel 8j + 2*t4 + e.
 template <typename T, int CP, bool INVERSE>
@@ -177,7 +200,7 @@ struct NormEpilogue {
   }
 };
 
-// Launch 2's epilogue at C <= 128: u = t . gamma^T in the accumulator; x
+// Launch 2's epilogue at C <= 64: u = t . gamma^T in the accumulator; x
 // and d1 from device memory; dx = d1 - x*u (GDN) or d1 + x*u (IGDN) out, in
 // x's type. For float32 x, d1 is dx itself: each element is read and then
 // written by the same thread.
@@ -230,7 +253,7 @@ struct MixEpilogue {
   }
 };
 
-// Launch 1 at CP <= 128. x: (n_rows, c) through x_map; t, d1: (n_rows, c)
+// Launch 1 at CP = 64. x: (n_rows, c) through x_map; t, d1: (n_rows, c)
 // float32.
 template <typename T, int CP, bool INVERSE>
 __global__ void __launch_bounds__(Cfg<T, CP>::THREADS, 1)
@@ -241,7 +264,7 @@ gdn_bwd_norm_kernel(const __grid_constant__ CUtensorMap x_map, const T* __restri
                                 NormEpilogue<T, CP, INVERSE>{g, t, d1, n_rows, c});
 }
 
-// Launch 2 at CP <= 128. t: (n_rows, c) float32 through t_map; x, dx:
+// Launch 2 at CP = 64. t: (n_rows, c) float32 through t_map; x, dx:
 // (n_rows, c) in x's type; d1 float32 (dx itself for float32 x, so neither
 // is __restrict__).
 template <typename T, int CP, bool INVERSE>
@@ -470,6 +493,283 @@ gdn_bwd_mix_kernel_cluster(const __grid_constant__ CUtensorMap t_map, const T* _
                            int c) {
   wide_rows<Wide<float, CP, WIDE_MIX>>(&t_map, gamma, nullptr, n_rows, c,
                                        WideMixOut<T, INVERSE>{x, d1, dx, c});
+}
+
+// --- launches 1 and 2 at CP = 128: one fused launch on csrc/gdn_wide.cuh's loop
+
+// gamma's Q planes of the fused launch (wide_gamma's W): row o (output
+// channel n0 + o) holds gamma[n0 + o][k], TF32 hi and lo, the k slots of
+// each k-step in x's pair order, the order in which the norm's accumulator
+// holds t for the mix's A fragments.
+struct FusedQ {
+  using Elem = float;
+  static constexpr int CP = 128, NB = 64, ESZ = 4, COLS = BOX_BYTES / ESZ;
+  static constexpr bool MIX = true, PAIR_SLOTS = true;
+};
+
+// x at accumulator elements 4j + 2h + {0, 1} from load_step's registers:
+// float32 values, or the bf16 pair 2j + h.
+__device__ __forceinline__ float2 x_pair(const float* xs, int j, int h) {
+  return make_float2(xs[4 * j + 2 * h], xs[4 * j + 2 * h + 1]);
+}
+__device__ __forceinline__ float2 x_pair(const uint32_t* xs, int j, int h) {
+  const uint32_t w = xs[2 * j + h];
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
+// The consumer warpgroups of the fused launch in the block of rank RANK,
+// which owns channels N0 + [0, 64) both as the norm's outputs and as the
+// mix's. For each tile of the cluster (64 rows a consumer):
+//   1. n = beta + (x*x) . gamma[:, N0 ..] over the ring's boxes, as the
+//      norm launch at C = 192 computes it (wide_products, P planes);
+//   2. t (in the accumulator's registers) and d1 from one r = rsqrt(n)
+//      (`terms`), g read at the accumulator's positions;
+//   3. t to the partner: each thread stores its 32 values, as 8 groups of
+//      4 (one k-step's A fragment each), into the partner's exchange buffer
+//      at its own thread's slots (st.async, counted on the partner's
+//      "xfull"), once the partner has read the previous tile's ("xfree");
+//      with the dgamma/dbeta stage also t to device memory;
+//   4. u = t . gamma[N0 .., :]^T over all 128 k, k-step by k-step in
+//      channel order (the mix launch's order): the block's own 64 from its
+//      registers, the partner's from the exchange buffer, each split into
+//      TF32 hi and lo, B from the Q planes;
+//   5. dx = d1 -+ x*u, rounded once to x's type.
+// Rank 1's first k-steps are the partner's, rank 0's its own: both sum in
+// the same order as the two launches did, so dx keeps their bits. Rows past
+// n_rows and channels past c get x = g = 0 (TMA's zero fill, the loads'
+// mask), so their t is 0 and adds nothing to u.
+template <typename T, bool INVERSE, int RANK>
+__device__ __forceinline__ void fused_consume(const uint8_t* ring, const uint64_t* full,
+                                              uint32_t empty0, uint32_t p_hi, uint32_t p_lo,
+                                              uint32_t q_hi, uint32_t q_lo, const float* beta_s,
+                                              const uint8_t* xch, const uint64_t* xfull,
+                                              const uint64_t* xfree, const T* __restrict__ g,
+                                              float* __restrict__ t_out, T* __restrict__ dx,
+                                              int n_rows, int c, int tile0, int tile_step,
+                                              int tiles) {
+  using W = Wide<T, 128, WIDE_BACKWARD>;
+  constexpr int NB = W::NB;
+  constexpr int N0 = RANK * NB;
+  constexpr uint32_t PARTNER = 1 - RANK;
+  constexpr int MIX_FRAGS = W::FRAGS;  // the mix's fragment sets, as the norm's
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int ra = ((threadIdx.x / 32) % 4) * 16 + lane / 4;  // rows ra and ra + 8
+  const int t4 = lane % 4;
+  // this thread's slots of the consumer's exchange buffer: group s at + s * 2048
+  const uint8_t* mine = xch + wg * W::XCH_WG_BYTES + tid * 16;
+  const uint32_t peer = mapa(smem_u32(mine), PARTNER);
+  const uint32_t xfull_bar = smem_u32(&xfull[wg]), xfree_bar = smem_u32(&xfree[wg]);
+  const uint32_t peer_xfull = mapa(xfull_bar, PARTNER);
+  float acc[NB / 2];  // the norm, then t
+  float d1[NB / 2];
+  float u[NB / 2];
+  WideXReg<W> xs[wide_xregs<W>()];
+  int stage = 0;
+  uint32_t phase = 0;
+  int k = 0;  // the consumer's tiles so far: the exchange barriers' phase
+
+  for (int tile = tile0; tile < tiles; tile += tile_step, ++k) {
+    const long long row = static_cast<long long>(tile) * W::TILE_ROWS + wg * ROWS + ra;
+    prefetch_pieces<NB, N0>(g, row, t4, n_rows, c);
+    // this tile's bytes from the partner (it has waited on the last phase)
+    if (tid == 0) mbar_expect_tx(xfull_bar, W::XCH_WG_BYTES);
+    wide_products<W, N0>(ring, full, empty0, p_hi, p_lo, ra, t4, acc, xs, stage, phase);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int v = 0; v < NB / 2; ++v) fence_operand(acc[v]);
+
+    // 2. t and d1; every load of g issued before any is used
+    float2 gv[NB / 8][2];
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long r = row + 8 * h;
+        const int col = N0 + 8 * j + 2 * t4;
+        gv[j][h] = make_float2(0.0f, 0.0f);
+        if (r < n_rows && col < c) {
+          gv[j][h] = widen(*reinterpret_cast<const Pair<T>*>(g + r * c + col));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int v = 4 * j + 2 * h;
+        const float2 xv = x_pair(xs, j, h);
+        const float2 b = *reinterpret_cast<const float2*>(beta_s + 8 * j + 2 * t4);
+        terms<INVERSE>(acc[v] + b.x, xv.x, gv[j][h].x, acc[v], d1[v]);
+        terms<INVERSE>(acc[v + 1] + b.y, xv.y, gv[j][h].y, acc[v + 1], d1[v + 1]);
+      }
+    }
+
+    // 3. t to the partner, then to device memory for the dgamma/dbeta stage
+    if (k > 0) mbar_wait_cluster(xfree_bar, (k - 1) & 1);
+#pragma unroll
+    for (int s = 0; s < NB / 8; ++s) {
+      st_async(peer + s * 128 * 16, acc[4 * s], acc[4 * s + 1], acc[4 * s + 2], acc[4 * s + 3],
+               peer_xfull);
+    }
+    if (t_out != nullptr) {
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long r = row + 8 * h;
+          const int col = N0 + 8 * j + 2 * t4;
+          if (r < n_rows && col < c) store_pair(t_out + r * c + col, acc[4 * j + 2 * h],
+                                                acc[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+
+    // 4. u over the 16 k-steps of 8 channels, a fragment set a k-step
+#pragma unroll
+    for (int v = 0; v < NB / 2; ++v) {
+      u[v] = 0.0f;
+      fence_operand(u[v]);
+    }
+    uint32_t a_hi[MIX_FRAGS][4], a_lo[MIX_FRAGS][4];
+#pragma unroll
+    for (int ks = 0; ks < 16; ++ks) {
+      const bool own = ks / 8 == RANK;
+      // the products that read this set are done
+      if (ks >= MIX_FRAGS) wgmma_wait<MIX_FRAGS - 1>();
+      // fragment register q: row ra + 8 (q & 1), channel 8 ks + 2 t4 + (q >> 1)
+      float a[4];
+      if (own) {
+        const int s = ks % 8;
+        a[0] = acc[4 * s];
+        a[1] = acc[4 * s + 2];
+        a[2] = acc[4 * s + 1];
+        a[3] = acc[4 * s + 3];
+      } else {
+        if (ks % 8 == 0) mbar_wait_cluster(xfull_bar, k & 1);
+        const float4 f = *reinterpret_cast<const float4*>(mine + (ks % 8) * 128 * 16);
+        a[0] = f.x;
+        a[1] = f.z;
+        a[2] = f.y;
+        a[3] = f.w;
+      }
+      uint32_t* hi = a_hi[ks % MIX_FRAGS];
+      uint32_t* lo = a_lo[ks % MIX_FRAGS];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        hi[q] = tf32_rna(a[q]);
+        lo[q] = tf32_rna(a[q] - __uint_as_float(hi[q]));
+      }
+      wgmma_fence();
+      const uint32_t off = (ks / 4) * (NB * BOX_BYTES) + (ks % 4) * 32;
+      Mma<NB>::tf32(u, lo, desc_b128(q_hi + off));
+      Mma<NB>::tf32(u, hi, desc_b128(q_lo + off));
+      Mma<NB>::tf32(u, hi, desc_b128(q_hi + off));
+      wgmma_commit();
+      if (!own && ks % 8 == 7) {
+        // every value of the partner's t is in a fragment: its buffer is free
+        __syncwarp();
+        if (lane == 0) mbar_arrive_remote(xfree_bar, PARTNER);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int v = 0; v < NB / 2; ++v) fence_operand(u[v]);
+
+    // 5. dx, as the mix launch's epilogue computes it
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long r = row + 8 * h;
+        const int col = N0 + 8 * j + 2 * t4;
+        if (r < n_rows && col < c) {
+          const int v = 4 * j + 2 * h;
+          const float2 xv = x_pair(xs, j, h);
+          const float s = INVERSE ? 1.0f : -1.0f;
+          store_pair(dx + r * c + col, d1[v] + s * xv.x * u[v], d1[v + 1] + s * xv.y * u[v + 1]);
+        }
+      }
+    }
+  }
+  // the partner's last arrival on "xfree" has landed: nothing reaches this
+  // block once it exits
+  if (k > 0) mbar_wait_cluster(xfree_bar, (k - 1) & 1);
+}
+
+// Launches 1 and 2 fused at CP = 128 (C from 65 to 128): x through x_map
+// (boxes of Wide<T, 128, WIDE_BACKWARD>'s 128 tile rows), g and dx (n_rows,
+// c) in x's type; t (n_rows, c) float32 written only where it is not null
+// (the dgamma/dbeta stage reads it). The shared-memory layout of
+// Wide<T, 128, WIDE_BACKWARD>: P planes (hi, lo), Q planes (hi, lo), the
+// ring, the exchange buffers (a consumer's 16 KB), beta, the ring's and the
+// exchange's mbarriers.
+template <typename T, bool INVERSE>
+__global__ void __launch_bounds__(Wide<T, 128, WIDE_BACKWARD>::THREADS, 1)
+gdn_bwd_fused_kernel(const __grid_constant__ CUtensorMap x_map, const T* __restrict__ g,
+                     const float* __restrict__ gamma, const float* __restrict__ beta,
+                     float* __restrict__ t, T* __restrict__ dx, int n_rows, int c) {
+  using W = Wide<T, 128, WIDE_BACKWARD>;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle is keyed to address bits 7-9: align the boxes to 1024 bytes
+  // (the same offset in every block of the cluster, as multicast needs)
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* p_hi = smem;
+  uint8_t* p_lo = p_hi + W::PLANE_BYTES;
+  uint8_t* q_hi = p_lo + W::PLANE_BYTES;
+  uint8_t* q_lo = q_hi + W::Q_PLANE_BYTES;
+  uint8_t* ring = q_lo + W::Q_PLANE_BYTES;
+  uint8_t* xch = ring + W::STAGES * W::BOX;
+  float* beta_s = reinterpret_cast<float*>(xch + W::XCH_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(beta_s + W::NB);
+  uint64_t* empty = full + W::STAGES;  // used in rank 0 alone
+  uint64_t* xfull = empty + W::STAGES;
+  uint64_t* xfree = xfull + W::CONSUMERS;
+
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int n0 = rank * W::NB;
+  const int tile0 = static_cast<int>(cluster_id_x());
+  const int tile_step = static_cast<int>(cluster_count_x());
+  const int tiles = (n_rows - 1) / W::TILE_ROWS + 1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W::STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), W::RELEASES);
+    }
+    for (int w = 0; w < W::CONSUMERS; ++w) {
+      mbar_init(smem_u32(&xfull[w]), 1);  // the owner's expect_tx, then the partner's bytes
+      mbar_init(smem_u32(&xfree[w]), 4);  // the partner consumer's warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every block's barriers exist before any box, store or remote arrival reaches them
+  cluster_sync();
+
+  if (threadIdx.x >= 128 * W::CONSUMERS) {
+    setmaxnreg_dec<W::PRODUCER_REGS>();
+    if (threadIdx.x == 128 * W::CONSUMERS) {
+      wide_produce<W>(&x_map, ring, full, empty, rank, tile0, tile_step, tiles);
+    }
+  } else {
+    setmaxnreg_inc<W::CONSUMER_REGS>();
+    // both layouts of gamma while the first boxes are in flight
+    wide_gamma<W, 128 * W::CONSUMERS>(threadIdx.x, p_hi, p_lo, beta_s, gamma, beta, n0, c);
+    wide_gamma<FusedQ, 128 * W::CONSUMERS>(threadIdx.x, q_hi, q_lo, nullptr, gamma, nullptr, n0,
+                                           c);
+    fence_async_smem();
+    named_bar_sync(1, 128 * W::CONSUMERS);
+    if (rank == 0) {
+      fused_consume<T, INVERSE, 0>(ring, full, smem_u32(&empty[0]), smem_u32(p_hi),
+                                   smem_u32(p_lo), smem_u32(q_hi), smem_u32(q_lo), beta_s, xch,
+                                   xfull, xfree, g, t, dx, n_rows, c, tile0, tile_step, tiles);
+    } else {
+      fused_consume<T, INVERSE, 1>(ring, full, smem_u32(&empty[0]), smem_u32(p_hi),
+                                   smem_u32(p_lo), smem_u32(q_hi), smem_u32(q_lo), beta_s, xch,
+                                   xfull, xfree, g, t, dx, n_rows, c, tile0, tile_step, tiles);
+    }
+  }
 }
 
 // Launch 3's blocks: a block owns a BM x BN tile of dgamma (inputs i0 ..,
@@ -724,8 +1024,9 @@ gdn_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ dgamma
 }
 
 // The launches' arguments: x and t in boxes of the rows launches' tile rows
-// (64 at C <= 128, the cluster loop's at 192 and 256) and in PROWS-row
-// boxes (the partials launch).
+// (64 at C <= 64, the cluster loop's at 128, 192 and 256) and in PROWS-row
+// boxes (the partials launch). At CP = 128 t is null without the
+// dgamma/dbeta stage, and there is no d1 and no t_map.
 template <typename T>
 struct RowsArgs {
   CUtensorMap x_map, t_map, xp_map, tp_map;
@@ -739,28 +1040,34 @@ struct RowsArgs {
   int n, c;
 };
 
-// Launches 1 and 2: persistent blocks at CP <= 128, clusters at 192 and 256.
+// Launches 1 and 2: persistent blocks at CP = 64, the fused cluster launch
+// at 128, clusters at 192 and 256.
 template <typename T, int CP, bool INVERSE>
 cudaError_t launch_rows(const RowsArgs<T>& a, cudaStream_t stream) {
-  const float* d1 = a.d1;
-  cudaError_t err;
-  if constexpr (CP <= 128) {
+  if constexpr (CP == 128) {
+    static int fused_clusters[MAX_DEVICES] = {};
+    return launch_clusters<Wide<T, 128, WIDE_BACKWARD>>(gdn_bwd_fused_kernel<T, INVERSE>,
+                                                        fused_clusters, a.n, stream, a.x_map,
+                                                        a.g, a.gamma, a.beta, a.t, a.dx, a.n,
+                                                        a.c);
+  } else if constexpr (CP == 64) {
     static int norm_sms[MAX_DEVICES] = {}, mix_sms[MAX_DEVICES] = {};
-    err = launch_persistent<Cfg<T, CP>>(gdn_bwd_norm_kernel<T, CP, INVERSE>, norm_sms, a.n,
-                                        stream, a.x_map, a.g, a.gamma, a.beta, a.t, a.d1, a.n,
-                                        a.c);
+    const cudaError_t err = launch_persistent<Cfg<T, CP>>(
+        gdn_bwd_norm_kernel<T, CP, INVERSE>, norm_sms, a.n, stream, a.x_map, a.g, a.gamma,
+        a.beta, a.t, a.d1, a.n, a.c);
     if (err != cudaSuccess) return err;
     return launch_persistent<Cfg<float, CP>>(gdn_bwd_mix_kernel<T, CP, INVERSE>, mix_sms, a.n,
-                                             stream, a.t_map, a.x, a.gamma, d1, a.dx, a.n, a.c);
+                                             stream, a.t_map, a.x, a.gamma, a.d1, a.dx, a.n,
+                                             a.c);
   } else {
     static int norm_clusters[MAX_DEVICES] = {}, mix_clusters[MAX_DEVICES] = {};
-    err = launch_clusters<Wide<T, CP, WIDE_NORM>>(gdn_bwd_norm_kernel_cluster<T, CP, INVERSE>,
-                                                  norm_clusters, a.n, stream, a.x_map, a.g,
-                                                  a.gamma, a.beta, a.t, a.d1, a.n, a.c);
+    const cudaError_t err = launch_clusters<Wide<T, CP, WIDE_NORM>>(
+        gdn_bwd_norm_kernel_cluster<T, CP, INVERSE>, norm_clusters, a.n, stream, a.x_map, a.g,
+        a.gamma, a.beta, a.t, a.d1, a.n, a.c);
     if (err != cudaSuccess) return err;
     return launch_clusters<Wide<float, CP, WIDE_MIX>>(
         gdn_bwd_mix_kernel_cluster<T, CP, INVERSE>, mix_clusters, a.n, stream, a.t_map, a.x,
-        a.gamma, d1, a.dx, a.n, a.c);
+        a.gamma, a.d1, a.dx, a.n, a.c);
   }
 }
 
@@ -824,17 +1131,25 @@ int run(const void* x, const void* g, const void* gamma, const void* beta, void*
   a.gamma = static_cast<const float*>(gamma);
   a.beta = static_cast<const float*>(beta);
   a.dx = static_cast<T*>(dx);
-  a.t = static_cast<float*>(scratch);
   const bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
-  a.d1 = is_bf16 ? a.t + n * c : static_cast<float*>(dx);
-  float* part = a.t + n * c * (is_bf16 ? 2 : 1);
+  const bool fused = (c + 63) / 64 == 2;  // CP = 128
+  // the scratch: t (at CP = 128 only with dgamma), for bfloat16 rows at
+  // the other widths d1, then the partials
+  a.t = fused && dgamma == nullptr ? nullptr : static_cast<float*>(scratch);
+  a.d1 = fused ? nullptr : is_bf16 ? a.t + n * c : static_cast<float*>(dx);
+  float* part = scratch == nullptr ? nullptr
+                                  : static_cast<float*>(scratch) +
+                                        n * c * (fused ? 1 : is_bf16 ? 2 : 1);
   a.n = static_cast<int>(n);
   a.c = c;
   const bool wide = c > 128;
-  const int x_rows = wide ? wide_tile_rows(is_bf16 ? 2 : 4, c, WIDE_NORM) : ROWS;
+  const int esz = is_bf16 ? 2 : 4;
+  const int x_rows = fused  ? wide_tile_rows(esz, c, WIDE_BACKWARD)
+                     : wide ? wide_tile_rows(esz, c, WIDE_NORM)
+                            : ROWS;
   const int t_rows = wide ? wide_tile_rows(4, c, WIDE_MIX) : ROWS;
   if (!make_map(&a.x_map, const_cast<void*>(x), n, c, is_bf16, x_rows) ||
-      !make_map(&a.t_map, a.t, n, c, false, t_rows) ||
+      (!fused && !make_map(&a.t_map, a.t, n, c, false, t_rows)) ||
       (dgamma != nullptr && (!make_map(&a.xp_map, const_cast<void*>(x), n, c, is_bf16, PROWS) ||
                              !make_map(&a.tp_map, a.t, n, c, false, PROWS)))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -850,16 +1165,20 @@ int run(const void* x, const void* g, const void* gamma, const void* beta, void*
 // 1), dx in x's type, 16-byte aligned, with c * sizeof(x) a multiple of 16
 // (the wrapper pads other widths); gamma (c, c) [in -> out] and beta (c,)
 // float32, already reparametrized; dgamma (c, c) and dbeta (c,) float32 out.
-// scratch: 16-byte aligned float32, t (n, c), then for bfloat16 d1 (n, c),
-// then the partials (chunks * c * c + chunks * c), with chunks =
-// ceil(n / chunk_rows). dgamma and dbeta null (both) skip the dgamma/dbeta
-// stage, launches 3 and 4, and the scratch then ends after t (and d1).
-// Launches four kernels (two without dgamma) on `stream` and returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue without
-// launching when n < 1, n >= 2^31 - 64, c < 1, c > 256, the row stride or an
-// alignment does not suit TMA, chunk_rows is not a positive multiple of
-// 32 (launch 3's row tiles), chunks is not ceil(n / chunk_rows) or exceeds
-// 65,535, or the CUDA library gives no tensor-map encoder.
+// scratch: 16-byte aligned float32. From 65 to 128 channels (the fused
+// launch, which keeps t and d1 in registers): t (n, c) and then the
+// partials (chunks * c * c + chunks * c, chunks = ceil(n / chunk_rows))
+// with dgamma, and nothing (scratch may be null) without it. At the other
+// widths: t (n, c), then for bfloat16 d1 (n, c), then the partials with
+// dgamma. dgamma and dbeta null (both) skip the dgamma/dbeta stage,
+// launches 3 and 4.
+// Launches four kernels (two without dgamma; one fewer from 65 to 128
+// channels) on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue without launching when n < 1, n >= 2^31 - 64, c <
+// 1, c > 256, the row stride or an alignment does not suit TMA, chunk_rows
+// is not a positive multiple of 32 (launch 3's row tiles), chunks is not
+// ceil(n / chunk_rows) or exceeds 65,535, scratch is null where it must
+// hold t, or the CUDA library gives no tensor-map encoder.
 extern "C" int gdn_backward(const void* x, const void* g, const void* gamma, const void* beta,
                             void* dx, void* dgamma, void* dbeta, void* scratch, long long n,
                             int c, int chunk_rows, int chunks, int inverse, int is_bf16,
@@ -870,6 +1189,7 @@ extern "C" int gdn_backward(const void* x, const void* g, const void* gamma, con
       misaligned(x) || misaligned(g) || misaligned(dx) || misaligned(scratch) ||
       chunk_rows < 1 || chunk_rows % PROWS != 0 || chunks > 65535 ||
       (dgamma == nullptr) != (dbeta == nullptr) ||
+      (scratch == nullptr && (dgamma != nullptr || (c + 63) / 64 != 2)) ||
       static_cast<long long>(chunks) != (n + chunk_rows - 1) / chunk_rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

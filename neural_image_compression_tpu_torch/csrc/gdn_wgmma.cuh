@@ -4,11 +4,13 @@
 // an (N, C) x (C, C) channel mix of 64-row tiles with gamma resident in
 // shared memory, on Hopper's wgmma with TMA-fed tiles (sm_90a).
 //
-// Which widths it serves: C <= 128 (CP 64 and 128), the forward and the
-// backward's norm and mix launches. At CP = 192 and 256 all three run the
-// loop of csrc/gdn_wide.cuh instead: there gamma of every output channel
-// does not fit in one block beside a ring of row tiles, so a cluster of
-// blocks holds it in slices and shares each tile's loads.
+// Which widths it serves: the forward at C <= 128 (CP 64 and 128) and the
+// backward's norm and mix launches at C <= 64. At CP = 192 and 256 all
+// three run the loop of csrc/gdn_wide.cuh instead: there gamma of every
+// output channel does not fit in one block beside a ring of row tiles, so a
+// cluster of blocks holds it in slices and shares each tile's loads. The
+// backward at CP = 128 runs one fused launch on that loop as well
+// (csrc/gdn_bwd_kernel.cu says why).
 //
 //   - Persistent blocks, one per SM, each walking 64-row tiles and
 //     computing every output channel of them, so the rows are read from
@@ -36,8 +38,8 @@
 // Two layouts of gamma (C_in, C_out) as B, row o of the plane holding the
 // product's inputs k: P, gamma[k][o], for the norm n = (x*x) . gamma; Q,
 // gamma[o][k], for u = t . gamma^T. TF32 wgmma reads shared-memory operands
-// only K-major, so a kernel holds one of the two; the backward's two
-// products are two launches.
+// only K-major, so a kernel on this loop holds one of the two; the
+// backward's two products are two launches here.
 
 #pragma once
 

@@ -1,11 +1,17 @@
-// The GDN / IGDN channel mix at the wide widths, CP = 192 and 256 (C from
-// 129 to 256): a thread-block cluster per group of row tiles, on Hopper's
-// wgmma with TMA-fed tiles (sm_90a). Three launches run on it, each with an
-// epilogue of its own (`Wide`'s LAUNCH): the forward (csrc/gdn_kernel.cu,
-// out = x * rsqrt(beta + (x*x) . gamma)), and the backward's norm and mix
-// (csrc/gdn_bwd_kernel.cu: the same product, its epilogue writing t and
-// d1; u = t . gamma^T over float32 t, its epilogue writing dx). The
-// narrower widths run csrc/gdn_wgmma.cuh's mix_rows.
+// The GDN / IGDN channel mix on a thread-block cluster per group of row
+// tiles, on Hopper's wgmma with TMA-fed tiles (sm_90a). Four launches run
+// on it (`Wide`'s LAUNCH). At the wide widths, CP = 192 and 256 (C from
+// 129 to 256): the forward (csrc/gdn_kernel.cu, out = x * rsqrt(beta +
+// (x*x) . gamma)), and the backward's norm and mix (csrc/gdn_bwd_kernel.cu:
+// the same product, its epilogue writing t and d1; u = t . gamma^T over
+// float32 t, its epilogue writing dx), each with an epilogue of its own. At
+// CP = 128 (C from 65 to 128) the backward's fused launch
+// (WIDE_BACKWARD, csrc/gdn_bwd_kernel.cu's gdn_bwd_fused_kernel): the
+// norm's product over this loop's ring, then t and d1 in registers, t
+// exchanged between the cluster's two blocks, and the mix's product from
+// registers, so t and d1 never go through device memory. The forward at
+// C <= 128, and the backward's launches at C <= 64, run
+// csrc/gdn_wgmma.cuh's mix_rows.
 //
 // Why a loop of its own: gamma's hi and lo planes take 2 * C * C * sizeof
 // (float32: 288 KB at C = 192, 512 KB at 256; bfloat16 half that), more
@@ -101,12 +107,16 @@ constexpr int WIDE_MIN_RING = 64 * 1024;  // bytes of x the ring holds at least
 
 // The launches on the loop, each with its epilogue: the forward, the
 // backward's norm (the forward's product; t and d1 out) and its mix (u =
-// t . gamma^T over float32 t tiles; dx out).
-enum WideLaunch { WIDE_FORWARD, WIDE_NORM, WIDE_MIX };
+// t . gamma^T over float32 t tiles; dx out); and the backward's fused
+// launch at CP = 128 (both products, t exchanged within the cluster; dx,
+// and t where the dgamma/dbeta stage reads it, out).
+enum WideLaunch { WIDE_FORWARD, WIDE_NORM, WIDE_MIX, WIDE_BACKWARD };
 
 // Blocks per cluster: the fewest whose gamma slices (hi and lo planes) fit
 // beside a ring of at least 64 KB. esz: the ring's element size (4 for the
-// mix, whose tiles are float32 t).
+// mix, whose tiles are float32 t). The fused launch at CP = 128: two, each
+// holding both layouts of its 64 channels (P and Q planes, 4 x 32 KB for
+// float32 x), which one block cannot hold for all 128 beside a ring.
 constexpr int wide_cluster_of(int esz, int cp) { return esz == 4 && cp == 256 ? 4 : 2; }
 // Consumer warpgroups a block, each taking 64 rows of a tile. The forward:
 // three (the wgmma of one hides behind another's: float32 256 takes a
@@ -123,8 +133,13 @@ constexpr int wide_consumers_of(int esz, int cp, int launch) {
 // set's while the products of this one run; the forward keeps one where
 // its accumulator and x leave no room for two in the 128 registers ptxas
 // gives a thread of a 512-thread kernel (float32 192: 48 + 48, bfloat16
-// 256: 64 + 32), and its three consumers overlap each other instead.
+// 256: 64 + 32), and its three consumers overlap each other instead. The
+// fused launch keeps three, two sets' products in flight while it builds
+// the third's (2-3.5% faster than two at 98,304 and 262,144 rows of C = 128
+// on an H100 80GB HBM3 at 700 W, with no spills in its 168 registers a
+// thread).
 constexpr int wide_fragment_sets_of(int esz, int cp, int launch) {
+  if (launch == WIDE_BACKWARD) return 3;
   return launch == WIDE_FORWARD && ((esz == 4 && cp == 192) || (esz == 2 && cp == 256)) ? 1
                                                                                         : 2;
 }
@@ -142,13 +157,18 @@ constexpr int wide_tile_rows(int esz, int c, int launch) {
   return ROWS * wide_consumers_of(esz, (c + 63) / 64 * 64, launch);
 }
 
-// T: the ring's type (x's; float32 t for the mix); CP: C padded to 192 or 256.
+// T: the ring's type (x's; float32 t for the mix); CP: C padded to 192 or
+// 256 (128 for the fused launch).
 template <typename T, int CP_, int LAUNCH = WIDE_FORWARD>
 struct Wide {
   using Elem = T;
   static constexpr int CP = CP_;
   static constexpr bool MIX = LAUNCH == WIDE_MIX;  // Q planes, the tiles not squared
+  static constexpr bool FUSED = LAUNCH == WIDE_BACKWARD;  // P and Q planes, t exchanged
   static constexpr int ESZ = sizeof(T);
+  // gamma's P planes of float32 x hold each k-step's channels in x's pair
+  // order (wide_slot_channel)
+  static constexpr bool PAIR_SLOTS = ESZ == 4 && !MIX;
   static constexpr int COLS = BOX_BYTES / ESZ;           // channels per box: 32 or 64
   static constexpr int BOXES = CP / COLS;                // K blocks per tile
   static constexpr int KSTEPS = 4;                       // wgmma k-steps (32 bytes) per box
@@ -169,12 +189,24 @@ struct Wide {
   static constexpr int FRAGS = wide_fragment_sets_of(ESZ, CP, LAUNCH);
   static constexpr int FRAG_STEPS = wide_fragment_steps_of(ESZ, CP, LAUNCH);
   static constexpr int PLANE_BYTES = NB * CP * ESZ;      // one gamma plane
-  static constexpr int STAGES = (SMEM_LIMIT - SMEM_RESERVE - 2 * PLANE_BYTES) / BOX;
+  // the fused launch's Q planes (TF32 hi and lo, whatever x's type: the
+  // mix's operand is float32 t) and its exchange buffers: a consumer's t
+  // for the partner, one float32 value a thread for each of its NB / 2
+  // accumulator elements
+  static constexpr int Q_PLANE_BYTES = FUSED ? NB * CP * 4 : 0;
+  static constexpr int XCH_WG_BYTES = FUSED ? 128 * (NB / 2) * 4 : 0;
+  static constexpr int XCH_BYTES = CONSUMERS * XCH_WG_BYTES;
+  static constexpr int STAGES =
+      (SMEM_LIMIT - SMEM_RESERVE - 2 * PLANE_BYTES - 2 * Q_PLANE_BYTES - XCH_BYTES) / BOX;
   // each consumer warp of each block releases every stage
   static constexpr int RELEASES = 4 * CONSUMERS * S;
-  static constexpr int SMEM = 1024 + 2 * PLANE_BYTES + STAGES * BOX + NB * 4 +
-                              2 * STAGES * 8;
-  static_assert(CP == 192 || CP == 256, "the wide loop serves CP 192 and 256");
+  // the fused launch's exchange barriers: "xfull" and "xfree" a consumer
+  static constexpr int XBARS = FUSED ? 2 * CONSUMERS : 0;
+  static constexpr int SMEM = 1024 + 2 * PLANE_BYTES + 2 * Q_PLANE_BYTES + XCH_BYTES +
+                              STAGES * BOX + NB * 4 + (2 * STAGES + XBARS) * 8;
+  static_assert(FUSED ? CP == 128 : (CP == 192 || CP == 256),
+                "the wide loop serves CP 192 and 256, the fused launch CP 128");
+  static_assert(!FUSED || (S == 2 && NB == 64), "the fused launch: two blocks of 64 channels");
   static_assert(!MIX || ESZ == 4, "the mix's tiles are float32 t");
   static_assert(S >= 2 && CP % S == 0 && NB % (ESZ == 4 ? 16 : 32) == 0 && NB <= 128,
                 "S; NB: a wgmma N, whole 16-byte pieces of the epilogue's quads");
@@ -228,6 +260,18 @@ static_assert(Wide<float, 256, WIDE_MIX>::S == 4 && Wide<float, 256, WIDE_MIX>::
               Wide<float, 256, WIDE_MIX>::CONSUMERS == 2 &&
               Wide<float, 256, WIDE_MIX>::STAGES == 6 &&
               Wide<float, 256, WIDE_MIX>::SMEM == 230752, "mix 256");
+// and the backward's fused launch at CP = 128 (P planes in x's type, Q
+// planes TF32, the exchange buffers: float32 x leaves one tile of ring)
+static_assert(Wide<float, 128, WIDE_BACKWARD>::S == 2 &&
+              Wide<float, 128, WIDE_BACKWARD>::NB == 64 &&
+              Wide<float, 128, WIDE_BACKWARD>::CONSUMERS == 2 &&
+              Wide<float, 128, WIDE_BACKWARD>::STAGES == 4 &&
+              Wide<float, 128, WIDE_BACKWARD>::SMEM == 230752, "backward f32 128");
+static_assert(Wide<__nv_bfloat16, 128, WIDE_BACKWARD>::S == 2 &&
+              Wide<__nv_bfloat16, 128, WIDE_BACKWARD>::NB == 64 &&
+              Wide<__nv_bfloat16, 128, WIDE_BACKWARD>::CONSUMERS == 2 &&
+              Wide<__nv_bfloat16, 128, WIDE_BACKWARD>::STAGES == 6 &&
+              Wide<__nv_bfloat16, 128, WIDE_BACKWARD>::SMEM == 230784, "backward bf16 128");
 
 // --- cluster PTX ----------------------------------------------------------------
 
@@ -274,6 +318,22 @@ __device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, uint32_t rank) 
       "mapa.shared::cluster.u32 remote, %0, %1;\n"
       "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
       :: "r"(bar), "r"(rank) : "memory");
+}
+// The address of `addr` (this block's shared memory) in the block of rank
+// `rank`, in the cluster's shared memory window.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+// 16 bytes into another block's shared memory (`remote`, from mapa), their
+// arrival counted in bytes on that block's mbarrier `remote_bar` (which its
+// owner armed with mbar_expect_tx): no fence and no arrival of the writer's.
+__device__ __forceinline__ void st_async(uint32_t remote, float a, float b, float c, float d,
+                                         uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" :: "r"(remote), "f"(a), "f"(b), "f"(c), "f"(d), "r"(remote_bar) : "memory");
 }
 // mbar_wait for a barrier that other blocks' threads arrive on.
 __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
@@ -389,11 +449,12 @@ __device__ __forceinline__ void split_store_chunk(__nv_bfloat16, uint8_t* hi, ui
 }
 
 // The input channel that k slot s of gamma's planes holds: the float32 P
-// planes (the forward's and the norm's) in load_step's order within each
-// k-step of 8, every other plane in channel order.
+// planes (the forward's and the norm's) and the fused launch's Q planes
+// (PAIR_SLOTS) in load_step's order within each k-step of 8, every other
+// plane in channel order.
 template <typename W>
 __device__ __forceinline__ int wide_slot_channel(int s) {
-  if constexpr (W::ESZ == 4 && !W::MIX) {
+  if constexpr (W::PAIR_SLOTS) {
     return (s & ~7) | ((s & 3) << 1) | ((s >> 2) & 1);
   } else {
     return s;
@@ -535,6 +596,71 @@ struct WideForwardOut {
   }
 };
 
+// The x values a consumer keeps for its epilogue (load_step's xs):
+// float32 values or bf16 pairs in the accumulator's layout, none for the mix.
+template <typename W>
+using WideXReg = typename std::conditional<W::ESZ == 4, float, uint32_t>::type;
+template <typename W>
+__host__ __device__ constexpr int wide_xregs() {
+  return W::MIX ? 1 : W::ESZ == 4 ? W::NB / 2 : W::NB / 4;
+}
+
+// One tile's acc = A . B over the ring, box by box (A: the tile squared, or
+// as it is for the mix, from load_step; B: gamma's planes at hi_base,
+// lo_base), each box released to rank 0's "empty" once the products that
+// read it are issued; stage and phase walk the ring. Leaves the products in
+// flight: the caller waits for them.
+template <typename W, int N0>
+__device__ __forceinline__ void wide_products(const uint8_t* ring, const uint64_t* full,
+                                              uint32_t empty0, uint32_t hi_base,
+                                              uint32_t lo_base, int ra, int t4, float* acc,
+                                              WideXReg<W>* xs, int& stage, uint32_t& phase) {
+  using T = typename W::Elem;
+  const int wg = threadIdx.x / 128;
+  uint32_t a_hi[W::FRAGS][4 * W::FRAG_STEPS], a_lo[W::FRAGS][4 * W::FRAG_STEPS];
+#pragma unroll
+  for (int v = 0; v < W::NB / 2; ++v) {
+    acc[v] = 0.0f;
+    fence_operand(acc[v]);
+  }
+#pragma unroll
+  for (int kc = 0; kc < W::BOXES; ++kc) {
+    mbar_wait(smem_u32(&full[stage]), phase);
+    const uint8_t* box = ring + stage * W::BOX + wg * BOX_TILE_BYTES;
+    // the box's k-steps in groups of FRAG_STEPS, one commit a group
+#pragma unroll
+    for (int k0 = 0; k0 < W::KSTEPS; k0 += W::FRAG_STEPS) {
+      const int u = (kc * W::KSTEPS + k0) / W::FRAG_STEPS;  // the tile's group
+      // the products that read this fragment set are done
+      if (u >= W::FRAGS) wgmma_wait<W::FRAGS - 1>();
+      uint32_t* hi = a_hi[u % W::FRAGS];
+      uint32_t* lo = a_lo[u % W::FRAGS];
+#pragma unroll
+      for (int ks = 0; ks < W::FRAG_STEPS; ++ks) {
+        load_step<W, N0>(box, kc, k0 + ks, ra, t4, hi + 4 * ks, lo + 4 * ks, xs);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < W::FRAG_STEPS; ++ks) {
+        const uint32_t off = kc * (W::NB * BOX_BYTES) + (k0 + ks) * 32;
+        const uint64_t b_hi = desc_b128(hi_base + off), b_lo = desc_b128(lo_base + off);
+        mma<T, W::NB>(acc, lo + 4 * ks, b_hi);
+        mma<T, W::NB>(acc, hi + 4 * ks, b_lo);
+        mma<T, W::NB>(acc, hi + 4 * ks, b_hi);
+      }
+      wgmma_commit();
+    }
+    // the products' issue has waited for each lane's loads of the box:
+    // the warp is done with it, one arrival on rank 0's "empty"
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive_remote(empty0 + 8 * stage, 0);
+    if (++stage == W::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
 // The consumer warpgroups of the block of rank RANK: each takes 64 rows of
 // every tile of the cluster, whose box i sits in stage i % STAGES. For each
 // tile, epi.prefetch<NB, N0>(row, t4, n_rows) (the epilogue's operands in
@@ -551,68 +677,20 @@ __device__ __forceinline__ void wide_consume(const uint8_t* ring, const uint64_t
                                              uint32_t lo_base, const float* beta_s,
                                              const Epilogue& epi, int n_rows, int tile0,
                                              int tile_step, int tiles) {
-  using T = typename W::Elem;
   constexpr int N0 = RANK * W::NB;
-  using XReg = typename std::conditional<W::ESZ == 4, float, uint32_t>::type;
-  constexpr int XREGS = W::MIX ? 1 : W::ESZ == 4 ? W::NB / 2 : W::NB / 4;
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
   const int ra = ((threadIdx.x / 32) % 4) * 16 + lane / 4;  // rows ra and ra + 8
   const int t4 = lane % 4;
   float acc[W::NB / 2];
-  XReg xs[XREGS];
-  uint32_t a_hi[W::FRAGS][4 * W::FRAG_STEPS], a_lo[W::FRAGS][4 * W::FRAG_STEPS];
+  WideXReg<W> xs[wide_xregs<W>()];
   int stage = 0;
   uint32_t phase = 0;
 
   for (int tile = tile0; tile < tiles; tile += tile_step) {
     const long long row = static_cast<long long>(tile) * W::TILE_ROWS + wg * ROWS + ra;
     epi.template prefetch<W::NB, N0>(row, t4, n_rows);
-#pragma unroll
-    for (int v = 0; v < W::NB / 2; ++v) {
-      acc[v] = 0.0f;
-      fence_operand(acc[v]);
-    }
-#pragma unroll
-    for (int kc = 0; kc < W::BOXES; ++kc) {
-      mbar_wait(smem_u32(&full[stage]), phase);
-      const uint8_t* box = ring + stage * W::BOX + wg * BOX_TILE_BYTES;
-      // the box's k-steps in groups of FRAG_STEPS, one commit a group
-#pragma unroll
-      for (int k0 = 0; k0 < W::KSTEPS; k0 += W::FRAG_STEPS) {
-        const int u = (kc * W::KSTEPS + k0) / W::FRAG_STEPS;  // the tile's group
-        // the products that read this fragment set are done
-        if constexpr (W::FRAGS == 2) {
-          if (u >= 2) wgmma_wait<1>();
-        } else {
-          if (u >= 1) wgmma_wait<0>();
-        }
-        uint32_t* hi = a_hi[u % W::FRAGS];
-        uint32_t* lo = a_lo[u % W::FRAGS];
-#pragma unroll
-        for (int ks = 0; ks < W::FRAG_STEPS; ++ks) {
-          load_step<W, N0>(box, kc, k0 + ks, ra, t4, hi + 4 * ks, lo + 4 * ks, xs);
-        }
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < W::FRAG_STEPS; ++ks) {
-          const uint32_t off = kc * (W::NB * BOX_BYTES) + (k0 + ks) * 32;
-          const uint64_t b_hi = desc_b128(hi_base + off), b_lo = desc_b128(lo_base + off);
-          mma<T, W::NB>(acc, lo + 4 * ks, b_hi);
-          mma<T, W::NB>(acc, hi + 4 * ks, b_lo);
-          mma<T, W::NB>(acc, hi + 4 * ks, b_hi);
-        }
-        wgmma_commit();
-      }
-      // the products' issue has waited for each lane's loads of the box:
-      // the warp is done with it, one arrival on rank 0's "empty"
-      __syncwarp();
-      if (lane == 0) mbar_arrive_remote(empty0 + 8 * stage, 0);
-      if (++stage == W::STAGES) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
+    wide_products<W, N0>(ring, full, empty0, hi_base, lo_base, ra, t4, acc, xs, stage, phase);
     wgmma_wait<0>();
 #pragma unroll
     for (int v = 0; v < W::NB / 2; ++v) fence_operand(acc[v]);
@@ -692,8 +770,54 @@ __device__ __forceinline__ void wide_gamma(int first, uint8_t* g_hi, uint8_t* g_
   }
 }
 
-// The body of every launch on the loop, over the rows of in_map (n_rows x
-// c, W's type, boxes of a tile's rows x 128 bytes): the barriers, then the
+// The producer warpgroup's one working thread: it arms this block's "full"
+// barrier for each box; in rank 0 it also waits until every block released
+// the stage and sends the box to all of them (rows of in_map, W's type,
+// boxes of a tile's rows x 128 bytes).
+template <typename W>
+__device__ __forceinline__ void wide_produce(const CUtensorMap* in_map, const uint8_t* ring,
+                                             uint64_t* full, uint64_t* empty, int rank,
+                                             int tile0, int tile_step, int tiles) {
+  const uint32_t ring_u32 = smem_u32(ring);
+  const uint16_t mask = static_cast<uint16_t>((1u << W::S) - 1);
+  int stage = 0, i = 0;
+  uint32_t phase = 0;
+  for (int tile = tile0; tile < tiles; tile += tile_step) {
+    for (int kc = 0; kc < W::BOXES; ++kc, ++i) {
+      const uint32_t full_s = smem_u32(&full[stage]);
+      if (rank == 0) {
+        if (i >= W::STAGES) mbar_wait_cluster(smem_u32(&empty[stage]), phase ^ 1);
+        mbar_expect_tx(full_s, W::BOX);
+        const uint32_t dst = ring_u32 + stage * W::BOX;
+        tma_load_multicast(dst, in_map, full_s, kc * W::COLS, tile * W::TILE_ROWS, mask);
+      } else {
+        // the stage's previous box has landed here (so this arrival
+        // opens the next phase); its bytes may come before or after it
+        if (i >= W::STAGES) mbar_wait(full_s, phase ^ 1);
+        mbar_expect_tx(full_s, W::BOX);
+      }
+      if (++stage == W::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+  if (rank == 0) {
+    // the last releases of every stage: no block's warp still arrives here
+    for (int k = 0; k < W::STAGES; ++k, ++i) {
+      if (i >= W::STAGES) mbar_wait_cluster(smem_u32(&empty[stage]), phase ^ 1);
+      if (++stage == W::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// The body of every launch on the loop but the fused one (whose body,
+// gdn_bwd_fused_kernel, has exchange buffers and a consumer loop of its
+// own), over the rows of in_map (n_rows x c, W's type, boxes of a tile's
+// rows x 128 bytes): the barriers, then the
 // producer warpgroup, which starts filling the ring at once, and the
 // consumers, which meanwhile put gamma's planes of the block's output
 // channels (P, or Q for the mix) and, but for the mix, beta's into shared
@@ -732,45 +856,9 @@ __device__ __forceinline__ void wide_rows(const CUtensorMap* in_map,
   cluster_sync();
 
   if (threadIdx.x >= 128 * W::CONSUMERS) {
-    // the producer warpgroup: one thread arms this block's "full" barrier
-    // for each box; in rank 0 it also waits until every block released the
-    // stage and sends the box to all of them
     setmaxnreg_dec<W::PRODUCER_REGS>();
     if (threadIdx.x == 128 * W::CONSUMERS) {
-      const uint32_t ring_u32 = smem_u32(ring);
-      const uint16_t mask = static_cast<uint16_t>((1u << W::S) - 1);
-      int stage = 0, i = 0;
-      uint32_t phase = 0;
-      for (int tile = tile0; tile < tiles; tile += tile_step) {
-        for (int kc = 0; kc < W::BOXES; ++kc, ++i) {
-          const uint32_t full_s = smem_u32(&full[stage]);
-          if (rank == 0) {
-            if (i >= W::STAGES) mbar_wait_cluster(smem_u32(&empty[stage]), phase ^ 1);
-            mbar_expect_tx(full_s, W::BOX);
-            const uint32_t dst = ring_u32 + stage * W::BOX;
-            tma_load_multicast(dst, in_map, full_s, kc * W::COLS, tile * W::TILE_ROWS, mask);
-          } else {
-            // the stage's previous box has landed here (so this arrival
-            // opens the next phase); its bytes may come before or after it
-            if (i >= W::STAGES) mbar_wait(full_s, phase ^ 1);
-            mbar_expect_tx(full_s, W::BOX);
-          }
-          if (++stage == W::STAGES) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-      }
-      if (rank == 0) {
-        // the last releases of every stage: no block's warp still arrives here
-        for (int k = 0; k < W::STAGES; ++k, ++i) {
-          if (i >= W::STAGES) mbar_wait_cluster(smem_u32(&empty[stage]), phase ^ 1);
-          if (++stage == W::STAGES) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-      }
+      wide_produce<W>(in_map, ring, full, empty, rank, tile0, tile_step, tiles);
     }
   } else {
     setmaxnreg_inc<W::CONSUMER_REGS>();

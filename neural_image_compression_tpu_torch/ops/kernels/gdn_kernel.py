@@ -322,24 +322,32 @@ def _launch(x, gamma, beta, inverse):
     return out
 
 
-# csrc/gdn_wide.cuh's `Wide`, the launch geometry of its cluster loop at C > 128
+# csrc/gdn_wide.cuh's `Wide`, the launch geometry of its cluster loop: the
+# forward and the backward's norm and mix at C > 128, the backward's fused
+# launch at 65 to 128 channels
 _SMEM_LIMIT, _SMEM_RESERVE = 232448, 2048
-WIDE_LAUNCHES = ("forward", "norm", "mix")
+WIDE_LAUNCHES = ("forward", "norm", "mix", "backward")
 
 
 def wide_geometry(c: int, element_size: int, launch: str = "forward") -> dict:
-    """The launch geometry of csrc/gdn_wide.cuh's cluster loop at c from 129
-    to 256 channels, as it computes it (tests hold the two together), for
-    ``launch``: the forward, or the backward's norm (x tiles) or mix
-    (float32 t tiles, whatever x's ``element_size``): the padded width
-    ``cp``, blocks a ``cluster``, output channels a block ``nb``,
-    ``consumers`` (warpgroups of 64 rows sharing each tile of
-    ``tile_rows``), ring ``stages`` (boxes of ``tile_rows`` rows x 128
-    bytes) and dynamic shared memory ``smem`` in bytes a block."""
-    if not 128 < c <= MAX_CHANNELS:
-        raise ValueError(f"the wide loop takes 129 to {MAX_CHANNELS} channels, not {c}")
+    """The launch geometry of csrc/gdn_wide.cuh's cluster loop, as it
+    computes it (tests hold the two together), for ``launch``: at c from 129
+    to 256 channels the forward, or the backward's norm (x tiles) or mix
+    (float32 t tiles, whatever x's ``element_size``); at c from 65 to 128
+    the backward's fused launch ("backward": x tiles, gamma's P planes in
+    x's type and Q planes in TF32, and an ``exchange`` buffer of t between
+    the cluster's blocks, in bytes a block). The padded width ``cp``, blocks
+    a ``cluster``, output channels a block ``nb``, ``consumers`` (warpgroups
+    of 64 rows sharing each tile of ``tile_rows``), ring ``stages`` (boxes
+    of ``tile_rows`` rows x 128 bytes) and dynamic shared memory ``smem`` in
+    bytes a block."""
     if launch not in WIDE_LAUNCHES:
         raise ValueError(f"launch must be one of {WIDE_LAUNCHES}, not {launch!r}")
+    fused = launch == "backward"
+    if fused and not 64 < c <= 128:
+        raise ValueError(f"the fused backward launch takes 65 to 128 channels, not {c}")
+    if not fused and not 128 < c <= MAX_CHANNELS:
+        raise ValueError(f"the wide loop takes 129 to {MAX_CHANNELS} channels, not {c}")
     esz = 4 if launch == "mix" else element_size
     cp = -(-c // 64) * 64
     f32 = esz == 4
@@ -347,12 +355,18 @@ def wide_geometry(c: int, element_size: int, launch: str = "forward") -> dict:
     consumers = 2 if launch != "forward" else 3
     nb = cp // cluster
     plane = nb * cp * esz
+    q_plane = nb * cp * 4 if fused else 0
+    exchange = consumers * 128 * (nb // 2) * 4 if fused else 0
     tile_rows = 64 * consumers
     box = tile_rows * 128
-    stages = (_SMEM_LIMIT - _SMEM_RESERVE - 2 * plane) // box
-    smem = 1024 + 2 * plane + stages * box + nb * 4 + 2 * stages * 8
-    return dict(cp=cp, cluster=cluster, nb=nb, consumers=consumers, tile_rows=tile_rows,
-                stages=stages, smem=smem)
+    stages = (_SMEM_LIMIT - _SMEM_RESERVE - 2 * plane - 2 * q_plane - exchange) // box
+    barriers = 2 * stages + (2 * consumers if fused else 0)
+    smem = 1024 + 2 * plane + 2 * q_plane + exchange + stages * box + nb * 4 + barriers * 8
+    geo = dict(cp=cp, cluster=cluster, nb=nb, consumers=consumers, tile_rows=tile_rows,
+               stages=stages, smem=smem)
+    if fused:
+        geo["exchange"] = exchange
+    return geo
 
 
 def _chunking(n: int):
@@ -397,6 +411,16 @@ def gdn_backward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return _launch_backward(x, gamma, beta, g, inverse, param_grads)
 
 
+def _scratch_floats(n: int, c: int, bf16: bool, param_grads: bool, chunks: int) -> int:
+    """Float32 values of the backward's scratch, in the C entry point's
+    layout. From 65 to 128 channels the fused launch keeps t and d1 in
+    registers: t (n, c) only for the dgamma/dbeta stage, which reads it. At
+    the other widths t (n, c) and, for bfloat16 rows, d1 (n, c). Then, with
+    the dgamma/dbeta stage, each chunk's dgamma and dbeta partials."""
+    rows = (1 if param_grads else 0) if 64 < c <= 128 else 2 if bf16 else 1
+    return n * c * rows + (chunks * c * (c + 1) if param_grads else 0)
+
+
 def _launch_backward(x, gamma, beta, g, inverse, param_grads):
     n, c = x.shape
     bf16 = x.dtype == torch.bfloat16
@@ -404,18 +428,15 @@ def _launch_backward(x, gamma, beta, g, inverse, param_grads):
     dgamma = torch.empty_like(gamma) if param_grads else None
     dbeta = torch.empty_like(beta) if param_grads else None
     chunk_rows, chunks = _chunking(n)
-    # one float32 buffer, in the C entry point's layout: t (n, c), for
-    # bfloat16 rows d1 (n, c), then each chunk's dgamma and dbeta partials
-    # (none without the dgamma/dbeta stage, which null pointers skip)
-    scratch = torch.empty(n * c * (2 if bf16 else 1)
-                          + (chunks * c * (c + 1) if param_grads else 0),
-                          dtype=torch.float32, device=x.device)
+    floats = _scratch_floats(n, c, bf16, param_grads, chunks)
+    scratch = torch.empty(floats, dtype=torch.float32, device=x.device) if floats else None
     with torch.cuda.device(x.device):
         err = _backward_entry()(
             x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dx.data_ptr(),
             dgamma.data_ptr() if param_grads else None,
-            dbeta.data_ptr() if param_grads else None, scratch.data_ptr(), n, c, chunk_rows,
-            chunks, int(inverse), int(bf16), torch.cuda.current_stream(x.device).cuda_stream)
+            dbeta.data_ptr() if param_grads else None,
+            scratch.data_ptr() if scratch is not None else None, n, c, chunk_rows, chunks,
+            int(inverse), int(bf16), torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"gdn backward kernel launch failed with CUDA error {err}")
     gdn_backward.launches += 1

@@ -262,11 +262,11 @@ def test_wide_geometry_mirrors_the_sizes_csrc_asserts(c, element_size):
     assert geo["smem"] <= 232448 and geo["cluster"] * geo["nb"] == geo["cp"]
 
 
-# and the backward's norm and mix launches on the same loop: one assert for
-# each (launch, ring type, width) instantiation (the mix's ring is float32 t
-# whatever x's type)
+# and the backward's norm and mix launches on the same loop, and its fused
+# launch at 65 to 128 channels: one assert for each (launch, ring type,
+# width) instantiation (the mix's ring is float32 t whatever x's type)
 _WIDE_BWD_ASSERT = re.compile(
-    r"static_assert\(Wide<(float|__nv_bfloat16), (\d+), WIDE_(NORM|MIX)>::S == (\d+)\s*&&\s*"
+    r"static_assert\(Wide<(float|__nv_bfloat16), (\d+), WIDE_(NORM|MIX|BACKWARD)>::S == (\d+)\s*&&\s*"
     r"Wide<\1, \2, WIDE_\3>::NB == (\d+)\s*&&\s*Wide<\1, \2, WIDE_\3>::CONSUMERS == (\d+)"
     r"\s*&&\s*Wide<\1, \2, WIDE_\3>::STAGES == (\d+)\s*&&\s*Wide<\1, \2, WIDE_\3>::SMEM == "
     r"(\d+)")
@@ -274,12 +274,14 @@ _WIDE_BWD_ASSERT = re.compile(
 
 @pytest.mark.parametrize("launch,c,element_size", [
     ("norm", 192, 4), ("norm", 256, 4), ("norm", 192, 2), ("norm", 256, 2),
-    ("mix", 192, 4), ("mix", 256, 4), ("mix", 192, 2), ("mix", 256, 2)])
+    ("mix", 192, 4), ("mix", 256, 4), ("mix", 192, 2), ("mix", 256, 2),
+    ("backward", 128, 4), ("backward", 128, 2)])
 def test_wide_backward_geometry_mirrors_the_sizes_csrc_asserts(launch, c, element_size):
     source = (Path(gdn_kernel.__file__).resolve().parents[2] / "csrc" / "gdn_wide.cuh").read_text()
     asserted = {(launch_.lower(), int(cp), 4 if t == "float" else 2): tuple(map(int, rest))
                 for t, cp, launch_, *rest in _WIDE_BWD_ASSERT.findall(source)}
-    assert len(asserted) == 6  # norm: 2 types x 2 widths; mix: float32 t x 2 widths
+    # norm: 2 types x 2 widths; mix: float32 t x 2 widths; the fused launch: 2 types at 128
+    assert len(asserted) == 8
     ring = 4 if launch == "mix" else element_size
     geo = gdn_kernel.wide_geometry(c, element_size, launch)
     assert (geo["cluster"], geo["nb"], geo["consumers"], geo["stages"],
@@ -293,6 +295,12 @@ def test_wide_backward_geometry_mirrors_the_sizes_csrc_asserts(launch, c, elemen
     if launch == "norm":
         forward = gdn_kernel.wide_geometry(c, element_size)
         assert (geo["cluster"], geo["nb"]) == (forward["cluster"], forward["nb"])
+    # the fused launch: a block holds both layouts of its 64 channels (P in
+    # x's type, Q in TF32) and a consumer's t for the partner, 16 KB
+    if launch == "backward":
+        planes = 2 * geo["nb"] * geo["cp"] * (element_size + 4)
+        assert geo["exchange"] == geo["consumers"] * 128 * (geo["nb"] // 2) * 4 == 32768
+        assert planes + geo["exchange"] + geo["stages"] * geo["tile_rows"] * 128 <= 232448 - 2048
 
 
 def test_wide_geometry_refuses_an_unknown_launch():
@@ -305,6 +313,39 @@ def test_wide_geometry_refuses_the_narrow_widths():
         gdn_kernel.wide_geometry(128, 4)
     with pytest.raises(ValueError, match="129 to 256"):
         gdn_kernel.wide_geometry(257, 2)
+
+
+@pytest.mark.parametrize("launch", ["forward", "norm", "mix"])
+@pytest.mark.parametrize("c", [65, 100, 128])
+def test_wide_geometry_keeps_65_to_128_channels_for_the_fused_launch(launch, c):
+    # the forward, norm and mix launches stay off the cluster loop at C <= 128
+    with pytest.raises(ValueError, match="129 to 256"):
+        gdn_kernel.wide_geometry(c, 4, launch)
+    assert gdn_kernel.wide_geometry(c, 4, "backward")["cp"] == 128
+
+
+@pytest.mark.parametrize("c", [1, 64, 129, 192, 256])
+def test_fused_geometry_refuses_the_other_widths(c):
+    with pytest.raises(ValueError, match="65 to 128"):
+        gdn_kernel.wide_geometry(c, 2, "backward")
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_backward_scratch_holds_t_only_for_the_dgamma_stage_at_cp_128(bf16):
+    # the fused launch keeps t and d1 in registers: no scratch for dx alone,
+    # t alone (for the partials launch) with the dgamma/dbeta stage; the
+    # other widths keep t, and d1 for bfloat16 rows, in the scratch
+    n = 100_003
+    chunks = gdn_kernel._chunking(n)[1]
+    for c in (65, 100, 112, 128):
+        assert gdn_kernel._scratch_floats(n, c, bf16, False, chunks) == 0
+        assert gdn_kernel._scratch_floats(n, c, bf16, True, chunks) == (
+            n * c + chunks * c * (c + 1))
+    for c in (16, 64, 192, 256):
+        rows = n * c * (2 if bf16 else 1)
+        assert gdn_kernel._scratch_floats(n, c, bf16, False, chunks) == rows
+        assert gdn_kernel._scratch_floats(n, c, bf16, True, chunks) == (
+            rows + chunks * c * (c + 1))
 
 
 def _cluster_products(a, b, c, element_size, launch, rnd):
@@ -355,6 +396,76 @@ def test_cluster_launches_keep_dx_dgamma_dbeta(c, dtype, inverse):
     t, d1 = _backward_terms(n, x, g, inverse)
     u = _cluster_products(t, gamma.T, c, esz, "mix", _tf32_rna)
     dx = d1 + np.float32(1.0 if inverse else -1.0) * x * u
+    s_hi, s_lo = (_by_chunk(a, x.shape[0]) for a in _split_rna_trunc(x * x))
+    squares = np.ascontiguousarray(np.concatenate([s_lo, s_hi, s_hi], axis=1).transpose(0, 2, 1))
+    sums, tsums = _partials_launch(squares, t)
+    half = np.float32(0.5 if inverse else -0.5)
+    want_dx, want_dgamma, want_dbeta = _backward_float64(x, gamma, beta, g, inverse)
+    assert _within_backward_tolerance(dx, want_dx)
+    assert _within_backward_tolerance(half * sums, want_dgamma)
+    assert _within_backward_tolerance(half * tsums, want_dbeta)
+
+
+def _fused_backward(x, gamma, beta, g, c, element_size, inverse, rnd):
+    """dx before its rounding to x's type, and t, as csrc/gdn_bwd_kernel.cu's
+    fused launch computes them at 65 to 128 channels. Block rank r of the
+    cluster owns channels [r NB, (r + 1) NB): its norm over them with K over
+    the whole padded width in the kernel's box and k-step order
+    (``_cluster_products``); t and d1 from one rsqrt; its half of t, float32
+    as it is, into the partner's exchange buffer; then u for its channels
+    over all k, k-steps of 8 in channel order, its own half of t from its
+    registers and the partner's from the exchange, each split into TF32 hi
+    and lo against gamma's Q planes (TF32 hi and lo), the three products of
+    a step each summed exactly and added into a float32 accumulator."""
+    geo = gdn_kernel.wide_geometry(c, element_size, "backward")
+    cp, nb, ranks = geo["cp"], geo["nb"], geo["cluster"]
+    n = _cluster_products(x * x, gamma, c, element_size, "backward", rnd) + beta
+    t, d1 = _backward_terms(n, x, g, inverse)
+    tp = np.zeros((x.shape[0], cp), np.float32)
+    tp[:, :c] = t
+    gq = np.zeros((cp, cp), np.float32)
+    gq[:c, :c] = gamma.T  # u = t . gamma^T
+    halves = [tp[:, r * nb:(r + 1) * nb] for r in range(ranks)]
+    exchange = {1 - r: halves[r].copy() for r in range(ranks)}  # what rank 1 - r receives
+    q_hi, q_lo = _split(gq, _tf32_rna)
+    u = np.zeros_like(tp)
+    for r in range(ranks):
+        a = np.concatenate([halves[r] if q == r else exchange[r] for q in range(ranks)], axis=1)
+        a_hi, a_lo = _split(a, _tf32_rna)
+        o = slice(r * nb, (r + 1) * nb)
+        for k0 in range(0, cp, 8):
+            k = slice(k0, k0 + 8)
+            for pa, pb in ((a_lo, q_hi), (a_hi, q_lo), (a_hi, q_hi)):
+                u[:, o] += (pa[:, k].astype(np.float64) @ pb[k, o]).astype(np.float32)
+    return d1 + np.float32(1.0 if inverse else -1.0) * x * u[:, :c], t
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [128, 100])
+def test_fused_launch_keeps_dx_dgamma_dbeta(c, dtype, inverse):
+    # csrc/gdn_bwd_kernel.cu at 65 to 128 channels (100: the padded channels
+    # masked): the fused launch's two products, t exchanged between the
+    # cluster's blocks, then launches 3 and 4 (unchanged) on the t it writes
+    x, gamma, beta = _gdn_operands(8192, c, seed=700 + c)
+    g = np.random.default_rng(800 + c).standard_normal(x.shape, dtype=np.float32)
+    esz, rnd = 4, _tf32_rna
+    if dtype == "bfloat16":
+        x, g, esz, rnd = _bf16(x), _bf16(g), 2, _bf16
+    dx, t = _fused_backward(x, gamma, beta, g, c, esz, inverse, rnd)
+    # the two launches it replaces: the norm's t written as float32, read
+    # back whole by the mix over all outputs at once, in the same k order
+    n = _cluster_products(x * x, gamma, c, esz, "backward", rnd) + beta
+    t2, d1 = _backward_terms(n, x, g, inverse)
+    u = np.zeros(x.shape, np.float32)
+    t_hi, t_lo = _split(t2, _tf32_rna)
+    q_hi, q_lo = _split(gamma.T.copy(), _tf32_rna)
+    for k0 in range(0, c, 8):
+        k = slice(k0, k0 + 8)
+        for pa, pb in ((t_lo, q_hi), (t_hi, q_lo), (t_hi, q_hi)):
+            u += (pa[:, k].astype(np.float64) @ pb[k, :]).astype(np.float32)
+    np.testing.assert_array_equal(t, t2)
+    np.testing.assert_array_equal(dx, d1 + np.float32(1.0 if inverse else -1.0) * x * u)
     s_hi, s_lo = (_by_chunk(a, x.shape[0]) for a in _split_rna_trunc(x * x))
     squares = np.ascontiguousarray(np.concatenate([s_lo, s_hi, s_hi], axis=1).transpose(0, 2, 1))
     sums, tsums = _partials_launch(squares, t)
@@ -768,6 +879,40 @@ def test_gdn_backward_dx_only_on_card(cuda_device, dtype, n, c, inverse):
         before[0] + 1, before[1])
     assert dgamma is None and dbeta is None
     assert torch.equal(dx, full[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("param_grads", [True, False])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# the fused launch at 65 to 128 channels (clusters of two blocks walking
+# 128-row tiles, t exchanged between them): fewer rows than a consumer's 64
+# and than a tile, one tile, one tile and one row, 33 tiles, 67 and 133
+# (odd: the first cluster takes one more tile than the others on an H100,
+# which holds 66 clusters), 68, 129; at C = 128 and at 100 (float32 rows as
+# they are, the channels past 100 masked; bfloat16 rows padded to 112)
+@pytest.mark.parametrize("n,c", [(n, c) for c in (128, 100)
+                                 for n in (1, 63, 65, 128, 129, 4_099, 8_575, 8_581, 16_387,
+                                           16_999)])
+def test_fused_backward_matches_plain_on_card(cuda_device, dtype, inverse, param_grads, n, c):
+    x, gamma, beta, g = (t.to(cuda_device) for t in _gdn_case(n, c, seed=7))
+    x, g = x.to(dtype), g.to(dtype)
+    before = (gdn_kernel.gdn_backward.launches, gdn_kernel.gdn_backward.param_launches)
+    got = gdn_kernel.gdn_backward(x, gamma, beta, g, inverse, param_grads)
+    torch.cuda.synchronize()
+    assert (gdn_kernel.gdn_backward.launches, gdn_kernel.gdn_backward.param_launches) == (
+        before[0] + 1, before[1] + int(param_grads))
+    want = gdn_kernel.gdn_backward_reference(x, gamma, beta, g, inverse, param_grads)
+    _assert_grad_close(got[0], want[0], "dx", dtype)
+    if param_grads:
+        _assert_grad_close(got[1], want[1], "dgamma")
+        _assert_grad_close(got[2], want[2], "dbeta")
+    else:
+        assert got[1] is None and got[2] is None
+        assert torch.equal(got[0], gdn_kernel.gdn_backward(x, gamma, beta, g, inverse)[0])
+    again = gdn_kernel.gdn_backward(x, gamma, beta, g, inverse, param_grads)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -13,10 +13,13 @@ every train site with the dgamma/dbeta stage, and refinement's C=192 rows),
 f32 and bf16, GDN and IGDN: the backward against its plain version
 (chip_smoke.check_gdn_backward, unless the variant is marked unchecked);
 each launch's device time from torch.profiler (norm, mix, partials,
-reduce: chip_smoke.partials_stage) beside the norm and mix launches' bytes
-floor; the whole backward's time and that of dx alone (no dgamma/dbeta
-stage) from CUDA events; and whether dx, dgamma and dbeta are
-bit-identical to the first variant's. The variants run in turns (first to
+reduce, or at 65 to 128 channels fused, partials, reduce:
+chip_smoke.partials_stage) beside the bytes floor of the launches that
+compute dx (norm and mix: t written once and read once, d1; the fused
+launch: x and g read, dx and t written), so that a parent's norm + mix and
+this checkout's fused launch read side by side; the whole backward's time
+and that of dx alone (no dgamma/dbeta stage) from CUDA events; and whether
+dx, dgamma and dbeta are bit-identical to the first variant's. The variants run in turns (first to
 last, then last to first) so that drift of the card's clock shows. Prints
 ptxas's register and spill lines of each variant's rows and partials
 instantiations and one summary line per case.
@@ -55,9 +58,9 @@ from neural_image_compression_tpu_torch.ops.kernels import _build, gdn_kernel  #
 # every train site with the dgamma/dbeta stage (batch 16 of 256x256): H/2,
 # H/4 and H/8 at C=128 (the flagship; the LST's C=128 is H/8's rows) and
 # C=192 (the residual and scalable families), the LST's C=256; refinement's
-# H/2 rows at C=192 (one 768x512 image)
-CASES = ("262144:128", "65536:128", "16384:128", "262144:192", "65536:192", "16384:192",
-         "16384:256", "98304:192")
+# H/2 rows at C=128 and C=192 (one 768x512 image)
+CASES = ("262144:128", "65536:128", "16384:128", "98304:128", "262144:192", "65536:192",
+         "16384:192", "16384:256", "98304:192")
 SOURCES = ("gdn_bwd_kernel.cu", "gdn_wgmma.cuh", "gdn_wide.cuh")
 OUTPUTS = ("dx", "dgamma", "dbeta")
 
@@ -99,7 +102,7 @@ def build(variants):
                 print(f"  {name} {line.strip()}", flush=True)
         for k, line in enumerate(lines):
             if "Compiling" in line and any(f"gdn_bwd_{s}_kernel" in line
-                                           for s in ("norm", "mix", "partials")):
+                                           for s in ("norm", "mix", "fused", "partials")):
                 inst = line.split("gdn_bwd_", 1)[1].split("EEEv", 1)[0]
                 usage = " ".join(x.split(":", 1)[-1].strip() for x in lines[k + 1:k + 4]
                                  if "registers" in x or "spill" in x)
@@ -112,10 +115,35 @@ def build(variants):
     return entries
 
 
-def rows_floor_ms(rows, c, esz):
-    """The norm and mix launches' bytes floor: norm reads x and g and writes
-    t and d1 (float32), mix reads t, x and d1 and writes dx."""
-    return rows * c * (2 * esz + 8 + 2 * esz + 8) / cs.HBM_BYTES_PER_S * 1e3
+def use_widest_scratch():
+    """Makes ops/kernels/gdn_kernel.py give every entry point the scratch
+    of the widest layout (t; d1 for bfloat16 rows; the partials): another
+    commit's entry point may need what this checkout's does not (before the
+    fused launch at 65 to 128 channels, t and d1 at every width)."""
+    gdn_kernel._scratch_floats = lambda n, c, bf16, param_grads, chunks: (
+        n * c * (2 if bf16 else 1) + (chunks * c * (c + 1) if param_grads else 0))
+
+
+def rows_floor_ms(rows, c, esz, fused):
+    """The bytes floor of the launches that compute dx, with the
+    dgamma/dbeta stage: norm reads x and g and writes t and d1 (float32),
+    mix reads t, x and d1 and writes dx; or the fused launch reads x and g
+    and writes dx and t."""
+    per_element = 3 * esz + 4 if fused else 2 * esz + 8 + 2 * esz + 8
+    return rows * c * per_element / cs.HBM_BYTES_PER_S * 1e3
+
+
+def rows_ms(launches, rows, c, esz):
+    """The launches that compute dx in one profile, as "norm + mix" or
+    "fused" ms with their share of rows_floor_ms, or "not measured"."""
+    if launches.get("fused"):
+        ms = launches["fused"]
+        return f"fused {ms:.4f} ({100 * rows_floor_ms(rows, c, esz, True) / ms:.1f}%)"
+    norm, mix = launches.get("norm"), launches.get("mix")
+    if norm and mix:
+        return (f"{norm:.4f} + {mix:.4f} "
+                f"({100 * rows_floor_ms(rows, c, esz, False) / (norm + mix):.1f}%)")
+    return "not measured"
 
 
 def main() -> int:
@@ -129,6 +157,7 @@ def main() -> int:
     variants = json.loads(args.variants.read_text())
     torch.backends.cuda.matmul.allow_tf32 = False
     entries = build(variants)
+    use_widest_scratch()
     print(cs.card_line(), flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -161,32 +190,33 @@ def main() -> int:
                             o for o, a, b in zip(OUTPUTS, got, first_bits[key])
                             if torch.equal(a, b)])
                     del got
-                    stage = cs.partials_stage(x, gamma, beta, g, inverse, label)
+                    stage = cs.partials_stage(x, gamma, beta, g, inverse, label,
+                                              expect=(cs.BWD_LAUNCHES_TWO,
+                                                      cs.BWD_LAUNCHES_FUSED))
                     whole = cs.median_ms(
                         lambda: gdn_kernel.gdn_backward(x, gamma, beta, g, inverse))
                     dx_ms = cs.median_ms(lambda: gdn_kernel.gdn_backward(
                         x, gamma, beta, g, inverse, param_grads=False))
                     runs.setdefault(key, {}).setdefault(name, []).append(
                         (stage["launches_ms"], whole, dx_ms))
-    print(f"== each run: norm + mix ms (profiler; share of their bytes floor), partials ms, "
-          f"whole backward / dx alone ms (CUDA events); bits of dx, dgamma, dbeta against "
-          f"{order[0]}'s")
+    print(f"== each run: norm + mix or fused ms (profiler; share of their bytes floor), "
+          f"partials ms, whole backward / dx alone ms (CUDA events); bits of dx, dgamma, dbeta "
+          f"against {order[0]}'s")
     for (rows, c, dname, direction), by_name in runs.items():
-        floor = rows_floor_ms(rows, c, 4 if dname == "float32" else 2)
+        esz = 4 if dname == "float32" else 2
+        floors = " / ".join(f"{rows_floor_ms(rows, c, esz, fused):.4f}" for fused in (False, True))
         cells = []
         for name, r in by_name.items():
             each = []
             for launches, whole, dx_ms in r:
-                norm, mix = launches.get("norm"), launches.get("mix")
-                rows_ms = (f"{norm:.4f} + {mix:.4f} ({100 * floor / (norm + mix):.1f}%)"
-                           if norm and mix else "not measured")
                 part = launches.get("partials")
-                each.append(f"{rows_ms}, {part if part is None else round(part, 4)}, "
+                each.append(f"{rows_ms(launches, rows, c, esz)}, "
+                            f"{part if part is None else round(part, 4)}, "
                             f"{whole:.4f} / {dx_ms:.4f}")
             held = same.get(((rows, c, dname, direction), name))
             bits = "" if held is None else f" [same bits: {', '.join(held) or 'none'}]"
             cells.append(f"{name} " + " | ".join(each) + bits)
-        print(f"rows={rows} C={c} {dname} {direction} (rows floor {floor:.4f} ms): "
+        print(f"rows={rows} C={c} {dname} {direction} (floor norm + mix / fused {floors} ms): "
               + "  ".join(cells), flush=True)
     return 0
 

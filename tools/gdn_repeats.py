@@ -13,11 +13,15 @@ launch's tile rows) and the channels.
   H/2 rows (4,718,592 and 262,144) at C = 192 and 256, and the LST's
   train rows (16,384 at C = 256), float32 and bfloat16, GDN and IGDN.
 - The backward, each variant of variants.json built as
-  tools/gdn_bwd_variants.py builds it, through its C entry point (dx
-  alone, no dgamma/dbeta stage), each run with its own scratch filled
-  with NaN: the scratch's t (the norm launch's output) and dx (the mix
-  launch's), at 262,144, 65,536 and 98,304 rows of C = 192 and 262,144
-  and 16,384 of 256, float32 and bfloat16, GDN.
+  tools/gdn_bwd_variants.py builds it, through its C entry point, each run
+  with its own scratch filled with NaN: at C = 192 and 256 dx alone (no
+  dgamma/dbeta stage), the scratch's t (the norm launch's output) and dx
+  (the mix launch's), at 262,144, 65,536 and 98,304 rows of C = 192 and
+  262,144 and 16,384 of 256; at C = 128, where the fused launch writes t
+  only for the dgamma/dbeta stage, with that stage: t and dx (the fused
+  launch's), dgamma and dbeta, at 262,144, 98,304, 16,387 and 8,575 rows
+  (ragged, and 67 tiles: the clusters take unequal numbers); float32 and
+  bfloat16, GDN.
 
     python3 tools/gdn_repeats.py variants.json
 """
@@ -39,25 +43,35 @@ from neural_image_compression_tpu_torch.ops.kernels import gdn_kernel  # noqa: E
 
 FORWARD_CASES = ((4_718_592, 192), (262_144, 192), (4_718_592, 256), (262_144, 256),
                  (16_384, 256))
-BACKWARD_CASES = ((262_144, 192), (65_536, 192), (262_144, 256), (98_304, 192), (16_384, 256))
+BACKWARD_CASES = ((262_144, 192), (65_536, 192), (262_144, 256), (98_304, 192), (16_384, 256),
+                  (262_144, 128), (98_304, 128), (16_387, 128), (8_575, 128))
 REPEATS = 4
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def run_backward(entry, x, gamma, beta, g):
-    """dx and the norm launch's t from one call of the entry point."""
+def run_backward(entry, x, gamma, beta, g, param_grads):
+    """{"t": t, "dx": dx} and, with param_grads, dgamma and dbeta from one
+    call of the entry point (t: the scratch's first n * c values, which
+    every layout of it starts with)."""
     n, c = x.shape
     bf16 = x.dtype == torch.bfloat16
     dx = torch.empty_like(x)
+    dgamma, dbeta = (torch.empty_like(gamma), torch.empty_like(beta)) if param_grads else (None,
+                                                                                          None)
     chunk_rows, chunks = gdn_kernel._chunking(n)
-    scratch = torch.full((n * c * (2 if bf16 else 1),), float("nan"), device=x.device)
+    floats = n * c * (2 if bf16 else 1) + (chunks * c * (c + 1) if param_grads else 0)
+    scratch = torch.full((floats,), float("nan"), device=x.device)
     err = entry(x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dx.data_ptr(),
-                None, None, scratch.data_ptr(), n, c, chunk_rows, chunks, 0, int(bf16),
-                torch.cuda.current_stream().cuda_stream)
+                None if dgamma is None else dgamma.data_ptr(),
+                None if dbeta is None else dbeta.data_ptr(), scratch.data_ptr(), n, c,
+                chunk_rows, chunks, 0, int(bf16), torch.cuda.current_stream().cuda_stream)
     if err:
         raise SystemExit(f"launch failed with CUDA error {err}")
     torch.cuda.synchronize()
-    return dx, scratch[:n * c].view(n, c).clone()
+    out = {"t": scratch[:n * c].view(n, c).clone(), "dx": dx}
+    if param_grads:
+        out.update(dgamma=dgamma, dbeta=dbeta.view(1, -1))
+    return out
 
 
 def where(a, b, tile_rows):
@@ -102,17 +116,23 @@ def backward_repeats(entries, rng, dev):
         for dtype in DTYPES:
             x, g = x32.to(dtype), g32.to(dtype)
             esz = x.element_size()
-            norm_rows = gdn_kernel.wide_geometry(c, esz, "norm")["tile_rows"]
-            mix_rows = gdn_kernel.wide_geometry(c, esz, "mix")["tile_rows"]
+            fused = c <= 128
+            if fused:
+                tile_rows = gdn_kernel.wide_geometry(c, esz, "backward")["tile_rows"]
+                rows_of = dict(t=tile_rows, dx=tile_rows, dgamma=c, dbeta=c)
+            else:
+                rows_of = dict(t=gdn_kernel.wide_geometry(c, esz, "norm")["tile_rows"],
+                               dx=gdn_kernel.wide_geometry(c, esz, "mix")["tile_rows"])
             for name, entry in entries.items():
-                first_dx, first_t = run_backward(entry, x, gamma, beta, g)
-                t_diff, dx_diff = [], []
+                first = run_backward(entry, x, gamma, beta, g, fused)
+                diffs = {k: [] for k in first}
                 for _ in range(REPEATS):
-                    dx, t = run_backward(entry, x, gamma, beta, g)
-                    t_diff.append(where(t, first_t, norm_rows))
-                    dx_diff.append(where(dx, first_dx, mix_rows))
-                print(f"backward {name} rows={rows} C={c} {str(dtype).replace('torch.', '')}: "
-                      f"t {summary(t_diff)}; dx {summary(dx_diff)}", flush=True)
+                    again = run_backward(entry, x, gamma, beta, g, fused)
+                    for k in first:
+                        diffs[k].append(where(again[k], first[k], rows_of[k]))
+                print(f"backward {name} rows={rows} C={c} {str(dtype).replace('torch.', '')}"
+                      f"{' with dgamma/dbeta' if fused else ''}: "
+                      + "; ".join(f"{k} {summary(d)}" for k, d in diffs.items()), flush=True)
 
 
 def main() -> int:

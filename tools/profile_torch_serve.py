@@ -26,10 +26,17 @@ one call of coding.make_refiner (20 steps at lr 1e-2, lambda 0.005) on one
 replicas (lambda 0.0018, 0.0067, 0.025; f32, batch 16 of 256x256: the
 grouped convolutions of torch.func.vmap, GDN once a replica) beside the
 single f32 training step, the sweep's window opened and closed from its
-log_fn (log_every=1: one host sync a step).
+log_fn (log_every=1: one host sync a step). With --bwd-parent CSRC
+(another commit's csrc/ directory, unpacked with git archive) each
+configuration is profiled twice in one process, first with that commit's
+GDN backward (built as tools/gdn_bwd_variants.py builds a variant) and
+then with this checkout's, and their backward launches are printed side
+by side (before and after the fused launch at 65 to 128 channels: norm +
+mix against fused).
 Prints, per configuration, the device time by layer (cuDNN convolutions,
 the GDN kernels, the GDN backward split by launch: norm, mix, partials and
-reduce, the mixture-likelihood kernels, the optimizer, other) and
+reduce, or at 65 to 128 channels fused, partials and reduce, the
+mixture-likelihood kernels, the optimizer, other) and
 the device's busy share of the profiled window and its host gap (wall less
 device time), then one JSON line with the same numbers. Imports only the
 port, never JAX; TF32 off as in chip_smoke.py, and cuDNN's autotuning off
@@ -37,7 +44,7 @@ port, never JAX; TF32 off as in chip_smoke.py, and cuDNN's autotuning off
 
     python3 tools/profile_torch_serve.py [--train | --trainer | --refine | --sweep]
         [--family joint_ar|hyperprior|checkerboard|channel_cb|factorized|residual|scalable]
-        [--autotune]
+        [--autotune] [--bwd-parent CSRC]
 """
 
 import argparse
@@ -401,6 +408,9 @@ def main() -> int:
                              "mixture; residual: M=192, K=1; scalable: M=192, M1=128, K=1)")
     parser.add_argument("--autotune", action="store_true",
                         help="turn on cuDNN's autotuning (torch.backends.cudnn.benchmark)")
+    parser.add_argument("--bwd-parent", metavar="CSRC",
+                        help="another commit's csrc/ directory: profile each configuration "
+                             "with its GDN backward, then with this checkout's")
     args = parser.parse_args()
     global MODEL, WIDTHS
     MODEL, WIDTHS = FAMILIES[args.family]
@@ -414,13 +424,51 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}, family {args.family} ({MODEL.__name__}), cuDNN autotuning "
           f"{'on' if args.autotune else 'off'}")
-    results = (profile_train(card) if args.train else
-               profile_trainer(card) if args.trainer else
-               profile_refine(card) if args.refine else
-               profile_sweep(card) if args.sweep else profile_serve(card))
+    run = (profile_train if args.train else profile_trainer if args.trainer else
+           profile_refine if args.refine else profile_sweep if args.sweep else profile_serve)
+    if not args.bwd_parent:
+        results = run(card)
+    else:
+        results = {}
+        for name, entry in backward_entries(args.bwd_parent).items():
+            print(f"=== GDN backward: {name}", flush=True)
+            gdn_kernel._backward_entry = lambda entry=entry: entry
+            results[name] = run(card)
+        compare_backward(results)
     print(json.dumps({"card": card, "family": args.family, "autotune": args.autotune,
                       "profile": results}))
     return 0
+
+
+def backward_entries(parent_csrc):
+    """The GDN backward's C entry points: another commit's (built from its
+    csrc/ by tools/gdn_bwd_variants.py) and this checkout's. Both get the
+    scratch of the widest layout, which the other commit's may need."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import gdn_bwd_variants  # noqa: E402 (imports chip_smoke)
+
+    gdn_bwd_variants.use_widest_scratch()
+    parent = gdn_bwd_variants.build({"parent": [parent_csrc, True]})["parent"]
+    return {"parent": parent, "this checkout": gdn_kernel._backward_entry()}
+
+
+def compare_backward(results):
+    """Each configuration's GDN backward launches under both entry points,
+    and the launches that compute dx summed (norm + mix, or fused)."""
+    names = list(results)
+    for tag, last in results[names[-1]].items():
+        if "by_layer_ms" not in last:
+            continue
+        cells = []
+        for name in names:
+            layers = results[name].get(tag, {}).get("by_layer_ms", {})
+            bwd = {k.split(": ", 1)[1]: v for k, v in layers.items()
+                   if k.startswith("gdn backward kernel: ")}
+            rows = sum(v for k, v in bwd.items() if k in ("norm", "mix", "fused"))
+            cells.append(f"{name}: " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(bwd.items()))
+                         + f" (dx launches {rows:.3f} ms; device "
+                         f"{results[name][tag]['device_ms_per_call']:.3f} ms)")
+        print(f"== GDN backward, {tag}: " + " | ".join(cells), flush=True)
 
 
 if __name__ == "__main__":
