@@ -511,6 +511,7 @@ def gmm_case(dev, path, n, seed):
     got = gmm_kernel.gmm_logp(*args)
     want = gmm_kernel.mixture_log_likelihood_reference(*args)
     torch.cuda.synchronize()
+    check(torch.equal(got, gmm_kernel.gmm_logp(*args)), f"gmm_logp {path}: two runs differ")
     err = (got - want).abs().max().item()
     bulk = want > float(np.log(1e-6))
     check(bulk.float().mean().item() > 0.99, f"mixture symbols ({path}): bulk share")
@@ -766,6 +767,8 @@ def gmm_backward_case(dev, path, n, seed):
     got = gmm_kernel.gmm_logp_backward(*args, g)
     want = gmm_kernel.mixture_log_likelihood_backward_reference(*args, g)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, gmm_kernel.gmm_logp_backward(*args, g))),
+          f"gmm backward {path}: two runs differ")
     # both use CUDA's erff and expf; the K-sum and the divisions may round
     # apart: 1e-4 relative plus 1e-6 of the largest value
     err = 0.0

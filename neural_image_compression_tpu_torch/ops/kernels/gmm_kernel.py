@@ -14,7 +14,10 @@ replica axis folds into the rows, one launch for all replicas. Each wrapper laun
 ``csrc/gmm_kernel.cu`` for CUDA tensors and runs its plain version
 (``mixture_log_likelihood_reference``,
 ``mixture_log_likelihood_backward_reference``) for CPU tensors; there is no
-other dispatch.
+other dispatch. The public functions check their inputs; the autograd and
+vmap routes launch the backward on tensors their forward has checked,
+without checking them again. ``mixture_geometry`` mirrors the kernels'
+launch geometry (row tiles, ring stages, shared memory, grid).
 """
 
 import ctypes
@@ -66,6 +69,74 @@ def mixture_log_likelihood_backward_reference(y: torch.Tensor, weights: torch.Te
     a = gp * weights * inv_s
     dmus = -a * (pdf_u - pdf_l)
     return -torch.sum(dmus, dim=1), gp * mass, dmus, -a * (pdf_u * u - pdf_l * l)
+
+
+# csrc/gmm_kernel.cu's geometry, mirrored: 8 consumer warps and a producer
+# warp a block; tiles of rows in fours, about 512 positions each (1,024
+# where a block takes at least 16 such); a ring of 2 to 8 stages past the
+# 128 bytes of mbarriers; two blocks an SM where two stages fit in half an
+# SM's shared memory
+_THREADS = 288
+_MAX_STAGES, _MIN_STAGES = 8, 2
+_ROW_STEP, _TILE_POSITIONS, _BIG_TILES_PER_BLOCK = 4, 512, 16
+_HEADER = 2 * _MAX_STAGES * 8
+_SMEM_SM, _SMEM_BLOCK_RESERVE, _SMEM_LIMIT = 233472, 1024, 232448
+_SMEM_HALF = _SMEM_SM // 2 - _SMEM_BLOCK_RESERVE
+H100_SMS = 132
+
+
+def _resident_by_smem(smem: int) -> int:
+    """Blocks an SM holds by threads and shared memory alone."""
+    return min(2048 // _THREADS, _SMEM_SM // (smem + _SMEM_BLOCK_RESERVE))
+
+
+def _ring(k: int, m: int, backward: bool, positions: int):
+    """csrc/gmm_kernel.cu's geometry(): (rows, stages, stage bytes, blocks an
+    SM) of tiles of about ``positions`` positions; no stages: no ring."""
+    row_bytes = 4 * m * (3 * k + (2 if backward else 1))
+    rows = max(_ROW_STEP, positions // m // _ROW_STEP * _ROW_STEP)
+    while rows > _ROW_STEP and _HEADER + _MIN_STAGES * rows * row_bytes > _SMEM_HALF:
+        rows -= _ROW_STEP
+    stage = rows * row_bytes
+    blocks = 2 if _HEADER + _MIN_STAGES * stage <= _SMEM_HALF else 1
+    stages = min(_MAX_STAGES, ((_SMEM_HALF if blocks == 2 else _SMEM_LIMIT) - _HEADER) // stage)
+    if stages < _MIN_STAGES:
+        return rows, 0, stage, 2
+    return rows, stages, stage, blocks
+
+
+def mixture_geometry(n: int, k: int, m: int, backward: bool = False, sms: int = H100_SMS,
+                     resident=_resident_by_smem) -> dict:
+    """The launch geometry of csrc/gmm_kernel.cu's forward (or backward)
+    over n rows of K components and M channels, as the C entry point
+    computes it (tests hold the two together) for a card of ``sms`` SMs:
+    ``rows`` a tile (a multiple of 4), ring ``stages`` (0: every tile is
+    read straight from device memory, as is every tile of a call whose
+    pointers are not 16-byte aligned), dynamic shared memory ``smem`` in
+    bytes a block, ``blocks_per_sm``, ``tiles``, ``ring_tiles`` (the whole
+    tiles, which go through the ring; the last, ragged tile does not) and
+    the persistent ``grid``. Tiles aim at 512 positions, or at 1,024 where a
+    block would still take 16 of those. Where a block would take fewer
+    tiles than the ring has stages, the ring shrinks to that many and the
+    grid grows to as many blocks as an SM holds at that size:
+    ``resident(smem)``, which the C entry point takes from CUDA's
+    occupancy calculator (registers count there too); where a block then
+    takes one tile, it reads it directly (no ring)."""
+    rows, stages, stage, blocks = _ring(k, m, backward, _TILE_POSITIONS)
+    big = _ring(k, m, backward, 2 * _TILE_POSITIONS)
+    if big[1] and n // big[0] >= _BIG_TILES_PER_BLOCK * sms * big[3]:
+        rows, stages, stage, blocks = big
+    tiles = -(-n // rows)
+    grid = min(tiles, sms * blocks)
+    per_block = -(-tiles // grid) if grid else 0
+    if 0 < per_block < stages:
+        blocks = max(blocks, resident(_HEADER + per_block * stage))
+        grid = min(tiles, sms * blocks)
+        per_block = -(-tiles // grid)
+        stages = per_block if per_block > 1 else 0
+    return dict(rows=rows, stages=stages, smem=_HEADER + stages * stage if stages else 0,
+                blocks_per_sm=blocks, tiles=tiles, ring_tiles=n // rows if stages else 0,
+                grid=grid)
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,7 +200,7 @@ class _MixtureLogLikelihood(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        return gmm_logp_backward(*ctx.saved_tensors, g)
+        return _launch_backward(*ctx.saved_tensors, g)
 
 
 def _folded(info, in_dims, tensors):
@@ -149,7 +220,7 @@ class _MixtureBackward(torch.autograd.Function):
 
     @staticmethod
     def forward(y, weights, mus, sigmas, g):
-        return gmm_logp_backward(y, weights, mus, sigmas, g)
+        return _launch_backward(y, weights, mus, sigmas, g)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -227,6 +298,20 @@ def gmm_logp(y: torch.Tensor, weights: torch.Tensor, mus: torch.Tensor,
 
 def _forward(y, weights, mus, sigmas):
     _check(y, weights, mus, sigmas)
+    return _launch_forward(y, weights, mus, sigmas)
+
+
+def _on_device(fn, device, *args):
+    """``fn(*args, stream)`` with ``device`` current, on its current stream."""
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def _launch_forward(y, weights, mus, sigmas):
+    """The forward on checked tensors."""
     if y.device.type == "cpu":
         return mixture_log_likelihood_reference(y, weights, mus, sigmas)
     if y.device.type != "cuda":
@@ -235,10 +320,8 @@ def _forward(y, weights, mus, sigmas):
     out = torch.empty_like(y)
     if n == 0 or m == 0:
         return out
-    with torch.cuda.device(y.device):
-        err = _entry()(y.data_ptr(), weights.data_ptr(), mus.data_ptr(),
-                       sigmas.data_ptr(), out.data_ptr(), n, weights.shape[1], m,
-                       torch.cuda.current_stream(y.device).cuda_stream)
+    err = _on_device(_entry(), y.device, y.data_ptr(), weights.data_ptr(), mus.data_ptr(),
+                     sigmas.data_ptr(), out.data_ptr(), n, weights.shape[1], m)
     if err:
         raise RuntimeError(f"gmm kernel launch failed with CUDA error {err}")
     gmm_logp.launches += 1
@@ -254,6 +337,12 @@ def gmm_logp_backward(y: torch.Tensor, weights: torch.Tensor, mus: torch.Tensor,
     if g.shape != y.shape or g.dtype != torch.float32 or g.device != y.device:
         raise ValueError(f"g must be float32 {tuple(y.shape)} on {y.device}, got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    return _launch_backward(y, weights, mus, sigmas, g)
+
+
+def _launch_backward(y, weights, mus, sigmas, g):
+    """The backward on checked tensors (a g of y's shape, type and device,
+    in any layout)."""
     g = g.contiguous()
     if y.device.type == "cpu":
         return mixture_log_likelihood_backward_reference(y, weights, mus, sigmas, g)
@@ -264,11 +353,9 @@ def gmm_logp_backward(y: torch.Tensor, weights: torch.Tensor, mus: torch.Tensor,
              torch.empty_like(sigmas))
     if n == 0 or m == 0:
         return grads
-    with torch.cuda.device(y.device):
-        err = _backward_entry()(y.data_ptr(), weights.data_ptr(), mus.data_ptr(),
-                                sigmas.data_ptr(), g.data_ptr(),
-                                *(t.data_ptr() for t in grads), n, weights.shape[1], m,
-                                torch.cuda.current_stream(y.device).cuda_stream)
+    err = _on_device(_backward_entry(), y.device, y.data_ptr(), weights.data_ptr(),
+                     mus.data_ptr(), sigmas.data_ptr(), g.data_ptr(),
+                     *(t.data_ptr() for t in grads), n, weights.shape[1], m)
     if err:
         raise RuntimeError(f"gmm backward kernel launch failed with CUDA error {err}")
     gmm_logp_backward.launches += 1

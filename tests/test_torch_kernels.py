@@ -789,18 +789,56 @@ def test_wide_gdn_launches_once_a_call_on_card(cuda_device, dtype):
         assert gdn_kernel.gdn.launches == before + 2
 
 
+# The main path's three shapes (serve, train step, refinement), rows that
+# leave a ragged last tile (read straight from device memory), M = 1 and
+# M = 100 (rows that are no multiple of 16 bytes), K = 8, contiguous views
+# one float past an aligned address (every tile read directly) and N = 0.
+# Each case: (n, k, m, storage offset of every input).
+_GMM_CARD_CASES = [(1000, 3, 128, 0), (37, 1, 100, 0), (50, 8, 16, 0), (73_728, 3, 128, 0),
+                   (4_096, 3, 128, 0), (1_536, 3, 128, 0), (4_099, 3, 128, 0),
+                   (1_001, 3, 1, 0), (1_003, 2, 100, 0), (4_099, 8, 128, 0),
+                   (4_096, 3, 128, 1), (1_001, 2, 100, 1), (0, 3, 128, 0)]
+
+
+def _at_offset(t, offset):
+    """t's values in a contiguous view `offset` floats into its storage."""
+    if not offset:
+        return t
+    out = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)[offset:].view_as(t)
+    return out.copy_(t)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k,m", [(1000, 3, 128), (37, 1, 100), (50, 8, 16)])
-def test_gmm_kernel_matches_plain_on_card(cuda_device, n, k, m):
+@pytest.mark.parametrize("n,k,m,offset", _GMM_CARD_CASES)
+def test_gmm_kernel_matches_plain_on_card(cuda_device, n, k, m, offset):
     args = [torch.from_numpy(a).to(cuda_device) for a in mixture_symbols(n, k, m, seed=5)]
+    shifted = [_at_offset(t, offset) for t in args]
     before = gmm_kernel.gmm_logp.launches
-    got = gmm_kernel.gmm_logp(*args)
+    got = gmm_kernel.gmm_logp(*shifted)
     torch.cuda.synchronize()
-    assert gmm_kernel.gmm_logp.launches == before + 1
+    assert gmm_kernel.gmm_logp.launches == before + (n > 0)
+    assert got.shape == (n, m)
     want = gmm_kernel.mixture_log_likelihood_reference(*args)
     bulk = want > np.log(1e-6)
     torch.testing.assert_close(got[bulk], want[bulk], rtol=0, atol=1e-5)
     np.testing.assert_allclose(got.double().sum().item(), want.double().sum().item(), rtol=1e-6)
+    if offset:  # the direct route gives the ring's bits
+        assert torch.equal(got, gmm_kernel.gmm_logp(*args))
+
+
+@pytest.mark.cuda
+def test_gmm_kernels_repeat_their_bits_on_card(cuda_device):
+    # no atomics, no order that depends on timing: two runs, the same bits
+    n, k, m = 4_096, 3, 128
+    arrays = _mixture_with_tails(n, k, m, seed=9)
+    inputs = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    g = torch.from_numpy(np.random.default_rng(10).normal(size=(n, m)).astype(np.float32)).to(
+        cuda_device)
+    assert torch.equal(gmm_kernel.gmm_logp(*inputs), gmm_kernel.gmm_logp(*inputs))
+    first = gmm_kernel.gmm_logp_backward(*inputs, g)
+    again = gmm_kernel.gmm_logp_backward(*inputs, g)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def _assert_grad_close(got, want, name, dtype=torch.float32):
@@ -975,21 +1013,28 @@ def test_gdn_autograd_launches_both_kernels_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k,m", [(4096, 3, 128), (37, 1, 100), (50, 8, 16)])
-def test_gmm_backward_kernel_matches_plain_on_card(cuda_device, n, k, m):
-    arrays = _mixture_with_tails(n, k, m, seed=6)
+@pytest.mark.parametrize("n,k,m,offset", _GMM_CARD_CASES)
+def test_gmm_backward_kernel_matches_plain_on_card(cuda_device, n, k, m, offset):
+    arrays = _mixture_with_tails(n, k, m, seed=6) if n >= 2 else mixture_symbols(n, k, m, seed=6)
     inputs = [torch.from_numpy(a).to(cuda_device) for a in arrays]
     g = torch.from_numpy(np.random.default_rng(8).normal(size=(n, m)).astype(np.float32)).to(
         cuda_device)
+    shifted = [_at_offset(t, offset) for t in inputs + [g]]
     before = gmm_kernel.gmm_logp_backward.launches
-    got = gmm_kernel.gmm_logp_backward(*inputs, g)
+    got = gmm_kernel.gmm_logp_backward(*shifted)
     torch.cuda.synchronize()
-    assert gmm_kernel.gmm_logp_backward.launches == before + 1
+    assert gmm_kernel.gmm_logp_backward.launches == before + (n > 0)
+    assert [tuple(t.shape) for t in got] == [(n, m)] + [(n, k, m)] * 3
+    if n == 0:
+        return
     want = gmm_kernel.mixture_log_likelihood_backward_reference(*inputs, g)
     for name, a, b in zip(("dy", "dw", "dmu", "dsigma"), got, want):
         # both use CUDA's erff and expf; the K-sum and divisions may round apart
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * float(b.abs().max()), msg=name)
     assert torch.count_nonzero(got[0][0]) == 0
+    if offset:  # the direct route gives the ring's bits
+        for a, b in zip(got, gmm_kernel.gmm_logp_backward(*inputs, g)):
+            assert torch.equal(a, b)
 
 
 # --- on the card only: the scalable model's paths through the kernels -------------

@@ -140,7 +140,7 @@ def _mixture_inputs(seed=3):
 def test_vmap_grad_through_gmm_folds_replicas(monkeypatch):
     y, w, mus, sigmas = _mixture_inputs()
     fwd = _count_calls(monkeypatch, gmm_kernel, "_forward")
-    bwd = _count_calls(monkeypatch, gmm_kernel, "gmm_logp_backward")
+    bwd = _count_calls(monkeypatch, gmm_kernel, "_launch_backward")
 
     def loss(y, w, mus, sigmas):
         return gmm_kernel.gmm_logp(y, w, mus, sigmas).sum()
