@@ -1,0 +1,7 @@
+"""idle_pct.train: the share of the traced window in which no operation ran on the device."""
+
+from port_bench import readers
+
+
+def read(run):
+    return readers.idle_pct(run, "train")
